@@ -1,0 +1,196 @@
+"""Per-pair test-time-optimization registration engine.
+
+Counterpart of ``deformationpyramid_tpu/solve/registration.py`` (reference
+``Registration.optimize_deformation_pyramid``,
+``model/registration.py:126-262``), without the landmark mode:
+
+  mean-centre both clouds -> random ``samples``-subset of each ->
+  level-by-level Adam (fresh optimizer per level, 3-way early stop) ->
+  full-cloud warp through all levels -> re-add the target mean.
+
+The points handed to the next level are the warp evaluated *before* the
+level's final optimizer step (``registration.py:241-249``). Each level runs
+the fused iteration (``ops/fused_iteration.run_fused_level``: kernels C2,
+C1, C3, C4 on the card) when ``use_fused_iteration`` is set and the kernels
+cover the configuration, and otherwise the unfused loop: the plain warp
+with autograd and ``truncated_chamfer`` on kernel C1. Pairs are solved one
+at a time; the device follows the input tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from ..models.pyramid import (NDPConfig, init_pyramid_params, level_params,
+                              level_warp, warp)
+from ..ops.chamfer import truncated_chamfer
+from ..ops.fused_iteration import run_fused_level, supports_fused_iteration
+from .loop import LoopConfig, run_adam_loop
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Reference ``config/NDP.yaml`` knobs + pyramid config."""
+
+    pyramid: NDPConfig = dataclasses.field(default_factory=NDPConfig)
+    iters: int = 500
+    lr: float = 0.01
+    max_break_count: int = 15
+    break_threshold_ratio: float = 0.001
+    samples: int = 2000
+    w_reg: float = 0.0
+    # The reference hardcodes trunc=1e9 for the no-landmark objective
+    # (``model/registration.py:212``).
+    trunc_chamfer: float = 1e9
+    loss_eps: float = 1e-4
+    # The fused iteration (ops/fused_iteration.py); None/False = the
+    # unfused loop, as in the JAX package's library default.
+    use_fused_iteration: bool | None = None
+
+    def loop_config(self) -> LoopConfig:
+        return LoopConfig(iters=self.iters, lr=self.lr,
+                          max_break_count=self.max_break_count,
+                          break_threshold_ratio=self.break_threshold_ratio,
+                          loss_eps=self.loss_eps)
+
+
+def _bce_zeros(p: Tensor, valid: Tensor | None = None) -> Tensor:
+    """BCE(p, target=0) = -mean(log(1-p)), torch-style -100 clamp."""
+    log1mp = torch.clamp_min(torch.log1p(-p), -100.0)
+    if valid is None:
+        return -torch.mean(log1mp)
+    return -torch.sum(torch.where(valid, log1mp, 0.0)) \
+        / torch.clamp_min(valid.sum(), 1)
+
+
+def _as_generator(key: int | torch.Generator) -> torch.Generator:
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator().manual_seed(int(key))
+
+
+def _solve_level(lvl_params: dict, lvl: int, pts: Tensor, pts_valid: Tensor,
+                 t_sample: Tensor, t_valid: Tensor, cfg: SolverConfig):
+    """Adam-optimize one pyramid level on the sampled source points.
+
+    Returns (updated level params, warped pts of the last evaluation,
+    stats {iters, loss}).
+    """
+    pcfg = cfg.pyramid
+    lcfg = cfg.loop_config()
+    if cfg.use_fused_iteration and supports_fused_iteration(pcfg, cfg.w_reg):
+        return run_fused_level(lvl_params, pts, pts_valid, t_sample, t_valid,
+                               lvl, pcfg, lcfg, trunc=cfg.trunc_chamfer)
+
+    def loss_fn(p):
+        warped, nr = level_warp(p, pts, lvl, pcfg)
+        loss = truncated_chamfer(warped, t_sample, x_valid=pts_valid,
+                                 y_valid=t_valid, trunc=cfg.trunc_chamfer)
+        if cfg.w_reg > 0 and lvl > 0:
+            loss = loss + cfg.w_reg * _bce_zeros(nr, pts_valid)
+        return loss, warped
+
+    return run_adam_loop(loss_fn, lvl_params, lcfg, aux_init=pts)
+
+
+def _random_subset(gen: torch.Generator, pts: Tensor, valid: Tensor, k: int
+                   ) -> tuple[Tensor, Tensor]:
+    """Random k-subset of the valid rows, fixed output shape: rows ranked by
+    a uniform score (drawn on the CPU from ``gen``) with invalid rows last;
+    if fewer than k rows are valid the extras come back masked out."""
+    score = torch.rand(pts.shape[0], generator=gen).to(pts.device)
+    score = torch.where(valid, score, 2.0)
+    idx = torch.topk(-score, k).indices
+    return pts[idx], valid[idx]
+
+
+def optimize_pyramid(params: dict, pts0: Tensor, pts_valid: Tensor,
+                     t_sample: Tensor, t_valid: Tensor, cfg: SolverConfig
+                     ) -> tuple[dict, dict[str, Tensor]]:
+    """Level-by-level Adam on pre-centred, pre-sampled points, starting from
+    the stacked initial ``params``. Returns (final stacked params, stats
+    {"iters": [m], "loss": [m]}). Reference: the level loop of
+    ``optimize_deformation_pyramid`` (``registration.py:166-249``)."""
+    pts = pts0
+    per_level, iters, losses = [], [], []
+    for lvl in range(cfg.pyramid.m):
+        new_p, pts, stats = _solve_level(level_params(params, lvl), lvl, pts,
+                                         pts_valid, t_sample, t_valid, cfg)
+        per_level.append(new_p)
+        iters.append(stats["iters"])
+        losses.append(stats["loss"])
+    final = _stack_levels(per_level)
+    return final, {"iters": torch.stack(iters), "loss": torch.stack(losses)}
+
+
+def _stack_levels(levels: list[dict]) -> dict:
+    if isinstance(levels[0], dict):
+        return {k: _stack_levels([lv[k] for lv in levels]) for k in levels[0]}
+    return torch.stack([t.detach() for t in levels])
+
+
+def _masked_mean(pts: Tensor, valid: Tensor) -> Tensor:
+    return (torch.sum(torch.where(valid[:, None], pts, 0.0), dim=0)
+            / torch.clamp_min(valid.sum(), 1))[None]
+
+
+def register_pair(key: int | torch.Generator, src: Tensor, tgt: Tensor,
+                  cfg: SolverConfig, src_valid: Tensor | None = None,
+                  tgt_valid: Tensor | None = None
+                  ) -> tuple[Tensor, dict[str, Tensor]]:
+    """Register one (padded) pair; returns (warped full source cloud,
+    stats). ``key`` seeds the initial weights and the two random subsets
+    (drawn on the CPU, so a seed gives the same draw on every device)."""
+    gen = _as_generator(key)
+    pcfg = cfg.pyramid
+    n_src, n_tgt = src.shape[0], tgt.shape[0]
+    if src_valid is None:
+        src_valid = torch.ones(n_src, dtype=torch.bool, device=src.device)
+    if tgt_valid is None:
+        tgt_valid = torch.ones(n_tgt, dtype=torch.bool, device=tgt.device)
+
+    params = init_pyramid_params(gen, pcfg, device=src.device)
+    src_mean = _masked_mean(src, src_valid)
+    tgt_mean = _masked_mean(tgt, tgt_valid)
+    src_c = src - src_mean
+    tgt_c = tgt - tgt_mean
+    s_sample, s_valid = _random_subset(gen, src_c, src_valid,
+                                       min(cfg.samples, n_src))
+    t_sample, t_valid = _random_subset(gen, tgt_c, tgt_valid,
+                                       min(cfg.samples, n_tgt))
+
+    final_params, stats = optimize_pyramid(params, s_sample, s_valid,
+                                           t_sample, t_valid, cfg)
+    with torch.no_grad():
+        warped_full, _ = warp(final_params, src_c, pcfg)
+    return warped_full + tgt_mean, stats
+
+
+def make_register_fn(cfg: SolverConfig):
+    """A single-pair registration function with ``cfg`` bound."""
+    def fn(key, src, tgt, src_valid=None, tgt_valid=None):
+        return register_pair(key, src, tgt, cfg, src_valid, tgt_valid)
+    return fn
+
+
+def register_batch(keys: Sequence[int | torch.Generator], src: Tensor,
+                   tgt: Tensor, cfg: SolverConfig,
+                   src_valid: Tensor | None = None,
+                   tgt_valid: Tensor | None = None
+                   ) -> tuple[Tensor, dict[str, Tensor]]:
+    """Register B pairs one after another: keys [B], src [B, N, 3],
+    tgt [B, M, 3]. Returns (warped [B, N, 3], stats with a leading B
+    axis)."""
+    outs, stats = [], []
+    for b in range(src.shape[0]):
+        w, st = register_pair(keys[b], src[b], tgt[b], cfg,
+                              None if src_valid is None else src_valid[b],
+                              None if tgt_valid is None else tgt_valid[b])
+        outs.append(w)
+        stats.append(st)
+    return torch.stack(outs), {k: torch.stack([s[k] for s in stats])
+                               for k in stats[0]}

@@ -4,14 +4,16 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 The port of ``deformationpyramid_tpu`` (JAX, TPU), which stays beside it as
 the reference. Module names mirror the JAX package's:
 
-  data/      synthetic deformed pairs (numpy, copied)
+  data/      synthetic deformed pairs, PLY I/O (numpy, copied)
   geometry/  rotation parameterizations
   models/    the NDP pyramid (stacked level params, flat level layout)
   ops/       1-NN (kernel C1), truncated chamfer, the fused iteration
-             (kernels C2-C4), the kernels' build and binding (cuda_lib)
+             (kernels C2-C4) and the landmark iteration (kernel C5), the
+             kernels' build and binding (cuda_lib)
   csrc/      the CUDA C++ sources of the kernels
   solve/     Adam with the device-side early stop, the registration engine
   metrics/   scene-flow metrics
+  cli/       the Sim(3) shape-transfer demo
 
 Tensors on the CPU take each kernel's plain PyTorch version; tensors on a
 CUDA device launch the kernels, which are compiled by nvcc at first use.

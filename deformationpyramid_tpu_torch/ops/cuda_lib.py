@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-All sources in ``deformationpyramid_tpu_torch/csrc/*.cu`` are compiled by
-``nvcc`` for ``sm_90a`` (Hopper) into one shared library with a plain C
-interface, at first use, into ``<repo>/build/torch_kernels/``, and loaded
-with ``ctypes``. The library's name carries a hash of the sources, so an
+Each source in ``deformationpyramid_tpu_torch/csrc/*.cu`` is compiled by
+its own ``nvcc`` for ``sm_90a`` (Hopper), all of them at once, and the
+objects are linked into one shared library with a plain C interface, at
+first use, into ``<repo>/build/torch_kernels/``, and loaded with
+``ctypes``. The library's name carries a hash of the sources, so an
 edited kernel is rebuilt and a stale build is never loaded. Nothing here
 runs when the module is imported: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -29,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: ctypes.CDLL | None = None
 
@@ -63,28 +64,41 @@ def build() -> tuple[Path, float]:
     """Compile the kernels unless this source state is built already.
 
     Returns (library path, seconds spent compiling; 0 when it was built).
-    The library is written under a temporary name and renamed, so a
-    concurrent process never loads a half-written file.
+    The objects and the library are written in a temporary directory and
+    the library renamed into place, so a concurrent process never loads a
+    half-written file.
     """
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC),
-                               "-o", tmp, *cu],
+        objs = [work / f"{src.stem}.o" for src in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                                   str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(cu, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [f"{src.name} ({proc.returncode}):\n{log}"
+                  for src, proc, log in zip(cu, procs, logs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = work / "lib.so"
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
                               capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out, time.perf_counter() - t0
 
 

@@ -1,7 +1,7 @@
-"""The fused solver iteration: four kernels and O(N) glue per step.
+"""The fused solver iteration: hand-written kernels and O(N) glue per step.
 
 Counterpart of ``deformationpyramid_tpu/ops/fused_iteration.py``. One
-iteration of the level loop is:
+iteration of the chamfer-mode level loop is:
 
 * **C2** ``level_warp_fwd`` (``csrc/level_warp.cu``): the level warp of the
   source sample, from the flat parameter vector;
@@ -9,8 +9,9 @@ iteration of the level loop is:
   directions against the fixed target sample, on the warped points that
   C2 just wrote;
 * :func:`_chamfer_glue`: the truncated-L1 chamfer value and its analytic
-  gradient with respect to the warped points (O(N) gathers and one
-  ``index_add_``);
+  gradient with respect to the warped points (O(N) gathers and the y->x
+  scatter, kernel **C6** ``scatter_rows``, whose summation order is
+  fixed), plus the masked landmark term in landmark + chamfer mode;
 * **C3** ``level_warp_bwd``: the VJP of the recomputed warp for that
   gradient, one partial parameter gradient per block of points;
 * **C4** ``adam_step`` (``csrc/adam.cu``): the partials summed in a fixed
@@ -18,15 +19,20 @@ iteration of the level loop is:
   early-stop flag.
 
 C2 + C1 replace the JAX package's kernel 1 (``_fwd_sweep_kernel``), C3 + C4
-its kernel 2 (``_bwd_adam_kernel``). Each kernel's wrapper runs the plain
-PyTorch version of the same function when its tensors are on the CPU.
+its kernel 2 (``_bwd_adam_kernel``). The landmark-only loop (LNDP with
+``w_cd == 0``) runs one launch per iteration instead: **C5**
+``ldmk_iteration`` (``csrc/ldmk_iteration.cu``) replaces
+``_ldmk_iter_kernel`` (:func:`run_fused_level_ldmk`). Each kernel's
+wrapper runs the plain PyTorch version of the same function when its
+tensors are on the CPU.
 
 The early-stop state stays on the device as 0-d tensors (:class:`EarlyStop`)
 and the host reads it every ``SYNC_EVERY`` iterations only; an iteration
 that starts halted changes nothing, so the result is the one of checking
-after every iteration. The kernels cover SE3 motion with the axis-angle
-rotation, ``w_reg == 0``, no landmarks and depth >= 2 (the reference
-``config/NDP.yaml``); every other configuration takes the unfused loop
+after every iteration. The kernels cover SE3 and Sim3 motion with the
+axis-angle and the XYZ-Euler rotation, ``w_reg == 0`` and depth >= 2 (the
+reference ``config/NDP.yaml``, ``config/LNDP.yaml`` and the Sim3
+shape-transfer demo); every other configuration takes the unfused loop
 (``solve/registration.py``).
 """
 from __future__ import annotations
@@ -45,41 +51,84 @@ SYNC_EVERY = 8          # iterations between host reads of the stop flag
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MAX_WIDTH = 256         # DP_MAX_WIDTH in csrc/common.cuh
 BWD_TILE = 32           # BWD_TP in csrc/level_warp.cu: points per C3 block
+LDMK_TILE = 32          # LDMK_TP in csrc/ldmk_iteration.cu: rows per C5 block
 SMEM_LIMIT = 232448     # shared memory a Hopper block may opt in to
 _FLOOR = 1e-16          # sqrt floor, as ops/chamfer._gathered_sum
 
+# Codes of csrc/common.cuh DpMotion and DpRotFmt.
+MOTIONS = {"SE3": 0, "Sim3": 1}
+ROTATION_FORMATS = {"axis_angle": 0, "euler": 1}
+
 LEVEL_WARP_FWD = Kernel("level_warp_fwd", "dp_level_warp_fwd",
-                        [P, P, I, I, I, F, F, P])
+                        [P, P, I, I, I, I, I, F, F, P])
 LEVEL_WARP_BWD = Kernel("level_warp_bwd", "dp_level_warp_bwd",
-                        [P, P, P, I, I, I, F, F, P, I])
+                        [P, P, P, I, I, I, I, I, F, F, P, I])
 ADAM_STEP = Kernel("adam_step", "dp_adam_step",
                    [P, P, P, P, I, I, P, P, F, F, F, F, F, F])
+LDMK_ITERATION = Kernel(
+    "ldmk_iteration", "dp_ldmk_iteration",
+    [P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P, P, P, I, I, F, F,
+     F, F, F, F, F, F, P, P, P, I])
+SCATTER_ROWS = Kernel("scatter_rows", "dp_scatter_rows", [P, I, P, P, I])
+
+
+def _head_slots(pcfg: pyramid.NDPConfig) -> int:
+    """Head outputs per point in the kernels (csrc/common.cuh LevelLayout
+    ``hs``): rotation, translation and the Sim3 scale."""
+    return pcfg.rot_dim + 3 + (pcfg.motion == "Sim3")
+
+
+def bwd_smem(pcfg: pyramid.NDPConfig) -> int:
+    """Shared memory of one C3 / C5 block in bytes (csrc/level_tile.cuh
+    ``bwd_tile_floats``): every layer's activations of its 32 points plus
+    the gradient buffers."""
+    hs = _head_slots(pcfg)
+    return 4 * BWD_TILE * (12 + 2 * hs + (pcfg.depth + 2) * pcfg.width)
+
+
+def _supports_warp(pcfg: pyramid.NDPConfig) -> bool:
+    return (pcfg.motion in MOTIONS
+            and pcfg.rotation_format in ROTATION_FORMATS
+            and not pcfg.nonrigidity_est
+            and pcfg.depth >= 2 and pcfg.width <= MAX_WIDTH
+            and bwd_smem(pcfg) <= SMEM_LIMIT)
 
 
 def supports_fused_iteration(pcfg: pyramid.NDPConfig, w_reg: float,
                              n_ldmk: int = 0) -> bool:
-    """What the kernels cover: SE3 + axis_angle, no nonrigidity branch or
-    regulariser, no landmarks, at least one hidden layer, width <= 256,
-    and C3's activations of every layer within one block's shared memory
-    (at width 256, depth <= 5). Narrower than the JAX package's gate
-    (which also takes Sim3, sflow, the other rotation formats and
-    w_reg > 0)."""
-    bwd_smem = 4 * BWD_TILE * (24 + (pcfg.depth + 2) * pcfg.width)
-    return (pcfg.motion == "SE3" and pcfg.rotation_format == "axis_angle"
-            and not pcfg.nonrigidity_est and w_reg == 0 and n_ldmk == 0
-            and pcfg.depth >= 2 and pcfg.width <= MAX_WIDTH
-            and bwd_smem <= SMEM_LIMIT)
+    """What the chamfer-mode kernels cover: SE3 or Sim3 motion with the
+    axis_angle or euler rotation, no nonrigidity branch or regulariser, no
+    landmarks, at least one hidden layer, width <= 256, and C3's
+    activations of every layer within one block's shared memory (at width
+    256, depth <= 5 for SE3). Narrower than the JAX package's gate (which
+    also takes sflow, the quaternion and 6D formats and w_reg > 0)."""
+    return _supports_warp(pcfg) and w_reg == 0 and n_ldmk == 0
+
+
+def supports_fused_iteration_ldmk(pcfg: pyramid.NDPConfig, w_reg: float,
+                                  n_ldmk: int) -> bool:
+    """What the landmark paths cover (``config/LNDP.yaml``, ``w_reg ==
+    0``): with ``w_cd == 0`` the one-launch iteration C5
+    (:func:`run_fused_level_ldmk`), with ``w_cd > 0`` C1-C4 with the
+    landmark term in the glue (``run_fused_level(n_ldmk=...)``). The same
+    warp coverage as :func:`supports_fused_iteration`."""
+    return _supports_warp(pcfg) and w_reg == 0 and n_ldmk > 0
 
 
 def level_param_count(pcfg: pyramid.NDPConfig) -> int:
     """Length of one level's flat parameter vector (34,694 at width 128,
-    depth 3 with SE3 + axis_angle)."""
+    depth 3 with SE3 + axis_angle; the Sim3 scale head adds width + 1)."""
     w, nh = pcfg.width, pcfg.depth - 1
-    return nh * (w + w * w) + 13 * w + 6
+    return nh * (w + w * w) + 7 * w + _head_slots(pcfg) * (w + 1)
 
 
 def _freq(level: int, k0: int) -> float:
     return 2.0 ** (level + 1 + k0)
+
+
+def _layout_args(pcfg: pyramid.NDPConfig) -> tuple[int, int, int, int]:
+    return (pcfg.width, pcfg.depth, MOTIONS[pcfg.motion],
+            ROTATION_FORMATS[pcfg.rotation_format])
 
 
 def _plain_warp(flat: Tensor, x: Tensor, level: int,
@@ -91,9 +140,10 @@ def _plain_warp(flat: Tensor, x: Tensor, level: int,
 def _check_level(name: str, flat: Tensor, x: Tensor,
                  pcfg: pyramid.NDPConfig, *more: Tensor) -> None:
     check_cuda(name, flat, x, *more)
-    if not supports_fused_iteration(pcfg, 0.0):
-        raise ValueError(f"{name}: the kernel covers SE3 + axis_angle, "
-                         f"depth >= 2, width <= {MAX_WIDTH} only")
+    if not _supports_warp(pcfg):
+        raise ValueError(f"{name}: the kernel covers SE3|Sim3 x "
+                         f"axis_angle|euler, depth >= 2, width <= "
+                         f"{MAX_WIDTH} only")
     if flat.shape != (level_param_count(pcfg),):
         raise ValueError(f"{name}: flat params of shape {tuple(flat.shape)}")
     if x.ndim != 2 or x.shape[1] != 3:
@@ -112,7 +162,7 @@ def level_warp_fwd(flat: Tensor, x: Tensor, level: int,
     _check_level("level_warp_fwd", flat, x, pcfg)
     out = torch.empty_like(x)
     LEVEL_WARP_FWD.launch(flat.data_ptr(), x.data_ptr(), x.shape[0],
-                          pcfg.width, pcfg.depth, _freq(level, pcfg.k0),
+                          *_layout_args(pcfg), _freq(level, pcfg.k0),
                           float(pcfg.mlp_scale), out.data_ptr())
     return out
 
@@ -138,7 +188,7 @@ def level_warp_bwd(flat: Tensor, x: Tensor, g: Tensor, level: int,
     partial = torch.empty((n_blocks, flat.shape[0]), dtype=torch.float32,
                           device=flat.device)
     LEVEL_WARP_BWD.launch(flat.data_ptr(), x.data_ptr(), g.data_ptr(),
-                          x.shape[0], pcfg.width, pcfg.depth,
+                          x.shape[0], *_layout_args(pcfg),
                           _freq(level, pcfg.k0), float(pcfg.mlp_scale),
                           partial.data_ptr(), n_blocks)
     return partial
@@ -184,6 +234,26 @@ def adam_step(p: Tensor, m: Tensor, v: Tensor, partials: Tensor,
                      1.0 - ADAM_B2, ADAM_EPS)
 
 
+def scatter_add_rows(dst: Tensor, idx: Tensor, src: Tensor) -> Tensor:
+    """``dst[idx[j]] += src[j]`` in place for rows dst [N, 3], src [M, 3],
+    idx [M] (int64, in [0, N)), each row's additions in increasing j.
+
+    Kernel C6 ``scatter_rows`` (``csrc/scatter_rows.cu``) on CUDA tensors,
+    whose sums are bit-equal to ``index_add_`` on the CPU, its plain
+    version; ``index_add_`` on CUDA adds with float atomics in an order
+    that changes from run to run."""
+    if on_cpu(dst, idx, src):
+        return dst.index_add_(0, idx, src)
+    check_cuda("scatter_rows", dst, src)
+    check_cuda("scatter_rows", idx, dtype=torch.int64)
+    n, m = dst.shape[0], src.shape[0]
+    if dst.shape != (n, 3) or src.shape != (m, 3) or idx.shape != (m,):
+        raise ValueError("scatter_rows: expected dst [N, 3], src [M, 3] and "
+                         "idx [M]")
+    SCATTER_ROWS.launch(dst.data_ptr(), n, idx.data_ptr(), src.data_ptr(), m)
+    return dst
+
+
 def _chamfer_glue(w: Tensor, cidx: Tensor, rarg: Tensor, y: Tensor,
                   x_valid: Tensor, y_valid: Tensor, x_len: Tensor,
                   y_len: Tensor, trunc: float) -> tuple[Tensor, Tensor]:
@@ -207,7 +277,7 @@ def _chamfer_glue(w: Tensor, cidx: Tensor, rarg: Tensor, y: Tensor,
     loss = loss_x / x_len + loss_y / y_len
     gx = torch.where(keep_x, 1.0 / root_x, 0.0)[:, None] * (w - y_nn) / x_len
     gy = torch.where(keep_y, 1.0 / root_y, 0.0)[:, None] * (x_nn - y) / y_len
-    return loss, gx.index_add_(0, rarg, gy)
+    return loss, scatter_add_rows(gx, rarg, gy)
 
 
 class EarlyStop:
@@ -269,15 +339,26 @@ class EarlyStop:
 
 def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
                     t_sample: Tensor, t_valid: Tensor, level: int,
-                    pcfg: pyramid.NDPConfig, lcfg, trunc: float = 1e9):
+                    pcfg: pyramid.NDPConfig, lcfg, trunc: float = 1e9,
+                    n_ldmk: int = 0, tgt_ldmk: Tensor | None = None,
+                    ldmk_valid: Tensor | None = None, w_cd: float = 1.0):
     """Adam-optimize one pyramid level with the fused iteration.
 
     Drop-in for the unfused level loop (``solve/loop.run_adam_loop`` with
     ``truncated_chamfer``): the same 3-way early stop, the same pre-step
-    warped hand-off, the same optax Adam. Returns (updated level params
-    dict, warped pts [N, 3] of the last evaluation, stats {iters, loss}).
+    warped hand-off, the same optax Adam. With ``n_ldmk > 0`` (landmark +
+    chamfer mode) ``pts`` is [ldmk ; sample]: the first ``n_ldmk`` rows
+    carry the masked mean-squared landmark term against ``tgt_ldmk``, and
+    the chamfer term, scaled by ``w_cd`` and truncated at ``trunc``, sees
+    only the sample rows (landmark rows are masked out of both sweep
+    directions and the glue). Returns (updated level params dict, warped
+    pts [N, 3] of the last evaluation, stats {iters, loss}).
     """
-    if not supports_fused_iteration(pcfg, 0.0):
+    if n_ldmk == 0:
+        covered = supports_fused_iteration(pcfg, 0.0)
+    else:
+        covered = supports_fused_iteration_ldmk(pcfg, 0.0, n_ldmk)
+    if not covered:
         raise ValueError("run_fused_level: configuration not covered by the "
                          "kernels; use the unfused loop")
     shapes = pyramid.level_shapes(pcfg)
@@ -286,10 +367,18 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
     v = torch.zeros_like(p)
     x = pts.to(torch.float32).contiguous()
     y = t_sample.to(torch.float32).contiguous()
-    xv = pts_valid.to(torch.bool).contiguous()
+    n = x.shape[0]
+    rows = torch.arange(n, device=x.device)
+    xv = (pts_valid.to(torch.bool) & (rows >= n_ldmk)).contiguous()
     yv = t_valid.to(torch.bool).contiguous()
     x_len = torch.clamp_min(xv.sum(), 1).to(torch.float32)
     y_len = torch.clamp_min(yv.sum(), 1).to(torch.float32)
+    if n_ldmk > 0:
+        lmask = torch.zeros(n, dtype=torch.float32, device=x.device)
+        lmask[:n_ldmk] = ldmk_valid.to(torch.float32)
+        lcount = torch.clamp_min(lmask.sum(), 1.0)
+        ltgt = torch.zeros_like(x)
+        ltgt[:n_ldmk] = tgt_ldmk.to(torch.float32)
     stop = EarlyStop(lcfg, x.device)
     aux = x.clone()
 
@@ -299,6 +388,10 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
         _, cidx, _, rarg = nn_argmin_dual(warped, y, xv, yv)
         loss, g = _chamfer_glue(warped, cidx, rarg, y, xv, yv, x_len, y_len,
                                 trunc)
+        if n_ldmk > 0:
+            diff = (warped - ltgt) * lmask[:, None]
+            loss = torch.sum(diff * diff) / lcount + w_cd * loss
+            g = (2.0 / lcount) * diff + w_cd * g
         halt, hold = stop.decide(loss)
         partials = level_warp_bwd(p, x, g, level, pcfg)
         adam_step(p, m, v, partials, stop.applied,
@@ -307,4 +400,108 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
         aux = torch.where(halt, aux, warped)
 
     stop.run(step)
+    return pyramid.unravel(p, shapes), aux, stop.stats()
+
+
+def ldmk_iteration_plain(p: Tensor, m: Tensor, v: Tensor, x: Tensor,
+                         tgt: Tensor, mask: Tensor, count: Tensor,
+                         stop: EarlyStop, aux: Tensor, level: int,
+                         pcfg: pyramid.NDPConfig, lr: float) -> None:
+    """Plain version of kernel C5: one landmark-only iteration, from the
+    plain warp, ``torch.func.vjp`` and :func:`adam_step_plain`. Updates
+    p, m, v and aux in place and advances ``stop``."""
+    warped, vjp = torch.func.vjp(lambda f: _plain_warp(f, x, level, pcfg), p)
+    diff = (warped - tgt) * mask[:, None]
+    loss = torch.sum(diff * diff) / count
+    halt, hold = stop.decide(loss)
+    (g,) = vjp((2.0 / count) * diff)
+    adam_step_plain(p, m, v, g[None], stop.applied, hold.to(torch.float32),
+                    lr)
+    stop.advance(loss, halt, hold)
+    aux.copy_(torch.where(halt, aux, warped))
+
+
+def ldmk_scratch(n: int, pcfg: pyramid.NDPConfig,
+                 device: torch.device) -> dict[str, Tensor]:
+    """C5's buffers for n landmark rows: one gradient row and one loss
+    share per block of LDMK_TILE rows."""
+    n_blocks = -(-n // LDMK_TILE)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"partial": torch.empty((n_blocks, level_param_count(pcfg)), **f32),
+            "ploss": torch.empty(n_blocks, **f32)}
+
+
+def ldmk_iteration(p: Tensor, m: Tensor, v: Tensor, x: Tensor, tgt: Tensor,
+                   mask: Tensor, count: Tensor, stop: EarlyStop, aux: Tensor,
+                   level: int, pcfg: pyramid.NDPConfig, lr: float,
+                   scratch: dict[str, Tensor] | None = None) -> None:
+    """One landmark-only iteration of the level loop: warp of the landmark
+    rows x [N, 3], loss sum(((warped - tgt) * mask)^2) / count, the 3-way
+    early stop on ``stop``, the VJP of (2 / count) * diff and the held
+    Adam step on p, m, v; aux [N, 3] takes the warped rows unless the
+    iteration started halted. Kernel C5 on CUDA tensors (``scratch`` from
+    :func:`ldmk_scratch`, made here when not given), the plain version on
+    CPU tensors. Everything is updated in place."""
+    state = (stop.loss, stop.loss_prev, stop.counter, stop.done, stop.it,
+             stop.applied)
+    if on_cpu(p, m, v, x, tgt, mask, count, aux, *state):
+        ldmk_iteration_plain(p, m, v, x, tgt, mask, count, stop, aux, level,
+                             pcfg, lr)
+        return
+    _check_level("ldmk_iteration", p, x, pcfg, tgt, aux)
+    check_cuda("ldmk_iteration", p, m, v, mask, count, stop.loss,
+               stop.loss_prev, stop.applied)
+    check_cuda("ldmk_iteration", stop.counter, stop.it, dtype=torch.int32)
+    check_cuda("ldmk_iteration", stop.done, dtype=torch.bool)
+    n = x.shape[0]
+    if m.shape != p.shape or v.shape != p.shape or mask.shape != (n,) \
+            or count.numel() != 1 or any(t.numel() != 1 for t in state):
+        raise ValueError("ldmk_iteration: expected m, v like p, mask [N] and "
+                         "scalar count and stop state")
+    if scratch is None:
+        scratch = ldmk_scratch(n, pcfg, x.device)
+    partial, ploss = scratch["partial"], scratch["ploss"]
+    if partial.shape != (-(-n // LDMK_TILE), p.shape[0]):
+        raise ValueError("ldmk_iteration: scratch made for another shape")
+    cfg = stop.cfg
+    LDMK_ITERATION.launch(
+        p.data_ptr(), m.data_ptr(), v.data_ptr(), x.data_ptr(),
+        tgt.data_ptr(), mask.data_ptr(), n, *_layout_args(pcfg),
+        _freq(level, pcfg.k0), float(pcfg.mlp_scale), count.data_ptr(),
+        *(t.data_ptr() for t in state), int(cfg.iters),
+        int(cfg.max_break_count), float(cfg.break_threshold_ratio),
+        float(cfg.loss_eps), float(lr), ADAM_B1, ADAM_B2, 1.0 - ADAM_B1,
+        1.0 - ADAM_B2, ADAM_EPS, partial.data_ptr(), ploss.data_ptr(),
+        aux.data_ptr(), partial.shape[0])
+
+
+def run_fused_level_ldmk(lvl_params: dict, pts: Tensor, ldmk_valid: Tensor,
+                         tgt_ldmk: Tensor, level: int,
+                         pcfg: pyramid.NDPConfig, lcfg):
+    """Adam-optimize one pyramid level on the landmark L2 term alone, one
+    C5 launch per iteration.
+
+    Drop-in for the unfused level loop in landmark mode with ``w_cd == 0``
+    (``pts`` are the landmark rows): the same loss (masked mean squared
+    distance), 3-way early stop, pre-step warped hand-off and optax Adam.
+    Returns (updated level params dict, warped pts [N, 3], stats {iters,
+    loss}).
+    """
+    if not supports_fused_iteration_ldmk(pcfg, 0.0, pts.shape[0]):
+        raise ValueError("run_fused_level_ldmk: configuration not covered "
+                         "by the kernels; use the unfused loop")
+    shapes = pyramid.level_shapes(pcfg)
+    p = pyramid.ravel(lvl_params).to(torch.float32).contiguous().clone()
+    m = torch.zeros_like(p)
+    v = torch.zeros_like(p)
+    x = pts.to(torch.float32).contiguous()
+    tgt = tgt_ldmk.to(torch.float32).contiguous()
+    mask = ldmk_valid.to(torch.float32).contiguous()
+    count = torch.clamp_min(mask.sum(), 1.0)
+    stop = EarlyStop(lcfg, x.device)
+    aux = x.clone()
+    scratch = None if x.device.type == "cpu" else \
+        ldmk_scratch(x.shape[0], pcfg, x.device)
+    stop.run(lambda: ldmk_iteration(p, m, v, x, tgt, mask, count, stop, aux,
+                                    level, pcfg, lcfg.lr, scratch))
     return pyramid.unravel(p, shapes), aux, stop.stats()

@@ -2,19 +2,30 @@
 
 Counterpart of ``deformationpyramid_tpu/solve/registration.py`` (reference
 ``Registration.optimize_deformation_pyramid``,
-``model/registration.py:126-262``), without the landmark mode:
+``model/registration.py:126-262``):
 
   mean-centre both clouds -> random ``samples``-subset of each ->
   level-by-level Adam (fresh optimizer per level, 3-way early stop) ->
   full-cloud warp through all levels -> re-add the target mean.
 
 The points handed to the next level are the warp evaluated *before* the
-level's final optimizer step (``registration.py:241-249``). Each level runs
-the fused iteration (``ops/fused_iteration.run_fused_level``: kernels C2,
-C1, C3, C4 on the card) when ``use_fused_iteration`` is set and the kernels
-cover the configuration, and otherwise the unfused loop: the plain warp
-with autograd and ``truncated_chamfer`` on kernel C1. Pairs are solved one
-at a time; the device follows the input tensors.
+level's final optimizer step (``registration.py:241-249``). With landmarks
+(the solver half of LNDP) the loss is the masked mean-squared landmark
+distance, plus ``w_cd`` times the chamfer truncated at ``trunc_cd`` when
+``w_cd > 0`` (then the optimized points are [landmarks ; sample]).
+
+With ``use_fused_iteration`` set and a configuration the kernels cover,
+each level runs:
+
+  =====================================  ==================================
+  chamfer mode, or landmarks + w_cd > 0  ``run_fused_level`` (C2, C1, C3, C4)
+  landmarks, w_cd == 0, use_fused_ldmk   ``run_fused_level_ldmk`` (C5)
+  otherwise                              the unfused loop
+  =====================================  ==================================
+
+The unfused loop is the plain warp with autograd and ``truncated_chamfer``
+on kernel C1. Pairs are solved one at a time; the device follows the input
+tensors.
 """
 from __future__ import annotations
 
@@ -26,7 +37,9 @@ import torch
 from ..models.pyramid import (NDPConfig, init_pyramid_params, level_params,
                               level_warp, warp)
 from ..ops.chamfer import truncated_chamfer
-from ..ops.fused_iteration import run_fused_level, supports_fused_iteration
+from ..ops.fused_iteration import (run_fused_level, run_fused_level_ldmk,
+                                   supports_fused_iteration,
+                                   supports_fused_iteration_ldmk)
 from .loop import LoopConfig, run_adam_loop
 
 Tensor = torch.Tensor
@@ -43,6 +56,11 @@ class SolverConfig:
     break_threshold_ratio: float = 0.001
     samples: int = 2000
     w_reg: float = 0.0
+    # Carried as in the reference config and the JAX package; the landmark
+    # term is not weighted by it there either.
+    w_ldmk: float = 0.0
+    w_cd: float = 0.0        # chamfer weight in landmark mode
+    trunc_cd: float = 0.25   # chamfer truncation in landmark mode (squared)
     # The reference hardcodes trunc=1e9 for the no-landmark objective
     # (``model/registration.py:212``).
     trunc_chamfer: float = 1e9
@@ -50,6 +68,10 @@ class SolverConfig:
     # The fused iteration (ops/fused_iteration.py); None/False = the
     # unfused loop, as in the JAX package's library default.
     use_fused_iteration: bool | None = None
+    # The one-launch landmark iteration (kernel C5) for w_cd == 0, on top
+    # of use_fused_iteration; None/False = the unfused loop, as in the JAX
+    # package's default.
+    use_fused_ldmk: bool | None = None
 
     def loop_config(self) -> LoopConfig:
         return LoopConfig(iters=self.iters, lr=self.lr,
@@ -74,22 +96,47 @@ def _as_generator(key: int | torch.Generator) -> torch.Generator:
 
 
 def _solve_level(lvl_params: dict, lvl: int, pts: Tensor, pts_valid: Tensor,
-                 t_sample: Tensor, t_valid: Tensor, cfg: SolverConfig):
+                 t_sample: Tensor, t_valid: Tensor, cfg: SolverConfig,
+                 n_ldmk: int = 0, tgt_ldmk: Tensor | None = None,
+                 ldmk_valid: Tensor | None = None):
     """Adam-optimize one pyramid level on the sampled source points.
 
+    In landmark mode (``n_ldmk > 0``) ``pts`` starts with the ``n_ldmk``
+    landmark rows: all of it when ``w_cd == 0``, [ldmk ; sample] otherwise.
     Returns (updated level params, warped pts of the last evaluation,
     stats {iters, loss}).
     """
     pcfg = cfg.pyramid
     lcfg = cfg.loop_config()
-    if cfg.use_fused_iteration and supports_fused_iteration(pcfg, cfg.w_reg):
-        return run_fused_level(lvl_params, pts, pts_valid, t_sample, t_valid,
-                               lvl, pcfg, lcfg, trunc=cfg.trunc_chamfer)
+    if cfg.use_fused_iteration:
+        if supports_fused_iteration(pcfg, cfg.w_reg, n_ldmk):
+            return run_fused_level(lvl_params, pts, pts_valid, t_sample,
+                                   t_valid, lvl, pcfg, lcfg,
+                                   trunc=cfg.trunc_chamfer)
+        if supports_fused_iteration_ldmk(pcfg, cfg.w_reg, n_ldmk):
+            if cfg.w_cd > 0:
+                return run_fused_level(lvl_params, pts, pts_valid, t_sample,
+                                       t_valid, lvl, pcfg, lcfg,
+                                       trunc=cfg.trunc_cd, n_ldmk=n_ldmk,
+                                       tgt_ldmk=tgt_ldmk,
+                                       ldmk_valid=ldmk_valid, w_cd=cfg.w_cd)
+            if cfg.use_fused_ldmk:
+                return run_fused_level_ldmk(lvl_params, pts, ldmk_valid,
+                                            tgt_ldmk, lvl, pcfg, lcfg)
 
     def loss_fn(p):
         warped, nr = level_warp(p, pts, lvl, pcfg)
-        loss = truncated_chamfer(warped, t_sample, x_valid=pts_valid,
-                                 y_valid=t_valid, trunc=cfg.trunc_chamfer)
+        if n_ldmk > 0:
+            sq = torch.sum((warped[:n_ldmk] - tgt_ldmk) ** 2, dim=-1)
+            loss = torch.sum(torch.where(ldmk_valid, sq, 0.0)) \
+                / torch.clamp_min(ldmk_valid.sum(), 1)
+            if cfg.w_cd > 0:
+                loss = loss + cfg.w_cd * truncated_chamfer(
+                    warped[n_ldmk:], t_sample, x_valid=pts_valid[n_ldmk:],
+                    y_valid=t_valid, trunc=cfg.trunc_cd)
+        else:
+            loss = truncated_chamfer(warped, t_sample, x_valid=pts_valid,
+                                     y_valid=t_valid, trunc=cfg.trunc_chamfer)
         if cfg.w_reg > 0 and lvl > 0:
             loss = loss + cfg.w_reg * _bce_zeros(nr, pts_valid)
         return loss, warped
@@ -109,7 +156,9 @@ def _random_subset(gen: torch.Generator, pts: Tensor, valid: Tensor, k: int
 
 
 def optimize_pyramid(params: dict, pts0: Tensor, pts_valid: Tensor,
-                     t_sample: Tensor, t_valid: Tensor, cfg: SolverConfig
+                     t_sample: Tensor, t_valid: Tensor, cfg: SolverConfig,
+                     n_ldmk: int = 0, tgt_ldmk: Tensor | None = None,
+                     ldmk_valid: Tensor | None = None
                      ) -> tuple[dict, dict[str, Tensor]]:
     """Level-by-level Adam on pre-centred, pre-sampled points, starting from
     the stacked initial ``params``. Returns (final stacked params, stats
@@ -119,7 +168,8 @@ def optimize_pyramid(params: dict, pts0: Tensor, pts_valid: Tensor,
     per_level, iters, losses = [], [], []
     for lvl in range(cfg.pyramid.m):
         new_p, pts, stats = _solve_level(level_params(params, lvl), lvl, pts,
-                                         pts_valid, t_sample, t_valid, cfg)
+                                         pts_valid, t_sample, t_valid, cfg,
+                                         n_ldmk, tgt_ldmk, ldmk_valid)
         per_level.append(new_p)
         iters.append(stats["iters"])
         losses.append(stats["loss"])
@@ -140,11 +190,16 @@ def _masked_mean(pts: Tensor, valid: Tensor) -> Tensor:
 
 def register_pair(key: int | torch.Generator, src: Tensor, tgt: Tensor,
                   cfg: SolverConfig, src_valid: Tensor | None = None,
-                  tgt_valid: Tensor | None = None
+                  tgt_valid: Tensor | None = None,
+                  src_ldmk: Tensor | None = None,
+                  tgt_ldmk: Tensor | None = None,
+                  ldmk_valid: Tensor | None = None
                   ) -> tuple[Tensor, dict[str, Tensor]]:
     """Register one (padded) pair; returns (warped full source cloud,
     stats). ``key`` seeds the initial weights and the two random subsets
-    (drawn on the CPU, so a seed gives the same draw on every device)."""
+    (drawn on the CPU, so a seed gives the same draw on every device).
+    With ``src_ldmk``/``tgt_ldmk`` [L, 3] (and ``ldmk_valid`` [L], padded
+    rows False) the solve is landmark-guided (LNDP)."""
     gen = _as_generator(key)
     pcfg = cfg.pyramid
     n_src, n_tgt = src.shape[0], tgt.shape[0]
@@ -163,17 +218,41 @@ def register_pair(key: int | torch.Generator, src: Tensor, tgt: Tensor,
     t_sample, t_valid = _random_subset(gen, tgt_c, tgt_valid,
                                        min(cfg.samples, n_tgt))
 
-    final_params, stats = optimize_pyramid(params, s_sample, s_valid,
-                                           t_sample, t_valid, cfg)
+    n_ldmk, tgt_ldmk_c = 0, None
+    pts0, pts_valid = s_sample, s_valid
+    if src_ldmk is not None:
+        n_ldmk = src_ldmk.shape[0]
+        if ldmk_valid is None:
+            ldmk_valid = torch.ones(n_ldmk, dtype=torch.bool,
+                                    device=src.device)
+        src_ldmk_c = src_ldmk - src_mean
+        tgt_ldmk_c = tgt_ldmk - tgt_mean
+        if cfg.w_cd > 0:
+            pts0 = torch.cat([src_ldmk_c, s_sample])
+            pts_valid = torch.cat([ldmk_valid, s_valid])
+        else:
+            pts0, pts_valid = src_ldmk_c, ldmk_valid
+
+    final_params, stats = optimize_pyramid(params, pts0, pts_valid,
+                                           t_sample, t_valid, cfg, n_ldmk,
+                                           tgt_ldmk_c, ldmk_valid)
     with torch.no_grad():
         warped_full, _ = warp(final_params, src_c, pcfg)
     return warped_full + tgt_mean, stats
 
 
-def make_register_fn(cfg: SolverConfig):
-    """A single-pair registration function with ``cfg`` bound."""
-    def fn(key, src, tgt, src_valid=None, tgt_valid=None):
-        return register_pair(key, src, tgt, cfg, src_valid, tgt_valid)
+def make_register_fn(cfg: SolverConfig, landmarks: bool = False):
+    """A single-pair registration function with ``cfg`` bound; with
+    ``landmarks`` it takes (key, src, tgt, src_ldmk, tgt_ldmk, ldmk_valid,
+    src_valid, tgt_valid)."""
+    if landmarks:
+        def fn(key, src, tgt, src_ldmk, tgt_ldmk, ldmk_valid,
+               src_valid=None, tgt_valid=None):
+            return register_pair(key, src, tgt, cfg, src_valid, tgt_valid,
+                                 src_ldmk, tgt_ldmk, ldmk_valid)
+    else:
+        def fn(key, src, tgt, src_valid=None, tgt_valid=None):
+            return register_pair(key, src, tgt, cfg, src_valid, tgt_valid)
     return fn
 
 

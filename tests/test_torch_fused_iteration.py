@@ -3,18 +3,22 @@ the JAX package's two-kernel iteration, on the CPU.
 
 The port's kernel wrappers run their plain versions here (C2: the plain
 warp, C1: the two-way argmin, C3: ``torch.func.vjp`` of the plain warp, C4:
-the plain Adam). The JAX kernels run in Pallas interpret mode with the pins
-of tests/test_fused_iteration.py (HIGHEST wide matmuls, the exact unpacked
-VPU-distance sweep). Tolerances: warped points 1e-5, indices equal up to
-near-ties < 3e-4 relative, glue value 1e-6 and gradient 1e-5, one Adam step
-1e-5 (with ``done`` bit-exact), a 25-iteration level loop equal iteration
-count, loss 1e-4, params and warped points 1e-3 (the bound of
+the plain Adam, C5: the plain landmark iteration). The JAX kernels run in
+Pallas interpret mode with the pins of tests/test_fused_iteration.py
+(HIGHEST wide matmuls, the exact unpacked VPU-distance sweep). The kernel
+pairs are checked for SE3 + axis_angle (``config/NDP.yaml``,
+``config/LNDP.yaml``) and Sim3 + euler (the shape-transfer demo).
+Tolerances: warped points 1e-5, indices equal up to near-ties < 3e-4
+relative, glue value 1e-6 and gradient 1e-5, one Adam step 1e-5 (with
+``done`` bit-exact), a 25-iteration level loop equal iteration count, loss
+1e-4, params and warped points 1e-3 (the bound of
 tests/test_fused_iteration.py:280-286).
 """
 import numpy as np
 import pytest
 
 import jax
+import jax.flatten_util
 import jax.numpy as jnp
 import torch
 
@@ -31,6 +35,13 @@ KW = dict(m=4, k0=-6, depth=3, width=64, rotation_format="axis_angle",
 JCFG = jpyr.NDPConfig(**KW)
 TCFG = tpyr.NDPConfig(**KW)
 LEVEL = 1
+# (motion, rotation_format) pairs that the kernels cover
+MOTION_FORMATS = [("SE3", "axis_angle"), ("Sim3", "euler")]
+
+
+def _cfgs(motion, fmt):
+    kw = dict(KW, motion=motion, rotation_format=fmt)
+    return jpyr.NDPConfig(**kw), tpyr.NDPConfig(**kw)
 
 
 @pytest.fixture(autouse=True)
@@ -51,12 +62,12 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _setup(n=200, m=260, seed=0):
+def _setup(n=200, m=260, seed=0, jcfg=JCFG):
     """Points, target and one level's weights in the JAX layout (numpy)."""
     rng = np.random.default_rng(seed)
     pts = (rng.standard_normal((n, 3)) * 0.4).astype(np.float32)
     tgt = (rng.standard_normal((m, 3)) * 0.4).astype(np.float32)
-    shapes = jax.eval_shape(lambda k: jpyr.init_pyramid_params(k, JCFG),
+    shapes = jax.eval_shape(lambda k: jpyr.init_pyramid_params(k, jcfg),
                             jax.random.key(0))
     lvl = jax.tree.map(lambda a: (rng.uniform(-1, 1, a.shape[1:]) * 0.2)
                        .astype(np.float32), shapes)
@@ -91,14 +102,37 @@ def test_supports_gate():
     assert tfi.supports_fused_iteration(TCFG, 0.0, 0)
     assert not tfi.supports_fused_iteration(TCFG, 0.5, 0)
     assert not tfi.supports_fused_iteration(TCFG, 0.0, 5)
-    for kw in (dict(motion="Sim3"), dict(motion="sflow"),
-               dict(rotation_format="euler"), dict(nonrigidity_est=True),
+    for kw in (dict(motion="Sim3"), dict(rotation_format="euler"),
+               dict(motion="Sim3", rotation_format="euler")):
+        assert tfi.supports_fused_iteration(tpyr.NDPConfig(**kw), 0.0, 0)
+    for kw in (dict(motion="sflow"), dict(rotation_format="quaternion"),
+               dict(rotation_format="6D"), dict(nonrigidity_est=True),
                dict(depth=1), dict(width=512), dict(width=256, depth=6)):
         assert not tfi.supports_fused_iteration(tpyr.NDPConfig(**kw), 0.0, 0)
-    # C3 keeps every layer's activations in shared memory: 227 KB at most
+    # C3 keeps every layer's activations in shared memory: 227 KB at most,
+    # which the Sim3 scale head's extra slot exceeds at width 256, depth 5
     assert tfi.supports_fused_iteration(tpyr.NDPConfig(width=256, depth=5),
                                         0.0)
+    assert not tfi.supports_fused_iteration(
+        tpyr.NDPConfig(width=256, depth=5, motion="Sim3"), 0.0)
     assert tfi.level_param_count(tpyr.NDPConfig()) == 34694
+    # the landmark paths: landmarks only, same warp coverage, w_reg == 0
+    assert tfi.supports_fused_iteration_ldmk(TCFG, 0.0, 5)
+    assert not tfi.supports_fused_iteration_ldmk(TCFG, 0.0, 0)
+    assert not tfi.supports_fused_iteration_ldmk(TCFG, 0.5, 5)
+    assert not tfi.supports_fused_iteration_ldmk(
+        tpyr.NDPConfig(motion="sflow"), 0.0, 5)
+
+
+@pytest.mark.parametrize("motion,fmt", MOTION_FORMATS)
+def test_level_param_count_matches_ravel_pytree(motion, fmt):
+    jcfg, tcfg = _cfgs(motion, fmt)
+    shapes = jax.eval_shape(lambda k: jpyr.init_pyramid_params(k, jcfg),
+                            jax.random.key(0))
+    one = jax.tree.map(lambda a: np.zeros(a.shape[1:], np.float32), shapes)
+    flat, _ = jax.flatten_util.ravel_pytree(one)
+    assert tfi.level_param_count(tcfg) == flat.shape[0]
+    assert tpyr.ravel(tpyr.params_from_numpy(one)).shape == flat.shape
 
 
 def test_kernel_argtypes_match_c_entry_points():
@@ -112,7 +146,7 @@ def test_kernel_argtypes_match_c_entry_points():
     src = "".join(p.read_text() for p in sorted(cuda_lib.CSRC.glob("*.cu")))
     kinds = {"void*": cuda_lib.P, "int": cuda_lib.I, "float": cuda_lib.F}
     for k in (knn.NN_DUAL, tfi.LEVEL_WARP_FWD, tfi.LEVEL_WARP_BWD,
-              tfi.ADAM_STEP):
+              tfi.ADAM_STEP, tfi.LDMK_ITERATION, tfi.SCATTER_ROWS):
         decl = re.search(r'extern "C" int ' + k.symbol + r"\(([^)]*)\)", src)
         assert decl, k.symbol
         params = [re.fullmatch(r"\s*(?:const\s+)?(void\s*\*|int|float)\s*\w+\s*",
@@ -122,18 +156,21 @@ def test_kernel_argtypes_match_c_entry_points():
         assert [kinds[p] for p in params[:-1]] == k.argtypes, k.symbol
 
 
-def test_kernel1_pair_matches_fwd_sweep_call():
+@pytest.mark.parametrize("motion,fmt", MOTION_FORMATS)
+def test_kernel1_pair_matches_fwd_sweep_call(motion, fmt):
     """C2 + C1 (plain) against JAX kernel 1: warped points and both
     directions' argmins."""
-    pts, tgt, lvl = _setup()
+    jcfg, tcfg = _cfgs(motion, fmt)
+    pts, tgt, lvl = _setup(jcfg=jcfg)
     xt_pad, xbig, yc, ysqb, freq, tm, _ = _pad(pts, tgt)
     warped_t, cmin, cidx, rmin, rarg = jfi._fwd_sweep_call(
         freq, xt_pad, xbig, yc, ysqb, jfi.params_to_t(lvl),
-        mlp_scale=JCFG.mlp_scale, tm=tm, interpret=True)
+        mlp_scale=jcfg.mlp_scale, tm=tm, interpret=True, motion=motion,
+        rotation_format=fmt)
     n, m = pts.shape[0], tgt.shape[0]
 
     flat = tpyr.ravel(tpyr.params_from_numpy(lvl))
-    warped = tfi.level_warp_fwd(flat, _t(pts), LEVEL, TCFG)
+    warped = tfi.level_warp_fwd(flat, _t(pts), LEVEL, tcfg)
     sq_x, idx_x, sq_y, idx_y = tfi.nn_argmin_dual(warped, _t(tgt))
     w = warped.numpy()
     assert np.abs(w - np.asarray(warped_t).T[:n]).max() < 1e-5
@@ -164,10 +201,12 @@ def test_chamfer_glue_matches_jax(trunc):
     assert np.abs(g.numpy() - np.asarray(rg).T).max() < 1e-5
 
 
-def test_kernel2_pair_matches_bwd_adam_call():
+@pytest.mark.parametrize("motion,fmt", MOTION_FORMATS)
+def test_kernel2_pair_matches_bwd_adam_call(motion, fmt):
     """C3 + C4 (plain) against JAX kernel 2: one Adam step from zero
     moments within 1e-5; ``done`` holds params and moments bit-exactly."""
-    pts, tgt, lvl = _setup(seed=2)
+    jcfg, tcfg = _cfgs(motion, fmt)
+    pts, tgt, lvl = _setup(seed=2, jcfg=jcfg)
     xt_pad, _, _, _, freq, _, n_pad = _pad(pts, tgt)
     n = pts.shape[0]
     g = (np.random.default_rng(3).standard_normal((n, 3)) * 0.1
@@ -177,13 +216,14 @@ def test_kernel2_pair_matches_bwd_adam_call():
     zeros = [jnp.zeros_like(a) for a in p_t]
     newp, newm, newv = jfi._bwd_adam_call(
         freq, jnp.zeros((1, 1)), jnp.zeros((1, 1)), xt_pad, g_pad, p_t,
-        zeros, zeros, mlp_scale=JCFG.mlp_scale, lr=0.01, b1=0.9, b2=0.999,
-        eps=1e-8, tn=128, interpret=True)
-    ref = {k: tpyr.ravel(tpyr.params_from_numpy(jfi.t_to_params(list(t))))
-           for k, t in (("p", newp), ("m", newm), ("v", newv))}
+        zeros, zeros, mlp_scale=jcfg.mlp_scale, lr=0.01, b1=0.9, b2=0.999,
+        eps=1e-8, tn=128, interpret=True, motion=motion, rotation_format=fmt)
+    ref = {k: tpyr.ravel(tpyr.params_from_numpy(
+        jfi.t_to_params(list(t), motion=motion)))
+        for k, t in (("p", newp), ("m", newm), ("v", newv))}
 
     flat = tpyr.ravel(tpyr.params_from_numpy(lvl))
-    partials = tfi.level_warp_bwd(flat, _t(pts), _t(g), LEVEL, TCFG)
+    partials = tfi.level_warp_bwd(flat, _t(pts), _t(g), LEVEL, tcfg)
     assert partials.shape == (1, flat.shape[0])
     p, m, v = flat.clone(), torch.zeros_like(flat), torch.zeros_like(flat)
     tfi.adam_step(p, m, v, partials, torch.tensor(0.0), torch.tensor(0.0),
@@ -261,3 +301,164 @@ def test_early_stop_halts_with_host_reads_every_few_iterations():
     assert len(calls) == tfi.SYNC_EVERY
     assert int(stop.it) == 3 and int(stop.applied) == 2
     assert calls[:3] == [False, False, True] and all(calls[3:])
+
+
+def test_scatter_rows_order_matches_index_add():
+    """The y->x scatter of the glue: C6 adds each row's sources one after
+    another in increasing index, as this loop does; that equals
+    ``index_add_`` (its plain version) within 1e-7 on indices with many
+    duplicates (bit for bit where index_add_ is sequential)."""
+    rng = np.random.default_rng(6)
+    idx = rng.integers(0, 40, 3000)
+    src = (rng.standard_normal((3000, 3)) * 1e-3).astype(np.float32)
+    dst = (rng.standard_normal((50, 3)) * 1e-3).astype(np.float32)
+    ref = tfi.scatter_add_rows(_t(dst), _t(idx), _t(src)).numpy()
+    got = dst.copy()
+    for j, i in enumerate(idx):
+        got[i] = got[i] + src[j]
+    assert np.abs(got - ref).max() < 1e-7
+    assert np.array_equal(
+        ref, torch.from_numpy(dst).index_add_(0, _t(idx), _t(src)).numpy())
+
+
+def _ldmk_setup(jcfg, n=150, n_pad=256, seed=7):
+    """Landmark rows, their targets and mask, and one level's weights."""
+    pts, _, lvl = _setup(n=n, seed=seed, jcfg=jcfg)
+    rng = np.random.default_rng(seed)
+    tgt = (pts + rng.standard_normal(pts.shape) * 0.05).astype(np.float32)
+    valid = rng.random(n) > 0.2
+    return pts, tgt, valid, lvl
+
+
+@pytest.mark.parametrize("motion,fmt", MOTION_FORMATS)
+def test_ldmk_iteration_plain_matches_ldmk_iter_call(motion, fmt):
+    """C5's plain version against JAX's ``_ldmk_iter_call``: one step
+    (params, moments, warped rows within 1e-5, loss within 1e-6 relative,
+    counter and done equal), then a step that the early stop holds (params
+    and moments bit-exact, done set)."""
+    jcfg, tcfg = _cfgs(motion, fmt)
+    pts, tgt, valid, lvl = _ldmk_setup(jcfg)
+    n, n_pad = pts.shape[0], 256
+    xt_pad = jnp.zeros((3, n_pad), jnp.float32).at[:, :n].set(pts.T)
+    tgt_pad = jnp.zeros((3, n_pad), jnp.float32).at[:, :n].set(tgt.T)
+    mask = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(valid)
+    count = np.float32(max(valid.sum(), 1))
+    freq = jnp.exp2(jnp.float32(LEVEL) + 1.0 + jcfg.k0).reshape(1, 1)
+    p_t = jfi.params_to_t(lvl)
+    zeros = [jnp.zeros_like(a) for a in p_t]
+    flat = tpyr.ravel(tpyr.params_from_numpy(lvl))
+
+    for loss_eps, loss_prev, counter in ((1e-4, 0.5, 3), (1e9, 1e6, 0)):
+        lk = dict(iters=20, lr=0.01, max_break_count=15,
+                  break_threshold_ratio=0.001, loss_eps=loss_eps)
+        newp, newm, newv, warped_t, jloss, jcounter, jdone = \
+            jfi._ldmk_iter_call(
+                freq, jnp.full((1, 1), loss_prev, jnp.float32),
+                jnp.full((1, 1), float(counter), jnp.float32),
+                jnp.zeros((1, 1)), jnp.full((1, 1), count), xt_pad, tgt_pad,
+                mask, p_t, zeros, zeros, mlp_scale=jcfg.mlp_scale, lr=0.01,
+                b1=0.9, b2=0.999, eps=1e-8, interpret=True, motion=motion,
+                rotation_format=fmt, max_break=15, thr_ratio=0.001,
+                loss_eps=loss_eps)
+        ref = {k: tpyr.ravel(tpyr.params_from_numpy(
+            jfi.t_to_params(list(t), motion=motion)))
+            for k, t in (("p", newp), ("m", newm), ("v", newv))}
+
+        stop = tfi.EarlyStop(LoopConfig(**lk), torch.device("cpu"))
+        stop.loss_prev = torch.tensor(loss_prev, dtype=torch.float32)
+        stop.counter = torch.tensor(counter, dtype=torch.int32)
+        p, m, v = flat.clone(), torch.zeros_like(flat), torch.zeros_like(flat)
+        x = _t(pts)
+        aux = x.clone()
+        tfi.ldmk_iteration(p, m, v, x, _t(tgt), _t(valid.astype(np.float32)),
+                           torch.tensor(count), stop, aux, LEVEL, tcfg, 0.01)
+        assert bool(stop.done) == bool(jdone[0, 0] > 0.5)
+        assert int(stop.counter) == int(jcounter[0, 0])
+        assert int(stop.it) == 1
+        assert abs(float(stop.loss) - float(jloss[0, 0])) \
+            <= 1e-6 * abs(float(jloss[0, 0]))
+        assert np.abs(aux.numpy() - np.asarray(warped_t).T[:n]).max() < 1e-5
+        if loss_eps > 1.0:                      # held: nothing moves
+            assert bool(stop.done) and int(stop.applied) == 0
+            assert torch.equal(p, flat) and not m.any() and not v.any()
+            assert torch.equal(ref["p"], flat)
+        else:
+            assert not bool(stop.done) and int(stop.applied) == 1
+            for k, got in (("p", p), ("m", m), ("v", v)):
+                assert (got - ref[k]).abs().max() < 1e-5, k
+
+
+def test_ldmk_iteration_halted_changes_nothing():
+    """An iteration that starts halted leaves params, moments, aux and the
+    stop state as they were."""
+    _, tcfg = _cfgs("SE3", "axis_angle")
+    pts, tgt, valid, lvl = _ldmk_setup(JCFG, n=40)
+    flat = tpyr.ravel(tpyr.params_from_numpy(lvl))
+    stop = tfi.EarlyStop(LoopConfig(iters=5), torch.device("cpu"))
+    stop.done = torch.tensor(True)
+    p, m, v = flat.clone(), torch.ones_like(flat), torch.ones_like(flat)
+    aux = torch.zeros(40, 3)
+    tfi.ldmk_iteration(p, m, v, _t(pts), _t(tgt),
+                       _t(valid.astype(np.float32)), torch.tensor(30.0),
+                       stop, aux, LEVEL, tcfg, 0.01)
+    assert torch.equal(p, flat) and (m == 1).all() and (v == 1).all()
+    assert not aux.any() and int(stop.it) == 0 and int(stop.applied) == 0
+
+
+def test_run_fused_level_ldmk_matches_jax():
+    """The landmark-only level loop (C5 plain on the CPU) against JAX's
+    ``run_fused_level_ldmk`` (its kernel in interpret mode): equal
+    iteration count, loss within 1e-4, params and warped rows within
+    1e-3."""
+    pts, tgt, valid, lvl = _ldmk_setup(JCFG, n=120, seed=8)
+    lk = dict(iters=25, lr=0.01, max_break_count=15,
+              break_threshold_ratio=0.001)
+    jp, jw, jst = jfi.run_fused_level_ldmk(
+        jax.tree.map(jnp.asarray, lvl), jnp.asarray(pts), jnp.asarray(valid),
+        jnp.asarray(tgt), jnp.int32(LEVEL), JCFG, JLoopConfig(**lk),
+        interpret=True)
+    tp, tw, tst = tfi.run_fused_level_ldmk(
+        tpyr.params_from_numpy(lvl), _t(pts), _t(valid), _t(tgt), LEVEL,
+        TCFG, LoopConfig(**lk))
+    assert int(tst["iters"]) == int(jst["iters"])
+    assert abs(float(tst["loss"]) - float(jst["loss"])) < 1e-4
+    assert np.abs(tw.numpy() - np.asarray(jw)).max() < 1e-3
+    ref = tpyr.params_from_numpy(jax.tree.map(np.asarray, jp))
+    for k in ref:
+        for kk in ref[k]:
+            assert (tp[k][kk] - ref[k][kk]).abs().max() < 1e-3, (k, kk)
+
+
+def test_run_fused_level_landmark_chamfer_matches_jax():
+    """Landmark + chamfer mode (``n_ldmk > 0``, w_cd 1.0, trunc 0.25):
+    pts = [ldmk ; sample], the landmark rows out of the chamfer. Against
+    JAX's ``run_fused_level(n_ldmk=...)``: equal iteration count, loss
+    within 1e-4, params and warped points within 1e-3."""
+    n_ldmk = 40
+    pts, tgt, lvl = _setup(n=160, m=200, seed=9)
+    rng = np.random.default_rng(9)
+    ltgt = (pts[:n_ldmk] + rng.standard_normal((n_ldmk, 3)) * 0.05
+            ).astype(np.float32)
+    lvalid = rng.random(n_ldmk) > 0.2
+    pv = np.ones(pts.shape[0], bool)
+    pv[:n_ldmk] = lvalid
+    tv = np.ones(tgt.shape[0], bool)
+    lk = dict(iters=25, lr=0.01, max_break_count=15,
+              break_threshold_ratio=0.001)
+    jp, jw, jst = jfi.run_fused_level(
+        jax.tree.map(jnp.asarray, lvl), jnp.asarray(pts), jnp.asarray(pv),
+        jnp.asarray(tgt), jnp.asarray(tv), jnp.int32(LEVEL), JCFG,
+        JLoopConfig(**lk), trunc=0.25, n_ldmk=n_ldmk,
+        tgt_ldmk=jnp.asarray(ltgt), ldmk_valid=jnp.asarray(lvalid),
+        w_cd=1.0, interpret=True)
+    tp, tw, tst = tfi.run_fused_level(
+        tpyr.params_from_numpy(lvl), _t(pts), _t(pv), _t(tgt), _t(tv),
+        LEVEL, TCFG, LoopConfig(**lk), trunc=0.25, n_ldmk=n_ldmk,
+        tgt_ldmk=_t(ltgt), ldmk_valid=_t(lvalid), w_cd=1.0)
+    assert int(tst["iters"]) == int(jst["iters"])
+    assert abs(float(tst["loss"]) - float(jst["loss"])) < 1e-4
+    assert np.abs(tw.numpy() - np.asarray(jw)).max() < 1e-3
+    ref = tpyr.params_from_numpy(jax.tree.map(np.asarray, jp))
+    for k in ref:
+        for kk in ref[k]:
+            assert (tp[k][kk] - ref[k][kk]).abs().max() < 1e-3, (k, kk)

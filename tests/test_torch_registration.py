@@ -157,3 +157,98 @@ def test_register_batch_and_padding_masks():
     single, _ = tdp.register_pair(1, _t(srcs[1]), _t(tgts[1]), cfg,
                                   _t(valid[1]), _t(valid[1]))
     assert torch.equal(single, warped[1])
+
+
+# The landmark solves run at config/LNDP.yaml's k0 = -8. At k0 = -6 the
+# landmark-only solve of these inputs already differs between the two
+# packages by 1.4e-3 at level 2 with equal iterations and losses within
+# 2e-6: Adam turns a near-zero gradient's float noise into full +-lr steps
+# of a nearly dead unit, while the JAX package's own unfused and one-kernel
+# solves agree to 5e-7 with each other.
+PYR_LDMK = dict(PYR, k0=-8)
+# landmark modes: (w_cd, use_fused_iteration, use_fused_ldmk)
+LDMK_MODES = {"ldmk-unfused": (0.0, False, False),
+              "ldmk-C5": (0.0, True, True),
+              "ldmk+cd-unfused": (1.0, False, False),
+              "ldmk+cd-fused": (1.0, True, False)}
+
+
+def _ldmk_inputs(seed=0, n=260, n_ldmk=64):
+    """Centred samples as in ``_inputs`` plus n_ldmk landmarks from the
+    ground-truth flow with 0.002 noise, the last 8 rows padding."""
+    src, tgt, flow = jsyn.make_pair(n=n, seed=seed, deform=0.12)
+    src_c, s, t = _inputs(seed, n)
+    rng = np.random.default_rng(seed + 100)
+    li = rng.permutation(n)[:n_ldmk]
+    s_l = src_c[li]
+    t_l = (src[li] + flow[li] - tgt.mean(0, keepdims=True)
+           + rng.standard_normal((n_ldmk, 3)) * 0.002).astype(np.float32)
+    l_valid = np.arange(n_ldmk) < n_ldmk - 8
+    return src_c, s, t, s_l, t_l, l_valid
+
+
+@pytest.mark.parametrize("mode", sorted(LDMK_MODES))
+def test_landmark_solve_matches_jax(mode):
+    """The landmark-guided solve (LNDP's solver half, SE3 + axis_angle) in
+    each mode against the JAX package's: equal per-level iterations, level
+    losses within 1e-4, the full-cloud warp within 1e-3 (the criteria of
+    the chamfer-mode solve above)."""
+    w_cd, fused, c5 = LDMK_MODES[mode]
+    src_c, s, t, s_l, t_l, l_valid = _ldmk_inputs()
+    n_ldmk = s_l.shape[0]
+    t_valid = np.ones(t.shape[0], bool)
+    if w_cd > 0:
+        pts0 = np.concatenate([s_l, s])
+        pv = np.concatenate([l_valid, np.ones(s.shape[0], bool)])
+    else:
+        pts0, pv = s_l, l_valid
+    knobs = dict(w_cd=w_cd, trunc_cd=0.25, use_fused_iteration=fused,
+                 use_fused_ldmk=c5)
+    jcfg = jreg.SolverConfig(pyramid=jpyr.NDPConfig(**PYR_LDMK), **SOLVE,
+                             use_pallas=False, **knobs)
+    tcfg = treg.SolverConfig(pyramid=tpyr.NDPConfig(**PYR_LDMK), **SOLVE,
+                             **knobs)
+    key = jax.random.key(7)
+
+    @jax.jit
+    def jax_solve(pts0, pv, t, tv, t_l, l_valid, src_c):
+        params, stats = jreg.optimize_pyramid(
+            key, pts0, pv, t, tv, jcfg, n_ldmk=n_ldmk, tgt_ldmk=t_l,
+            ldmk_valid=l_valid)
+        return jpyr.warp(params, src_c, jcfg.pyramid)[0], stats
+
+    jwarped, jstats = jax_solve(*map(jnp.asarray, (pts0, pv, t, t_valid, t_l,
+                                                   l_valid, src_c)))
+    init = jax.jit(jpyr.init_pyramid_params, static_argnums=1)(
+        key, jcfg.pyramid)
+    tparams, tstats = treg.optimize_pyramid(
+        tpyr.params_from_numpy(jax.tree.map(np.asarray, init)), _t(pts0),
+        _t(pv), _t(t), _t(t_valid), tcfg, n_ldmk, _t(t_l), _t(l_valid))
+    twarped, _ = tpyr.warp(tparams, _t(src_c), tcfg.pyramid)
+
+    assert tstats["iters"].tolist() == np.asarray(jstats["iters"]).tolist()
+    assert np.abs(tstats["loss"].numpy() - np.asarray(jstats["loss"])
+                  ).max() < 1e-4
+    assert np.abs(twarped.numpy() - np.asarray(jwarped)).max() < 1e-3
+
+
+@pytest.mark.parametrize("w_cd", [0.0, 1.0])
+def test_register_pair_with_landmarks_runs_on_cpu(w_cd):
+    src, tgt, flow = tsyn.make_pair(n=220, seed=4, deform=0.12)
+    rng = np.random.default_rng(4)
+    li = rng.permutation(220)[:48]
+    s_l = src[li]
+    t_l = (tgt[li] + rng.standard_normal((48, 3)) * 0.002).astype(np.float32)
+    l_valid = np.arange(48) < 40
+    cfg = treg.SolverConfig(pyramid=tpyr.NDPConfig(**PYR), **SOLVE,
+                            w_cd=w_cd, use_fused_iteration=True,
+                            use_fused_ldmk=True)
+    fn = tdp.make_register_fn(cfg, landmarks=True)
+    warped, stats = fn(11, _t(src), _t(tgt), _t(s_l), _t(t_l), _t(l_valid))
+    assert warped.shape == (220, 3) and torch.isfinite(warped).all()
+    assert stats["iters"].shape == (3,) and (stats["iters"] >= 1).all()
+    again, _ = tdp.register_pair(11, _t(src), _t(tgt), cfg, src_ldmk=_t(s_l),
+                                 tgt_ldmk=_t(t_l), ldmk_valid=_t(l_valid))
+    assert torch.equal(again, warped)
+    epe = (warped - _t(src) - _t(flow)).norm(dim=-1).mean()
+    assert epe < _t(flow).norm(dim=-1).mean()

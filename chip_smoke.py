@@ -19,7 +19,13 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             width 128, depth 3, SE3 + axis_angle, a mid level); C2 and C3
             again at the shape-transfer shapes (6000 points, Sim3 + euler);
             C5 ldmk_iteration at 2048 landmark rows (2000 valid), one step
-            and a held step;
+            and a held step; C7 flash_attention_fwd at L = S = 2048, 4 heads
+            of 132, 1500 valid source rows, and at L = 777, S = 1333 with
+            1000 and with 0 valid rows. Beside each kernel the one PyTorch
+            call that computes the same function, where there is one
+            (index_add_, the fused torch.optim.Adam step,
+            scaled_dot_product_attention), timed here and used nowhere in
+            the port, and the least time the card could take (bound_ms);
 4. fused    the bench configuration (9 levels, width 128, 500 iterations,
             2000 samples, SE3/axis_angle, fused iteration) on
             make_batch(4, n=2000, seed=100, deform=0.12) through
@@ -44,13 +50,29 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             then unfused, then w_cd 1.0 (trunc 0.25) fused through C1-C4;
             EPE >= 10x below the initial flow, each path's kernels
             launched, and C5's ms/iter against the unfused loop's;
-9. small    small solves on the card against the same solves on the CPU,
+9. lndp     the learned landmark path at full width (config/LNDP.yaml ->
+            config/configs/lepard.yaml and outlier_rejection.yaml: matcher
+            528 wide, 4 heads, 15 kernel points, first_feats_dim 256; NeCo
+            144 wide, 8 heads, 9 layers; attention_impl 'flash'; weights
+            from seed 0) on make_pair(n=8000, deform=0.08) pairs, one as
+            warm-up and two timed: calibrate_neighborhood_limits ->
+            build_pair_pyramid -> landmark_inference with power-of-two caps
+            -> register_pair with the landmarks (m = 10, SE3, axis_angle,
+            w_cd 0, C5, padded to 2048 rows). Every output finite; C7
+            launched 8 times a pair; the same pair with attention_impl 'xla'
+            gives a confidence matrix within 1e-4 and the same matches on
+            every row that is no near-tie; the same pair twice gives a
+            bit-equal confidence matrix. With weights from a seed the model
+            finds ~0 landmarks: the count is printed, not gated;
+10. small   small solves on the card against the same solves on the CPU,
             where every kernel's plain version runs (SE3 + axis_angle,
             Sim3 + euler, both landmark modes): equal per-level iteration
-            counts and warped points within 1e-3.
+            counts and warped points within 1e-3; and a narrow landmark
+            model on the card (C7 at head width 24) against the CPU: the
+            confidence matrix within 1e-4.
 
-Then one JSON line with every kernel's launches, error and times, the
-nvidia-smi line, and last the JSON result line. The script needs a CUDA
+Then one JSON line with every kernel's launches, error, times and bound,
+the nvidia-smi line, and last the JSON result line. The script needs a CUDA
 device and the repository around it, and uses no network.
 """
 from __future__ import annotations
@@ -106,6 +128,56 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+# Published peaks of one H100 SXM: device memory and float32 outside the
+# tensor cores (every kernel here computes in exact float32).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate and its operations over the float32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def level_mlp_flops(n: int, cfg, heads: int) -> float:
+    """Multiply-adds of one level's MLP over n points, as flops: 6 -> width,
+    depth - 1 hidden layers, width -> heads."""
+    w = cfg.width
+    return 2.0 * n * (6 * w + (cfg.depth - 1) * w * w + w * heads)
+
+
+def level_bounds(n: int, cfg, n_params: int, rows: int) -> dict:
+    """Bounds of C2, C3, C4 and C5 at n points, each for the function and
+    not for this design's intermediates. The forward is the MLP. The
+    backward is the recomputed forward, the weight gradients and the
+    hidden-activation gradients (3x the forward); it reads the parameters,
+    the points and the upstream gradient and writes one gradient. Adam on a
+    summed gradient reads p, m, v, g and writes p, m, v. The landmark
+    iteration is all three in one launch: the same 3x (its forward is not
+    run twice) plus Adam's arithmetic. The ``rows`` partial gradient rows
+    that C3 hands to C4 are the design's own traffic: C4's
+    ``design_bound_ms`` counts them, no ``bound_ms`` does (operations bind
+    C3 with or without them).
+    """
+    heads = cfg.rot_dim + 3 + (1 if cfg.motion == "Sim3" else 0)
+    fwd = level_mlp_flops(n, cfg, heads)
+    p4 = 4.0 * n_params
+    adam_design = bound(6.0 * p4 + rows * p4, (rows + 12.0) * n_params)
+    return {
+        "level_warp_fwd": bound(p4 + 24.0 * n, fwd),
+        "level_warp_bwd": bound(2.0 * p4 + 36.0 * n, 3.0 * fwd),
+        "adam_step": dict(bound(7.0 * p4, 12.0 * n_params),
+                          design_bound_ms=adam_design["bound_ms"]),
+        "ldmk_iteration": bound(6.0 * p4 + 40.0 * n,
+                                3.0 * fwd + 12.0 * n_params),
+    }
+
+
 def numpy_level_params(shapes: dict, seed: int) -> dict:
     """Xavier-uniform weights and torch-default biases for one level, made
     with numpy in the JAX package's layout."""
@@ -155,7 +227,7 @@ def kernel_phase(dp, dev):
         err=err,
         ms=cuda_ms(lambda: fi.level_warp_fwd(flat, x, MID_LEVEL, cfg)),
         plain_ms=cuda_ms(lambda: fi._plain_warp(flat, x, MID_LEVEL, cfg)),
-        tol="max abs 1e-5")
+        library_ms=None, tol="max abs 1e-5")
 
     # C1: both 1-NN directions, on the warped points as in the solver
     got = knn.nn_argmin_dual(warped, y, xv, xv)
@@ -176,6 +248,11 @@ def kernel_phase(dp, dev):
         err=err,
         ms=cuda_ms(lambda: knn.nn_argmin_dual(warped, y, xv, xv)),
         plain_ms=cuda_ms(lambda: knn.nn_argmin_dual_plain(warped, y, xv, xv)),
+        # torch.cdist + min is two calls a direction, and its matmul form
+        # is not the exact difference: no one library call computes this
+        library_ms=None,
+        # ~8 flops a pair of points; inputs, masks and both outputs once
+        **bound(2 * 2000 * (12 + 1 + 4 + 8), 8.0 * 2000 * 2000),
         tol="indices equal up to near-ties < 3e-4 rel; distances 1e-5")
 
     # C6: the glue's y->x scatter, on the sweep's indices, against its
@@ -190,10 +267,13 @@ def kernel_phase(dp, dev):
     check(torch.equal(out.cpu(), ref_s), "C6 scatter_rows differs from "
           f"index_add_ on the CPU by {float((out.cpu() - ref_s).abs().max())}")
     buf = gx.clone()
+    index_add_ms = cuda_ms(lambda: buf.index_add_(0, rarg, gy))
     results["scatter_rows"] = dict(
         err=float((out.cpu() - ref_s).abs().max()),
         ms=cuda_ms(lambda: fi.scatter_add_rows(buf, rarg, gy)),
-        plain_ms=cuda_ms(lambda: buf.index_add_(0, rarg, gy)),
+        plain_ms=index_add_ms, library_ms=index_add_ms,
+        # dst read and written, idx (int64) and src read; one add a value
+        **bound(2000 * (24 + 8 + 12), 3.0 * 2000),
         tol="bit-equal to index_add_ on the CPU")
 
     # The chamfer gradient of the main path feeds C3.
@@ -212,6 +292,7 @@ def kernel_phase(dp, dev):
         ms=cuda_ms(lambda: fi.level_warp_bwd(flat, x, g, MID_LEVEL, cfg)),
         plain_ms=cuda_ms(lambda: fi.level_warp_bwd_plain(flat, x, g,
                                                          MID_LEVEL, cfg)),
+        library_ms=None,
         tol=f"1e-4 of each tensor's max|g| (worst {worst:.2e})")
 
     # C4: one Adam step from zero moments, then a held step
@@ -236,17 +317,37 @@ def kernel_phase(dp, dev):
     check(torch.equal(held[0], flat) and torch.equal(held[1], m)
           and torch.equal(held[2], v), "C4 did not hold with done = 1")
     pa, ma, va = flat.clone(), torch.zeros_like(flat), torch.zeros_like(flat)
+    # the library's step: fused Adam on one flat tensor whose gradient is
+    # already summed (C4 also sums the partial rows and reads the done gate)
+    lib_p = flat.clone().requires_grad_(True)
+    lib_p.grad = got_g.clone()
+    lib_opt = torch.optim.Adam([lib_p], lr=0.01, fused=True)
     results["adam_step"] = dict(
         err=err,
         ms=cuda_ms(lambda: fi.adam_step(pa, ma, va, partials, zero, zero,
                                         0.01)),
         plain_ms=cuda_ms(lambda: fi.adam_step_plain(pa, ma, va, partials,
                                                     zero, zero, 0.01)),
+        library_ms=cuda_ms(lib_opt.step),
         tol="m, v 1e-6 of max; p 1e-6 where |g| > 1e-3 max|g|; hold exact")
+    for name, b in level_bounds(2000, cfg, flat.numel(),
+                                partials.shape[0]).items():
+        if name in results:
+            results[name].update(b)
     for name, r in results.items():
-        phase("kernels", f"{name}: max_abs_err {r['err']:.3e} ({r['tol']}); "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        print_kernel(name, r)
     return results
+
+
+def print_kernel(name: str, r: dict) -> None:
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms']:.4f} ms")
+    phase("kernels", f"{name}: max_abs_err {r['err']:.3e} ({r['tol']}); "
+          f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+          f"call {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
+          + (f", with this design's partial rows "
+             f"{r['design_bound_ms']:.5f} ms"
+             if "design_bound_ms" in r else ""))
 
 
 def solve_checks(tag, warped, src, flow, stats, iters_cap):
@@ -345,10 +446,15 @@ def sim3_kernel_phase(dp, dev):
             ms=cuda_ms(lambda: fi.level_warp_bwd(flat, x, g, MID_LEVEL, cfg)),
             plain_ms=cuda_ms(lambda: fi.level_warp_bwd_plain(
                 flat, x, g, MID_LEVEL, cfg)))}
+    rows = fi.level_warp_bwd(flat, x, g, MID_LEVEL, cfg).shape[0]
+    for name, b in level_bounds(6000, cfg, flat.numel(), rows).items():
+        if name in res:
+            res[name].update(b)
     for name, r in res.items():
         phase("kernels", f"{name} [Sim3+euler, 6000 points]: max_abs_err "
               f"{r['err']:.3e} ({r['tol']}); kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms")
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
     return res
 
 
@@ -441,15 +547,15 @@ def ldmk_kernel_phase(dp, dev):
     res = dict(
         err=err, tol="rows 1e-5; loss 1e-6 rel; counter/done equal; m, v "
         "1e-6 of max; p 1e-6 where |m| > 1e-3 max|m|; held step exact",
+        library_ms=None,
+        **level_bounds(LDMK_ROWS, cfg, flat.numel(), 0)["ldmk_iteration"],
         ms=cuda_ms(lambda: fi.ldmk_iteration(
             kp, km, kv, x, tgt, mask, count, kst, kaux, MID_LEVEL, cfg, 0.01,
             scratch)),
         plain_ms=cuda_ms(lambda: fi.ldmk_iteration_plain(
             pp, pm, pv, x, tgt, mask, count, pst, paux, MID_LEVEL, cfg,
             0.01)))
-    phase("kernels", f"ldmk_iteration [{LDMK_ROWS} rows, {N_LDMK} valid]: "
-          f"max_abs_err {err:.3e} ({res['tol']}); kernel {res['ms']:.4f} "
-          f"ms, plain {res['plain_ms']:.4f} ms")
+    print_kernel(f"ldmk_iteration [{LDMK_ROWS} rows, {N_LDMK} valid]", res)
     return res
 
 
@@ -650,6 +756,314 @@ def small_phase(dp, dev):
               f"{res['cuda'][1]} equal, warped max abs err {err:.3e} "
               "(<= 1e-3)")
 
+FLASH_SHAPE = dict(L=2048, S=2048, src_len=1500, h=4, d=132)
+
+
+def flash_bound(L: int, src_len: int, h: int, d: int) -> dict:
+    """C7: two products of 2 L src_len h d flops each; q read and o written
+    (L rows), k and v read up to the valid prefix."""
+    return bound(4.0 * (2 * L + 2 * src_len) * h * d,
+                 4.0 * L * src_len * h * d)
+
+
+def flash_case(dev, L, S, src_len, h, d, seed, timed: bool):
+    """C7 against its plain version on one shape; with ``timed`` also the
+    device times of the kernel, the plain version and
+    scaled_dot_product_attention with a boolean mask on the same tensors."""
+    from deformationpyramid_tpu_torch.match import attention as att
+
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(n, h, d, generator=gen).to(dev)
+               for n in (L, S, S))
+    n_valid = torch.tensor(src_len, dtype=torch.int32, device=dev)
+    scale = d ** -0.5
+    got = att.flash_attention(q, k, v, n_valid, scale)
+    ref = att.flash_attention_plain(q, k, v, n_valid, scale)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    tag = f"L {L}, S {S}, src_len {src_len}, {h} heads of {d}"
+    check(bool(torch.isfinite(got).all()), f"C7 [{tag}]: non-finite output")
+    check(err <= 2e-5, f"C7 [{tag}]: max abs err {err} > 2e-5")
+    if src_len == 0:
+        check(not bool(got.any()), f"C7 [{tag}]: an empty prefix must give 0")
+    res = dict(err=err, tol="max abs 2e-5", shape=tag)
+    if timed:
+        mask = (torch.arange(S, device=dev) < src_len)[None, None, None, :]
+        qs, ks, vs = (t.transpose(0, 1)[None] for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        res.update(
+            ms=cuda_ms(lambda: att.flash_attention(q, k, v, n_valid, scale)),
+            plain_ms=cuda_ms(lambda: att.flash_attention_plain(
+                q, k, v, n_valid, scale)),
+            library_ms=cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask,
+                                            scale=scale)),
+            **flash_bound(L, src_len, h, d))
+        print_kernel(f"flash_attention_fwd [{tag}]", res)
+    else:
+        phase("kernels", f"flash_attention_fwd [{tag}]: max_abs_err "
+              f"{err:.3e} ({res['tol']})")
+    return res
+
+
+def flash_kernel_phase(dev):
+    res = flash_case(dev, seed=11, timed=True, **FLASH_SHAPE)
+    for src_len in (1000, 0):
+        flash_case(dev, 777, 1333, src_len, 4, 132, seed=12, timed=False)
+    return res
+
+
+def lndp_config(impl: str):
+    """config/LNDP.yaml's landmark model at its published widths, with the
+    attention route set."""
+    from deformationpyramid_tpu_torch.match.config_loader import \
+        landmark_config_from_yaml
+    from deformationpyramid_tpu_torch.utils.config import load_config
+
+    top = load_config(str(REPO / "config" / "LNDP.yaml"))
+    lcfg = landmark_config_from_yaml(str(REPO / top.ldmk_config),
+                                     inlier_thr=top.inlier_thr,
+                                     reject_outliers=top.reject_outliers)
+    m = lcfg.matcher
+    check((m.kpfcn.coarse_feature_dim, m.transformer.feature_dim,
+           m.transformer.n_head, m.kpfcn.num_kernel_points,
+           m.kpfcn.first_feats_dim) == (528, 528, 4, 15, 256)
+          and (lcfg.neco.feature_dim, lcfg.neco.n_head,
+               lcfg.neco.num_layers) == (144, 8, 9),
+          "lndp: the yaml files no longer give the published widths")
+    tr = dataclasses.replace(m.transformer, attention_impl=impl)
+    return dataclasses.replace(
+        lcfg, matcher=dataclasses.replace(m, transformer=tr)), top
+
+
+def lndp_phase(dp, dev, kernels):
+    """collate -> matcher -> landmarks -> solve, at full width."""
+    from deformationpyramid_tpu_torch.data.collate import (
+        build_pair_pyramid, calibrate_neighborhood_limits, pow2_cap,
+        pyramid_to_device)
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.match import landmark as lm
+    from deformationpyramid_tpu_torch.match.backbone import KPFCN_ARCHITECTURE
+    from deformationpyramid_tpu_torch.models.pyramid import tree_map
+
+    lcfg, top = lndp_config("flash")
+    lcfg_xla, _ = lndp_config("xla")
+    kp = lcfg.matcher.kpfcn
+    cl = lcfg.matcher.coarse_level
+    scfg = dp.SolverConfig(
+        pyramid=dp.NDPConfig(m=top.m, k0=top.k0, depth=top.depth,
+                             width=top.width,
+                             rotation_format=top.rotation_format,
+                             motion=top.motion_type),
+        iters=top.iters, lr=top.lr, max_break_count=top.max_break_count,
+        break_threshold_ratio=top.break_threshold_ratio, samples=top.samples,
+        w_ldmk=float(top.w_ldmk), w_cd=top.w_cd, trunc_cd=top.trunc_cd,
+        use_fused_iteration=True, use_fused_ldmk=True)
+    check((scfg.pyramid.m, scfg.pyramid.motion, scfg.pyramid.rotation_format,
+           scfg.w_cd) == (10, "SE3", "axis_angle", 0.0),
+          "lndp: config/LNDP.yaml no longer gives the LNDP solver")
+    t0 = time.perf_counter()
+    params = lm.init_landmark_model(torch.Generator().manual_seed(0), lcfg,
+                                    device=dev)
+    n_params = []
+    tree_map(lambda t: n_params.append(t.numel()), params)
+    phase("lndp", f"landmark model: {sum(n_params) / 1e6:.2f} M values from "
+          f"seed 0 in {time.perf_counter() - t0:.2f} s")
+
+    def collate(seed):
+        src, tgt, _ = make_pair(n=8000, seed=seed, deform=0.08)
+        t0 = time.perf_counter()
+        limits = calibrate_neighborhood_limits([(src, tgt)], kp,
+                                               KPFCN_ARCHITECTURE)
+        pyr = build_pair_pyramid(src, tgt, kp, KPFCN_ARCHITECTURE, limits,
+                                 pad_to="pow2")
+        secs = time.perf_counter() - t0
+        return src, tgt, pyr, limits, secs
+
+    def run_pair(seed):
+        src, tgt, pyr, limits, collate_s = collate(seed)
+        pyrd = pyramid_to_device(pyr, dev)
+        caps = (pow2_cap(pyr.src_lengths[cl]), pow2_cap(pyr.tgt_lengths[cl]))
+        lens = (torch.tensor(pyr.src_lengths[cl], device=dev),
+                torch.tensor(pyr.tgt_lengths[cl], device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm.landmark_inference(params, pyrd, *lens, lcfg,
+                                    s_cap=caps[0], t_cap=caps[1])
+        torch.cuda.synchronize()
+        infer_ms = (time.perf_counter() - t0) * 1e3
+        rows = max(LDMK_ROWS, caps[0])
+        pad = rows - caps[0]
+        s_l = torch.nn.functional.pad(out["ldmk_s"], (0, 0, 0, pad))
+        t_l = torch.nn.functional.pad(out["ldmk_t"], (0, 0, 0, pad))
+        l_v = torch.nn.functional.pad(out["ldmk_valid"], (0, pad))
+        src_d, tgt_d = (torch.from_numpy(a).to(dev) for a in (src, tgt))
+        t0 = time.perf_counter()
+        warped, stats = dp.register_pair(seed, src_d, tgt_d, scfg,
+                                         src_ldmk=s_l, tgt_ldmk=t_l,
+                                         ldmk_valid=l_v)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        for name in ("conf_matrix_pred", "src_feats", "tgt_feats", "ldmk_s",
+                     "ldmk_t", "neco_confidence", "match_conf", "vec_6d",
+                     "R_s2t_pred", "t_s2t_pred", "condition"):
+            check(bool(torch.isfinite(out[name]).all()),
+                  f"lndp: {name} is not finite")
+        check(bool(torch.isfinite(warped).all())
+              and warped.shape == src_d.shape,
+              "lndp: the solver's output is not finite")
+        check(out["conf_matrix_pred"].shape == caps
+              and out["ldmk_s"].shape == (caps[0], 3),
+              f"lndp: output shapes at caps {caps}")
+        iters = stats["iters"].cpu().tolist()
+        check(all(1 <= i <= scfg.iters for i in iters),
+              f"lndp: level iterations {iters}")
+        return dict(src=src, tgt=tgt, pyr=pyr, pyrd=pyrd, caps=caps,
+                    lens=lens, out=out, collate_s=collate_s,
+                    infer_ms=infer_ms, solve_s=solve_s, iters=iters,
+                    limits=limits, n_ldmk=int(out["ldmk_valid"].sum()),
+                    n_match=int(out["match_valid"].sum()))
+
+    run_pair(399)                                    # warm-up
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    pairs = [run_pair(seed) for seed in (400, 401)]
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    check(launches["flash_attention_fwd"] == 8 * len(pairs),
+          f"lndp: C7 launched {launches['flash_attention_fwd']} times over "
+          f"{len(pairs)} pairs, expected 8 a pair")
+    check(launches["ldmk_iteration"] > 0, "lndp: C5 never launched")
+    for i, r in enumerate(pairs):
+        pyr = r["pyr"]
+        phase("lndp", f"pair {i + 1}: fine {len(pyr.points[0])} stacked "
+              f"points (padded), coarse src {pyr.src_lengths[cl]} / tgt "
+              f"{pyr.tgt_lengths[cl]}, caps {r['caps']}, neighbourhood "
+              f"limits {r['limits']}; collate {r['collate_s']:.3f} s, "
+              f"landmark_inference {r['infer_ms']:.3f} ms, solve "
+              f"{r['solve_s']:.3f} s = "
+              f"{r['solve_s'] * 1e3 / sum(r['iters']):.4f} ms/iter over "
+              f"{r['iters']}; matches {r['n_match']}, landmarks "
+              f"{r['n_ldmk']}; condition "
+              f"{float(r['out']['condition']):.3f}")
+
+    # The stages of one pair apart, after the counted run.
+    last = pairs[-1]
+    args = (params, last["pyrd"], *last["lens"])
+    caps_kw = dict(s_cap=last["caps"][0], t_cap=last["caps"][1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = lm.matcher_inference(*args, lcfg, **caps_kw)
+    torch.cuda.synchronize()
+    matcher_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    again = lm.neco_filter(params, data, lcfg)
+    torch.cuda.synchronize()
+    neco_ms = (time.perf_counter() - t0) * 1e3
+
+    # the same pair twice: bit-equal
+    conf = last["out"]["conf_matrix_pred"]
+    check(torch.equal(again["conf_matrix_pred"], conf),
+          "lndp: the same pair twice gave another confidence matrix, max abs "
+          f"{float((again['conf_matrix_pred'] - conf).abs().max())}")
+
+    # the einsum route on the same pair
+    ref = lm.landmark_inference(*args, lcfg_xla, **caps_kw)
+    torch.cuda.synchronize()
+    rconf = ref["conf_matrix_pred"]
+    err = float((conf - rconf).abs().max())
+    check(err <= 1e-4, f"lndp: flash against xla confidence matrix {err}")
+    thr = lcfg.matcher.matching.confidence_threshold
+    top2 = torch.topk(rconf, 2, dim=1).values
+    col2 = torch.topk(rconf, 2, dim=0).values
+    c = top2[:, 0]
+    stable = ((top2[:, 0] - top2[:, 1] > 1e-4) & ((c - thr).abs() > 1e-4)
+              & ((c < thr) | ((col2[0] - col2[1])[rconf.argmax(1)] > 1e-4)))
+    check(torch.equal(last["out"]["match_valid"][stable],
+                      ref["match_valid"][stable])
+          and torch.equal(last["out"]["match_idx"][stable],
+                          ref["match_idx"][stable]),
+          "lndp: flash and xla disagree on a match that is no near-tie")
+    phase("lndp", f"stages of pair 2: matcher {matcher_ms:.3f} ms, NeCo "
+          f"{neco_ms:.3f} ms; repeat bit-equal; flash against xla: "
+          f"confidence matrix max abs {err:.3e} (<= 1e-4), matches equal on "
+          f"{int(stable.sum())} of {stable.numel()} rows that are no "
+          f"near-ties; max confidence {float(conf.max()):.3e}; launches "
+          f"{launches}")
+
+    # C7 at the shape this path gave it (the source cloud's self-attention)
+    shape = dict(L=last["caps"][0], S=last["caps"][0],
+                 src_len=int(last["lens"][0]), h=4, d=132)
+    at_path = flash_case(dev, seed=13, timed=True, **shape)
+    return dict(
+        launches=launches, collate_s=[r["collate_s"] for r in pairs],
+        landmark_inference_ms=[r["infer_ms"] for r in pairs],
+        solve_ms_per_iter=[r["solve_s"] * 1e3 / sum(r["iters"])
+                           for r in pairs],
+        iters=[r["iters"] for r in pairs], matcher_ms=matcher_ms,
+        neco_ms=neco_ms, landmarks=[r["n_ldmk"] for r in pairs],
+        matches=[r["n_match"] for r in pairs],
+        caps=[list(r["caps"]) for r in pairs], flash_vs_xla_err=err,
+        flash_at_path_shape={k: at_path[k] for k in
+                             ("shape", "err", "ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by")})
+
+
+def small_landmark_phase(dev):
+    """A narrow landmark model on the card (C7 at head width 24) against the
+    same model on the CPU (C7's plain version)."""
+    from deformationpyramid_tpu_torch.data.collate import (
+        build_pair_pyramid, calibrate_neighborhood_limits, pyramid_to_device)
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.match import landmark as lm
+    from deformationpyramid_tpu_torch.match.backbone import KPFCN_ARCHITECTURE
+    from deformationpyramid_tpu_torch.match.kpconv import KPConvConfig
+    from deformationpyramid_tpu_torch.match.matching import MatchingConfig
+    from deformationpyramid_tpu_torch.match.outlier_rejection import \
+        NeCoConfig
+    from deformationpyramid_tpu_torch.match.pipeline import MatcherConfig
+    from deformationpyramid_tpu_torch.match.position_encoding import \
+        VolPEConfig
+    from deformationpyramid_tpu_torch.match.transformer import \
+        TransformerConfig
+    from deformationpyramid_tpu_torch.models.pyramid import tree_map
+
+    fd = 96
+    kp = KPConvConfig(first_subsampling_dl=0.05, first_feats_dim=32,
+                      coarse_feature_dim=fd, fine_feature_dim=24)
+    mc = MatchingConfig(feature_dim=fd)
+    lcfg = lm.LandmarkConfig(
+        matcher=MatcherConfig(kpfcn=kp, matching=mc,
+                              transformer=TransformerConfig(
+                                  feature_dim=fd, n_head=4, matching=mc,
+                                  vol=VolPEConfig(feature_dim=fd,
+                                                  vol_origin=(-2., -2., -2.)),
+                                  attention_impl="flash")),
+        neco=NeCoConfig(feature_dim=48, n_head=4, num_layers=3))
+    src, tgt, _ = make_pair(n=400, seed=0, deform=0.05)
+    limits = calibrate_neighborhood_limits([(src, tgt)], kp,
+                                           KPFCN_ARCHITECTURE)
+    pyr = build_pair_pyramid(src, tgt, kp, KPFCN_ARCHITECTURE, limits,
+                             pad_to="pow2")
+    params = lm.init_landmark_model(torch.Generator().manual_seed(0), lcfg,
+                                    device="cpu")
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        outs[d.type] = lm.landmark_inference(
+            tree_map(lambda t: t.to(d), params), pyramid_to_device(pyr, d),
+            pyr.src_lengths[2], pyr.tgt_lengths[2], lcfg, s_cap=256,
+            t_cap=256)
+    err = float((outs["cuda"]["conf_matrix_pred"].cpu()
+                 - outs["cpu"]["conf_matrix_pred"]).abs().max())
+    check(err <= 1e-4, f"small landmark model: confidence matrix err {err} "
+          "vs CPU > 1e-4")
+    check(float(outs["cpu"]["conf_matrix_pred"].max()) > 1e-2,
+          "small landmark model: the confidence matrix is flat")
+    phase("small", f"landmark model (width {fd}, 4 heads of 24, NeCo 48): "
+          f"card vs CPU confidence matrix max abs err {err:.3e} (<= 1e-4); "
+          f"matches {int(outs['cuda']['match_valid'].sum())} on the card, "
+          f"{int(outs['cpu']['match_valid'].sum())} on the CPU")
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -657,6 +1071,7 @@ def main() -> None:
                            "runs only on a GPU")
     sys.path.insert(0, str(REPO))
     import deformationpyramid_tpu_torch as dp
+    from deformationpyramid_tpu_torch.match import attention
     from deformationpyramid_tpu_torch.ops import cuda_lib, fused_iteration, knn
 
     dev = torch.device("cuda", 0)
@@ -680,10 +1095,12 @@ def main() -> None:
 
     kernels = [knn.NN_DUAL, fused_iteration.LEVEL_WARP_FWD,
                fused_iteration.SCATTER_ROWS, fused_iteration.LEVEL_WARP_BWD,
-               fused_iteration.ADAM_STEP, fused_iteration.LDMK_ITERATION]
+               fused_iteration.ADAM_STEP, fused_iteration.LDMK_ITERATION,
+               attention.FLASH_ATTENTION]
     measured = kernel_phase(dp, dev)
     sim3 = sim3_kernel_phase(dp, dev)
     measured["ldmk_iteration"] = ldmk_kernel_phase(dp, dev)
+    measured["flash_attention_fwd"] = flash_kernel_phase(dev)
 
     fused = slice_phase(dp, dev, kernels, fused=True, n_pairs=3)
     for name in CHAMFER_KERNELS:
@@ -708,7 +1125,17 @@ def main() -> None:
           f"against the unfused loop's "
           f"{landmark['unfused']['ms_per_iter']:.4f} ms/iter; {smi}")
 
+    lndp = lndp_phase(dp, dev, kernels)
+    phase("lndp", f"collate {statistics.mean(lndp['collate_s']):.3f} s, "
+          f"landmark_inference "
+          f"{statistics.mean(lndp['landmark_inference_ms']):.3f} ms a pair "
+          f"(matcher {lndp['matcher_ms']:.3f} ms, NeCo "
+          f"{lndp['neco_ms']:.3f} ms), solve "
+          f"{statistics.mean(lndp['solve_ms_per_iter']):.4f} ms/iter, "
+          f"landmarks {lndp['landmarks']}; {smi}")
+
     small_phase(dp, dev)
+    small_landmark_phase(dev)
 
     sources = {"nn_dual": ("csrc/nn_dual.cu", "ops/knn.py:389"),
                "level_warp_fwd": ("csrc/level_warp.cu",
@@ -719,10 +1146,15 @@ def main() -> None:
                "scatter_rows": ("csrc/scatter_rows.cu",
                                 "ops/fused_iteration.py:431"),
                "ldmk_iteration": ("csrc/ldmk_iteration.cu",
-                                  "ops/fused_iteration.py:1002")}
-    path_launches = dict(fused["launches"],
-                         ldmk_iteration=landmark["C5"]["launches"][
-                             "ldmk_iteration"])
+                                  "ops/fused_iteration.py:1002"),
+               "flash_attention_fwd": ("csrc/flash_attention.cu",
+                                       "match/attention.py:70")}
+    # each kernel's count from the path that is its own: the fused bench,
+    # the landmark solve (C5), the lndp path (C7)
+    path_launches = dict(
+        fused["launches"],
+        ldmk_iteration=landmark["C5"]["launches"]["ldmk_iteration"],
+        flash_attention_fwd=lndp["launches"]["flash_attention_fwd"])
     rows = []
     for k in kernels:
         row = {"name": k.name, "route": "cuda",
@@ -731,10 +1163,20 @@ def main() -> None:
                "launches": path_launches[k.name],
                "max_abs_err": measured[k.name]["err"],
                "ms": measured[k.name]["ms"],
-               "plain_ms": measured[k.name]["plain_ms"]}
+               "plain_ms": measured[k.name]["plain_ms"],
+               "bound_ms": measured[k.name]["bound_ms"],
+               "bound_by": measured[k.name]["bound_by"],
+               "library_ms": measured[k.name]["library_ms"]}
+        if "design_bound_ms" in measured[k.name]:
+            row["design_bound_ms"] = measured[k.name]["design_bound_ms"]
         if k.name in sim3:
             row["sim3_euler"] = {key: sim3[k.name][key]
-                                 for key in ("err", "ms", "plain_ms")}
+                                 for key in ("err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "design_bound_ms")
+                                 if key in sim3[k.name]}
+        if k.name == "flash_attention_fwd":
+            row["at_path_shape"] = lndp["flash_at_path_shape"]
         rows.append(row)
     print(json.dumps({
         "kernels": rows,
@@ -743,7 +1185,9 @@ def main() -> None:
         "unfused_pairs_per_s": unfused["pairs_per_s"],
         "unfused_ms_per_iter": unfused["ms_per_iter"],
         "shape_transfer": shape,
-        "landmark": landmark}), flush=True)
+        "landmark": landmark,
+        "lndp": {k: v for k, v in lndp.items()
+                 if k != "flash_at_path_shape"}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,221 @@
+"""Geometry-aware multi-head attention layer, and kernel C7.
+
+Counterpart of ``deformationpyramid_tpu/match/attention.py`` (reference
+``GeometryAttentionLayer``, ``correspondence/lepard/transformer.py:10-93``,
+and its outlier-rejection twin with the compatibility multiplier). One
+functional layer serves both. Single-cloud convention [N, C].
+
+``attention_impl`` routes as in the JAX package: ``'xla'`` is the plain
+einsum attention (the name is kept so that the same yaml files load);
+``'flash'`` streams the attention through kernel C7
+(``csrc/flash_attention.cu``) on CUDA tensors and through its plain version
+on CPU tensors, unless a compatibility multiplier is present (NeCo), which
+takes the einsum path as in the JAX package. Unlike the JAX package's
+flash path, C7 has no shape gate: any L, S and head width up to 144.
+
+The two routes differ on padded QUERY rows only: the einsum path masks
+padded source rows where the query row is valid, the streamed path for
+every query row. Both are garbage there that downstream masks.
+
+Inference only: C7 has no backward yet, and the whole landmark path runs
+under ``torch.no_grad()``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..ops.cuda_lib import F, I, Kernel, P, check_cuda, on_cpu
+from .position_encoding import embed_rotary
+
+Tensor = torch.Tensor
+
+FLASH_ATTENTION = Kernel("flash_attention_fwd", "dp_flash_attention_fwd",
+                         [P, P, P, P, I, I, I, I, F, P])
+FLASH_MAX_HEAD_DIM = 144
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    feature_dim: int = 528
+    n_head: int = 4
+    pe_type: str = "rotary"
+    # kept for the JAX package's field order; only 'float32' is ported
+    compute_dtype: str = "float32"
+    attention_impl: str = "xla"        # 'xla' (plain einsum) | 'flash' (C7)
+
+    def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise NotImplementedError("compute_dtype other than float32")
+        if self.attention_impl not in ("xla", "flash"):
+            raise ValueError(f"attention_impl {self.attention_impl!r}")
+
+
+def _xavier(gen: torch.Generator, shape: tuple[int, ...]) -> Tensor:
+    limit = math.sqrt(6.0 / (shape[0] + shape[-1]))
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
+
+
+def init_attention_layer(gen: torch.Generator, cfg: AttentionConfig) -> dict:
+    d = cfg.feature_dim
+    return {
+        "q": _xavier(gen, (d, d)),
+        "k": _xavier(gen, (d, d)),
+        "v": _xavier(gen, (d, d)),
+        "merge": _xavier(gen, (d, d)),
+        "mlp1": _xavier(gen, (2 * d, 2 * d)),
+        "mlp2": _xavier(gen, (2 * d, d)),
+        "ln1": {"g": torch.ones(d), "b": torch.zeros(d)},
+        "ln2": {"g": torch.ones(d), "b": torch.zeros(d)},
+    }
+
+
+def _source_length(src_len_or_mask: Tensor | None, s: int,
+                   device: torch.device) -> Tensor:
+    """The valid source prefix as a 0-d int32 tensor on ``device``, from
+    None (all S rows), a 0-d integer tensor, or a valid-prefix bool mask
+    [S]. Stays on the device: no host read."""
+    if src_len_or_mask is None:
+        return torch.full((), s, dtype=torch.int32, device=device)
+    if src_len_or_mask.dim() == 0:
+        return src_len_or_mask.to(torch.int32)
+    if src_len_or_mask.shape != (s,):
+        raise ValueError(f"source mask {tuple(src_len_or_mask.shape)}, "
+                         f"expected ({s},)")
+    return src_len_or_mask.sum().to(torch.int32)
+
+
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
+                          src_len_or_mask: Tensor | None,
+                          sm_scale: float) -> Tensor:
+    """Plain version of kernel C7: q [L, h, d], k/v [S, h, d] -> [L, h, d],
+    softmax over the valid source prefix for every query row; an empty
+    prefix gives zeros."""
+    s = k.shape[0]
+    if s == 0:
+        return torch.zeros_like(q)
+    src_len = _source_length(src_len_or_mask, s, q.device)
+    valid = torch.arange(s, device=q.device) < src_len
+    a = torch.einsum("lhd,shd->lsh", q, k) * sm_scale
+    a = torch.where(valid[None, :, None], a, -torch.inf)
+    m = a.max(dim=1, keepdim=True).values
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(a - m)
+    denom = p.sum(dim=1)                                   # [L, h]
+    o = torch.einsum("lsh,shd->lhd", p,
+                     torch.where(valid[:, None, None], v, 0.0))
+    return torch.where(denom[..., None] > 0,
+                       o / denom.clamp_min(1e-38)[..., None], 0.0)
+
+
+def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
+                         src_len_or_mask: Tensor | None,
+                         sm_scale: float) -> Tensor:
+    """Kernel C7 (``csrc/flash_attention.cu``) on CUDA tensors."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or q.shape[1:] != k.shape[1:]:
+        raise ValueError("flash_attention: expected q [L, h, d] and k, v "
+                         f"[S, h, d], got {tuple(q.shape)}, {tuple(k.shape)},"
+                         f" {tuple(v.shape)}")
+    l, h, d = q.shape
+    s = k.shape[0]
+    if not 1 <= d <= FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head width {d} outside "
+                         f"[1, {FLASH_MAX_HEAD_DIM}]")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    src_len = _source_length(src_len_or_mask, s, q.device).contiguous()
+    check_cuda("flash_attention", q, k, v)
+    check_cuda("flash_attention", src_len, dtype=torch.int32)
+    if src_len.device != q.device:
+        raise ValueError("flash_attention: the source length lies on "
+                         f"{src_len.device}, q on {q.device}")
+    out = torch.empty_like(q)
+    FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           src_len.data_ptr(), l, s, h, d, float(sm_scale),
+                           out.data_ptr())
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """C7 under autograd: forward only. The JAX package's stock kernel has
+    a VJP; the port's backward kernel comes with the trainers."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, src_len_or_mask, sm_scale):
+        return flash_attention_cuda(q, k, v, src_len_or_mask, sm_scale)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "flash attention backward: training slice")
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor,
+                    src_len_or_mask: Tensor | None,
+                    sm_scale: float) -> Tensor:
+    """softmax(q k^T * sm_scale) v over the valid source prefix, streamed:
+    kernel C7 on CUDA tensors, its plain version on CPU tensors."""
+    tensors = [t for t in (q, k, v, src_len_or_mask) if t is not None]
+    if on_cpu(*tensors):
+        return flash_attention_plain(q, k, v, src_len_or_mask, sm_scale)
+    return _FlashAttention.apply(q, k, v, src_len_or_mask, sm_scale)
+
+
+def _layer_norm(x: Tensor, p: dict, eps: float = 1e-5) -> Tensor:
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    return (x - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+
+
+def apply_attention_layer(p: dict, x: Tensor, source: Tensor,
+                          x_pe: Tensor | None, source_pe: Tensor | None,
+                          x_mask: Tensor | None, source_mask: Tensor | None,
+                          cfg: AttentionConfig,
+                          compatibility: Tensor | None = None) -> Tensor:
+    """x [L, C] queries attend into source [S, C]; returns [L, C].
+
+    pe handling matches the reference: 'sinusoidal' adds pe before q/k
+    projection; 'rotary' rotates the projected q/k; 'none' skips pe.
+    ``compatibility`` [L, S] multiplies raw attention logits (NeCo).
+    """
+    h, dim = cfg.n_head, cfg.feature_dim // cfg.n_head
+
+    q_in, k_in, v_in = x, source, source
+    if cfg.pe_type == "sinusoidal" and x_pe is not None:
+        q_in = q_in + x_pe
+        k_in = k_in + source_pe
+    qw = q_in @ p["q"]
+    kw = k_in @ p["k"]
+    vw = v_in @ p["v"]
+    if cfg.pe_type == "rotary" and x_pe is not None:
+        qw = embed_rotary(qw, x_pe[..., 0], x_pe[..., 1])
+        kw = embed_rotary(kw, source_pe[..., 0], source_pe[..., 1])
+
+    L, S = qw.shape[0], kw.shape[0]
+    qw = qw.reshape(L, h, dim)
+    kw = kw.reshape(S, h, dim)
+    vw = vw.reshape(S, h, dim)
+
+    if cfg.attention_impl == "flash" and compatibility is None:
+        o = flash_attention(qw, kw, vw, source_mask, 1.0 / math.sqrt(dim))
+    else:
+        a = torch.einsum("lhd,shd->lsh", qw, kw)
+        if compatibility is not None:
+            a = a * compatibility[..., None]
+        if source_mask is not None:
+            q_m = (x_mask if x_mask is not None
+                   else torch.ones(L, dtype=torch.bool, device=x.device))
+            drop = q_m[:, None] & (~source_mask)[None, :]
+            a = torch.where(drop[..., None], -torch.inf, a)
+        a = a / math.sqrt(dim)
+        a = torch.softmax(a, dim=1)
+        o = torch.einsum("lsh,shd->lhd", a, vw)
+    o = o.reshape(L, h * dim)
+
+    message = _layer_norm(o @ p["merge"], p["ln1"])
+    message = torch.cat([x, message], dim=-1)
+    message = torch.relu(message @ p["mlp1"]) @ p["mlp2"]
+    message = _layer_norm(message, p["ln2"])
+    return x + message

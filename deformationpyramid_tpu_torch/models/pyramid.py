@@ -91,9 +91,13 @@ def init_pyramid_params(gen: torch.Generator, cfg: NDPConfig,
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
+    """Apply ``fn`` to every leaf of a tree of nested dicts and lists (the
+    pyramid's tree has dicts only; the landmark model's has lists of
+    layers too)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -150,8 +154,10 @@ def level_shapes(cfg: NDPConfig) -> dict[str, Any]:
 
 def params_from_numpy(tree: dict, device: torch.device | str | None = None
                       ) -> dict[str, Any]:
-    """The JAX package's parameter tree (leaves as numpy arrays, or anything
-    ``np.asarray`` takes) -> the port's float32 tensors, values unchanged."""
+    """The JAX package's parameter tree (nested dicts and lists; leaves as
+    numpy arrays, or anything ``np.asarray`` takes) -> the port's float32
+    tensors, values unchanged. Buffers that are no weights (a KPConv's
+    ``kernel_points``) are leaves like any other."""
     return tree_map(lambda a: torch.from_numpy(
         np.array(a, dtype=np.float32)).to(device), tree)
 

@@ -11,11 +11,15 @@ rows 1e-5, loss 1e-6 relative, counter and done equal, moments 1e-6 of
 their max, params 1e-6 where |g| > 1e-3 max|g|, a held step bit-exact; C6
 bit-equal to index_add_ on the CPU. The fused level repeats bit for bit
 (the glue's scatter has a fixed order).
-C2 and C3 are checked for SE3 + axis_angle and Sim3 + euler.
+C2 and C3 are checked for SE3 + axis_angle and Sim3 + euler. C7 against its
+plain version 2e-5 max abs (outputs are convex combinations of N(0, 1)
+values; the two sum S terms in different orders), at the matcher's shape,
+at an awkward one, with an empty source prefix, and inside a layer.
 """
 import pytest
 import torch
 
+from deformationpyramid_tpu_torch.match import attention as tatt
 from deformationpyramid_tpu_torch.models import pyramid as tpyr
 from deformationpyramid_tpu_torch.ops import fused_iteration as tfi
 from deformationpyramid_tpu_torch.ops import knn as tknn
@@ -219,3 +223,73 @@ def test_fused_level_repeats_exactly(dev):
     (_, w, st), (_, w2, st2) = runs
     assert int(st["iters"]) == int(st2["iters"])
     assert torch.equal(w, w2)
+
+
+@pytest.mark.parametrize("L,S,src_len,h,d", [(2048, 2048, 1500, 4, 132),
+                                             (777, 1333, 1000, 4, 132),
+                                             (777, 1333, 0, 4, 132),
+                                             (130, 70, 70, 8, 18),
+                                             (1, 1, 1, 1, 144)])
+def test_flash_attention_matches_plain(dev, L, S, src_len, h, d):
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn(L, h, d, generator=gen).to(dev)
+    k = torch.randn(S, h, d, generator=gen).to(dev)
+    v = torch.randn(S, h, d, generator=gen).to(dev)
+    scale = d ** -0.5
+    n = torch.tensor(src_len, dtype=torch.int32, device=dev)
+    before = tatt.FLASH_ATTENTION.launches
+    got = tatt.flash_attention(q, k, v, n, scale)
+    ref = tatt.flash_attention_plain(q, k, v, n, scale)
+    torch.cuda.synchronize()
+    assert tatt.FLASH_ATTENTION.launches == before + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 2e-5
+    if src_len == 0:
+        assert not got.any()
+    mask = torch.arange(S, device=dev) < src_len
+    assert torch.equal(tatt.flash_attention(q, k, v, mask, scale), got)
+    if src_len == S:
+        assert torch.equal(tatt.flash_attention(q, k, v, None, scale), got)
+
+
+def test_flash_attention_ignores_rows_beyond_the_prefix(dev):
+    gen = torch.Generator().manual_seed(8)
+    q = torch.randn(100, 4, 132, generator=gen).to(dev)
+    k = torch.randn(200, 4, 132, generator=gen).to(dev)
+    v = torch.randn(200, 4, 132, generator=gen).to(dev)
+    n = torch.tensor(90, dtype=torch.int32, device=dev)
+    a = tatt.flash_attention(q, k, v, n, 0.1)
+    k[90:], v[90:] = torch.nan, torch.inf
+    b = tatt.flash_attention(q, k, v, n, 0.1)
+    assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+def test_flash_attention_raises_instead_of_falling_back(dev):
+    q = torch.zeros(4, 2, 160, device=dev)
+    with pytest.raises(ValueError):
+        tatt.flash_attention(q, q, q, None, 1.0)
+    with pytest.raises(ValueError):
+        tatt.flash_attention(q[:, :, :8], q[:, :, :8].cpu(), q[:, :, :8],
+                             None, 1.0)
+    q = torch.zeros(4, 2, 8, device=dev, requires_grad=True)
+    out = tatt.flash_attention(q, q.detach(), q.detach(), None, 1.0)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        out.sum().backward()
+
+
+def test_attention_layer_flash_matches_xla_on_valid_rows(dev):
+    """One attention layer at the matcher's width on the card: the streamed
+    route against the einsum route, valid query rows, 1e-4 of the scale."""
+    cfg = {impl: tatt.AttentionConfig(528, 4, "rotary", attention_impl=impl)
+           for impl in ("flash", "xla")}
+    gen = torch.Generator().manual_seed(9)
+    p = tpyr.tree_map(lambda t: t.to(dev),
+                      tatt.init_attention_layer(gen, cfg["xla"]))
+    x = torch.randn(300, 528, generator=gen).to(dev)
+    src = torch.randn(260, 528, generator=gen).to(dev)
+    xm = torch.arange(300, device=dev) < 280
+    sm = torch.arange(260, device=dev) < 200
+    outs = {impl: tatt.apply_attention_layer(p, x, src, None, None, xm, sm, c)
+            for impl, c in cfg.items()}
+    err = (outs["flash"][xm] - outs["xla"][xm]).abs().max()
+    assert err <= 1e-4 * outs["xla"][xm].abs().max()

@@ -141,12 +141,14 @@ def test_kernel_argtypes_match_c_entry_points():
     as c_void_p, an int as c_int, a float as c_float. A mismatch would
     only show as a refused or corrupted call on the card."""
     import re
+    from deformationpyramid_tpu_torch.match import attention
     from deformationpyramid_tpu_torch.ops import cuda_lib, knn
 
     src = "".join(p.read_text() for p in sorted(cuda_lib.CSRC.glob("*.cu")))
     kinds = {"void*": cuda_lib.P, "int": cuda_lib.I, "float": cuda_lib.F}
     for k in (knn.NN_DUAL, tfi.LEVEL_WARP_FWD, tfi.LEVEL_WARP_BWD,
-              tfi.ADAM_STEP, tfi.LDMK_ITERATION, tfi.SCATTER_ROWS):
+              tfi.ADAM_STEP, tfi.LDMK_ITERATION, tfi.SCATTER_ROWS,
+              attention.FLASH_ATTENTION):
         decl = re.search(r'extern "C" int ' + k.symbol + r"\(([^)]*)\)", src)
         assert decl, k.symbol
         params = [re.fullmatch(r"\s*(?:const\s+)?(void\s*\*|int|float)\s*\w+\s*",

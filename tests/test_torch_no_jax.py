@@ -15,9 +15,14 @@ import deformationpyramid_tpu_torch as dp
 from deformationpyramid_tpu_torch.data.synthetic import make_pair
 from deformationpyramid_tpu_torch.solve import loop, registration
 from deformationpyramid_tpu_torch.ops import chamfer, cuda_lib, fused_iteration, knn
-from deformationpyramid_tpu_torch.metrics import flow
-from deformationpyramid_tpu_torch.data import ply
+from deformationpyramid_tpu_torch.metrics import flow, matching
+from deformationpyramid_tpu_torch.data import collate, ply
 from deformationpyramid_tpu_torch.cli import shape_transfer
+from deformationpyramid_tpu_torch.utils import config
+from deformationpyramid_tpu_torch.match import (
+    attention, backbone, config_loader, kernel_points, kpconv, landmark,
+    matching as match_matching, outlier_rejection, pipeline,
+    position_encoding, procrustes, transformer)
 
 src, tgt, _ = make_pair(n=120, seed=0)
 for fused in (False, True):
@@ -34,8 +39,43 @@ for w_cd in (0.0, 1.0):
     warped, _ = dp.register_pair(0, s, torch.from_numpy(tgt), cfg,
                                  src_ldmk=s[:20], tgt_ldmk=s[:20] + 0.01)
     assert torch.isfinite(warped).all()
+# the landmark model at a narrow width, through the streamed route's plain
+# version, then the solver with its landmarks
+kp = kpconv.KPConvConfig(first_subsampling_dl=0.05, first_feats_dim=16,
+                         coarse_feature_dim=24, fine_feature_dim=12)
+mc = match_matching.MatchingConfig(feature_dim=24)
+vol = position_encoding.VolPEConfig(feature_dim=24,
+                                    vol_origin=(-2.0, -2.0, -2.0))
+lcfg = landmark.LandmarkConfig(
+    matcher=pipeline.MatcherConfig(
+        kpfcn=kp, matching=mc, transformer=transformer.TransformerConfig(
+            feature_dim=24, n_head=4, vol=vol, matching=mc,
+            attention_impl="flash")),
+    neco=outlier_rejection.NeCoConfig(feature_dim=24, n_head=4, num_layers=2))
+lcfg2 = config_loader.landmark_config_from_yaml(
+    "config/configs/correspondence.yaml")
+assert lcfg2.matcher.kpfcn.coarse_feature_dim == 528
+limits = collate.calibrate_neighborhood_limits(
+    [(src, tgt)], kp, backbone.KPFCN_ARCHITECTURE)
+pyr = collate.build_pair_pyramid(src, tgt, kp, backbone.KPFCN_ARCHITECTURE,
+                                 limits)
+params = landmark.init_landmark_model(torch.Generator().manual_seed(0), lcfg,
+                                     "cpu")
+out = landmark.landmark_inference(
+    params, collate.pyramid_to_device(pyr, "cpu"), pyr.src_lengths[2],
+    pyr.tgt_lengths[2], lcfg, s_cap=64, t_cap=64)
+assert torch.isfinite(out["conf_matrix_pred"]).all()
+cfg = dp.SolverConfig(pyramid=dp.NDPConfig(m=2, width=16), iters=5,
+                      samples=80, w_cd=0.0, use_fused_iteration=True,
+                      use_fused_ldmk=True)
+warped, _ = dp.register_pair(0, torch.from_numpy(src), torch.from_numpy(tgt),
+                             cfg, src_ldmk=out["ldmk_s"],
+                             tgt_ldmk=out["ldmk_t"],
+                             ldmk_valid=out["ldmk_valid"])
+assert torch.isfinite(warped).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m.startswith("jaxlib") or m.startswith("deformationpyramid_tpu."))
+             or m.startswith("jaxlib") or m == "deformationpyramid_tpu"
+             or m.startswith("deformationpyramid_tpu."))
 print("JAX_MODULES", bad)
 assert not bad, bad
 """

@@ -64,7 +64,24 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             every row that is no near-tie; the same pair twice gives a
             bit-equal confidence matrix. With weights from a seed the model
             finds ~0 landmarks: the count is printed, not gated;
-10. small   small solves on the card against the same solves on the CPU,
+10. train   the training path of the learned landmark model at full width
+            (the yaml files of phase 9, attention_impl 'flash', weights
+            from seed 0): write_4dmatch_suite fabricates 4 train and 2 val
+            pairs of ~6000 points; FourDMatchDataset reads them;
+            train_matcher through cli/train_matcher.py's cached batch
+            stream for 3 epochs of 4 steps (Adam, ExpLR): every gradient
+            finite, the epoch mean loss falls, exactly 8 launches each of
+            C7, C8 and C9 a step, snapshots and history written; one step
+            from the same start on the einsum route: loss within 1e-4 and
+            every gradient leaf within 1e-2 of its max and below what a
+            one-ulp move of the weights does to it, both routes' step
+            time and peak memory printed; train_neco on the matcher loaded
+            back from its checkpoint (1 epoch, iter_size 2, a val stream):
+            finite losses above 0, NeCo moved, the matcher bit-equal, C7 alone
+            launched; the combined {matcher, neco} checkpoint round-trips
+            and landmark_inference from it equals the in-memory model's;
+            then C7-C9 at the shape this path gave them;
+11. small   small solves on the card against the same solves on the CPU,
             where every kernel's plain version runs (SE3 + axis_angle,
             Sim3 + euler, both landmark modes): equal per-level iteration
             counts and warped points within 1e-3; and a narrow landmark
@@ -757,6 +774,9 @@ def small_phase(dp, dev):
               "(<= 1e-3)")
 
 FLASH_SHAPE = dict(L=2048, S=2048, src_len=1500, h=4, d=132)
+# what a timed attention case reports of a further shape in the JSON line
+SHAPE_KEYS = ("shape", "err", "ms", "plain_ms", "library_ms", "bound_ms",
+              "bound_by")
 
 
 def flash_bound(L: int, src_len: int, h: int, d: int) -> dict:
@@ -805,10 +825,133 @@ def flash_case(dev, L, S, src_len, h, d, seed, timed: bool):
     return res
 
 
+def flash_bwd_bounds(L: int, S: int, src_len: int, h: int, d: int) -> dict:
+    """C8 and C9: the function's five products are 10 L src_len h d flops,
+    counted 6 : 4 between the kernel with three and the one with two. C8
+    reads q, do (L rows), k, v (the prefix), lse and delta and writes dk, dv
+    (S rows); C9 reads the same and writes dq."""
+    rows = 4.0 * h * d
+    read = (2 * L + 2 * src_len) * rows + 8.0 * L * h
+    ops = L * src_len * h * d
+    return {"flash_attention_bwd_dkv": bound(read + 2 * S * rows, 6.0 * ops),
+            "flash_attention_bwd_dq": bound(read + L * rows, 4.0 * ops)}
+
+
+FLASH_BWD_TOL = 2e-5
+
+
+def flash_bwd_case(dev, L, S, src_len, h, d, seed, timed: bool,
+                   nan_pad: bool = False):
+    """C8 and C9 against ``flash_attention_bwd_plain`` on one shape, each
+    launched twice with bit-equal results; with ``timed`` also the device
+    times of each kernel, of the plain version, and of autograd through
+    scaled_dot_product_attention on the same tensors. ``nan_pad`` puts NaN
+    into the source rows beyond the prefix, which must not leak."""
+    from deformationpyramid_tpu_torch.match import attention as att
+
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(n, h, d, generator=gen).to(dev)
+                   for n in (L, S, S, L))
+    if nan_pad:
+        k[src_len:] = float("nan")
+        v[src_len:] = float("nan")
+    n_valid = torch.tensor(src_len, dtype=torch.int32, device=dev)
+    scale = d ** -0.5
+    o, lse = att.flash_attention_cuda(q, k, v, n_valid, scale,
+                                      return_lse=True)
+    o_ref, lse_ref = att.flash_attention_plain(q, k, v, n_valid, scale,
+                                               return_lse=True)
+    tag = (f"L {L}, S {S}, src_len {src_len}, {h} heads of {d}"
+           + (", NaN in the padded rows" if nan_pad else ""))
+    finite = torch.isfinite(lse_ref)
+    check(torch.equal(torch.isfinite(lse), finite)
+          and float((lse - lse_ref)[finite].abs().max() if finite.any()
+                    else 0.0) <= 2e-5,
+          f"C7 [{tag}]: the log-sum-exp output disagrees")
+    args = (q, k, v, o, lse, do, n_valid, scale)
+    got = att.flash_attention_bwd_cuda(*args)
+    again = att.flash_attention_bwd_cuda(*args)
+    ref = att.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, n_valid,
+                                        scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b, r in zip(("dq", "dk", "dv"), got, again, ref):
+        check(torch.equal(a, b), f"C8/C9 [{tag}]: {name} differs on a "
+              "second launch")
+        check(bool(torch.isfinite(a).all()), f"C8/C9 [{tag}]: {name} is not "
+              "finite")
+        errs[name] = float((a - r).abs().max()) if a.numel() else 0.0
+        check(errs[name] <= FLASH_BWD_TOL, f"C8/C9 [{tag}]: {name} max abs "
+              f"err {errs[name]} > {FLASH_BWD_TOL}")
+    check(not bool(got[1][src_len:].any()) and not bool(got[2][src_len:].any()),
+          f"C8 [{tag}]: dk, dv beyond the prefix must be 0")
+    if src_len == 0:
+        check(not bool(got[0].any()), f"C9 [{tag}]: an empty prefix must "
+              "give zero dq")
+    tol = f"max abs {FLASH_BWD_TOL}; bit-equal on a second launch"
+    res = {"flash_attention_bwd_dkv": dict(err=max(errs["dk"], errs["dv"]),
+                                           tol=tol, shape=tag),
+           "flash_attention_bwd_dq": dict(err=errs["dq"], tol=tol, shape=tag)}
+    if not timed:
+        phase("kernels", f"flash_attention_bwd [{tag}]: max_abs_err dq "
+              f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e} "
+              f"({tol})")
+        return res
+    delta = (do * o).sum(-1)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(), n_valid.data_ptr(), L, S, h,
+              d, scale)
+    dkv_ms = cuda_ms(lambda: att.FLASH_ATTENTION_BWD_DKV.launch(
+        *common, dk.data_ptr(), dv.data_ptr()))
+    dq_ms = cuda_ms(lambda: att.FLASH_ATTENTION_BWD_DQ.launch(
+        *common, dq.data_ptr()))
+    both_ms = cuda_ms(lambda: att.flash_attention_bwd_cuda(*args))
+    plain_ms = cuda_ms(lambda: att.flash_attention_bwd_plain(*args))
+    # the library's yardstick: autograd through its fused attention (its
+    # backward computes dq, dk and dv in one call, so both rows carry it)
+    mask = (torch.arange(S, device=dev) < src_len)[None, None, None, :]
+    qs, ks, vs = (t.transpose(0, 1)[None].detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_o = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, scale=scale)
+    lib_do = do.transpose(0, 1)[None]
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_o, (qs, ks, vs), lib_do,
+                                                 retain_graph=True))
+    bounds = flash_bwd_bounds(L, S, src_len, h, d)
+    for name, ms in (("flash_attention_bwd_dkv", dkv_ms),
+                     ("flash_attention_bwd_dq", dq_ms)):
+        res[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         both_ms=both_ms, **bounds[name])
+        print_kernel(f"{name} [{tag}]", res[name])
+    phase("kernels", f"flash_attention_bwd [{tag}]: C8 + C9 + delta as the "
+          f"backward runs them {both_ms:.4f} ms; the plain version and the "
+          "library call compute dq, dk and dv together")
+    return res
+
+
+FLASH_EDGE_CASES = (dict(L=777, S=1333, src_len=1000, h=4, d=132),
+                    dict(L=777, S=1333, src_len=0, h=4, d=132),
+                    dict(L=300, S=200, src_len=130, h=4, d=24),
+                    dict(L=130, S=70, src_len=70, h=8, d=144))
+
+
 def flash_kernel_phase(dev):
-    res = flash_case(dev, seed=11, timed=True, **FLASH_SHAPE)
-    for src_len in (1000, 0):
-        flash_case(dev, 777, 1333, src_len, 4, 132, seed=12, timed=False)
+    res = {"flash_attention_fwd": flash_case(dev, seed=11, timed=True,
+                                             **FLASH_SHAPE)}
+    res.update(flash_bwd_case(dev, seed=11, timed=True, **FLASH_SHAPE))
+    # the caps and the coarse count of an 8000-point pair (the lndp path)
+    big = dict(L=4096, S=4096, src_len=2836, h=4, d=132)
+    at_big = {"flash_attention_fwd": flash_case(dev, seed=13, timed=True,
+                                                **big)}
+    at_big.update(flash_bwd_case(dev, seed=13, timed=True, **big))
+    for name, r in at_big.items():
+        res[name]["at_4096_2836"] = {k: r[k] for k in SHAPE_KEYS}
+    for i, shape in enumerate(FLASH_EDGE_CASES):
+        flash_case(dev, seed=12 + i, timed=False, **shape)
+        flash_bwd_case(dev, seed=12 + i, timed=False, **shape)
+    flash_bwd_case(dev, seed=20, timed=False, nan_pad=True,
+                   **FLASH_EDGE_CASES[0])
     return res
 
 
@@ -1004,9 +1147,289 @@ def lndp_phase(dp, dev, kernels):
         neco_ms=neco_ms, landmarks=[r["n_ldmk"] for r in pairs],
         matches=[r["n_match"] for r in pairs],
         caps=[list(r["caps"]) for r in pairs], flash_vs_xla_err=err,
-        flash_at_path_shape={k: at_path[k] for k in
-                             ("shape", "err", "ms", "plain_ms", "library_ms",
-                              "bound_ms", "bound_by")})
+        flash_at_path_shape={k: at_path[k] for k in SHAPE_KEYS})
+
+
+TRAIN_LR = 1e-4          # cli/train_matcher.py's default
+TRAIN_POINTS = 6000      # points a fabricated cloud, +-8%
+# flash against einsum route, of each gradient leaf's max. The loss is
+# steep (a dual softmax at temperature 0.1 under a focal log): moving every
+# weight by one float32 ulp moves the einsum route's own gradient leaves by
+# ~1e-2 of their max on the card, so the routes are also held to stay below
+# that floor as this run measures it.
+GRAD_TOL = 1e-2
+
+
+def train_phase(dp, dev, kernels):
+    """Fabricate a 4DMatch-format suite of ~TRAIN_POINTS a cloud, then train
+    the matcher, compare the two attention routes on one step, train NeCo on
+    the frozen matcher, and serve from the combined checkpoint: all at full
+    width."""
+    import shutil
+    from deformationpyramid_tpu_torch.cli.train_matcher import \
+        make_matcher_batch_stream
+    from deformationpyramid_tpu_torch.cli.train_neco import make_batch_stream
+    from deformationpyramid_tpu_torch.data.collate import \
+        calibrate_neighborhood_limits
+    from deformationpyramid_tpu_torch.data.fourdmatch import FourDMatchDataset
+    from deformationpyramid_tpu_torch.data.synthetic import \
+        write_4dmatch_suite
+    from deformationpyramid_tpu_torch.match import landmark as lm
+    from deformationpyramid_tpu_torch.match.backbone import KPFCN_ARCHITECTURE
+    from deformationpyramid_tpu_torch.match.losses import match_motion_loss
+    from deformationpyramid_tpu_torch.match.pipeline import apply_matcher
+    from deformationpyramid_tpu_torch.models.pyramid import (tree_leaves,
+                                                             tree_map)
+    from deformationpyramid_tpu_torch.train import trainer
+    from deformationpyramid_tpu_torch.utils.checkpoint import (load_pytree,
+                                                               save_pytree)
+    from deformationpyramid_tpu_torch.utils.config import load_config
+
+    names = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+
+    def reset():
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return [k.launches for k in kernels if k.name in names]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b)))
+
+    root = REPO / "build" / "chip_smoke" / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    write_4dmatch_suite(str(root), "train", n_pairs=4,
+                        size_clusters=(TRAIN_POINTS,), seed=7)
+    write_4dmatch_suite(str(root), "val", n_pairs=2,
+                        size_clusters=(TRAIN_POINTS,), seed=71)
+    ds = FourDMatchDataset(str(root), "train", augment=False)
+    check(len(ds) == 4, f"train: {len(ds)} fabricated pairs read back")
+    lcfg, top = lndp_config("flash")
+    lcfg_xla, _ = lndp_config("xla")
+    radius = load_config(str(REPO / "config" / "configs" / "lepard.yaml")
+                         ).coarse_matching.get("coarse_match_radius", 0.024)
+    limits = calibrate_neighborhood_limits(
+        [(ds[i].src, ds[i].tgt) for i in range(3)], lcfg.matcher.kpfcn,
+        KPFCN_ARCHITECTURE)
+    params = lm.init_landmark_model(torch.Generator().manual_seed(0), lcfg,
+                                    device=dev)
+
+    # 1. the matcher, through the CLI's batch stream (cached batches)
+    stream = make_matcher_batch_stream(ds, lcfg, limits, radius, device=dev)
+    t0 = time.perf_counter()
+    batches = list(stream())
+    collate_s = (time.perf_counter() - t0) / len(batches)
+    caps = sorted({(b["s_cap"], b["t_cap"]) for b in batches})
+    lens = [(int(b["src_len_c"]), int(b["tgt_len_c"]),
+             int(b["match_gt_valid"].sum())) for b in batches]
+    phase("train", f"4 + 2 fabricated pairs ({len(ds[0].src)} / "
+          f"{len(ds[0].tgt)} points the first); neighbourhood limits "
+          f"{limits}; coarse (src, tgt, GT matches within {radius}) {lens}, "
+          f"caps {caps}; collate {collate_s:.3f} s a pair")
+    snap = root / "snapshot_matcher"
+    tcfg = trainer.TrainConfig(
+        max_epoch=3, optimizer="Adam", lr=TRAIN_LR,
+        weight_decay=top.get("weight_decay", 1e-6), scheduler="ExpLR",
+        scheduler_gamma=top.get("scheduler_gamma", 0.99),
+        snapshot_dir=str(snap))
+    log = []
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    matcher = trainer.train_matcher(params["matcher"], lcfg, tcfg, stream,
+                                    steps_per_epoch=len(ds),
+                                    log_fn=log.append)
+    torch.cuda.synchronize()
+    matcher_s = time.perf_counter() - t0
+    launches = dict(zip(names, counts()))
+    steps = tcfg.max_epoch * len(ds)
+    check(not any("not valid" in line for line in log),
+          "train: a matcher step's gradient was not finite")
+    rows = [json.loads(line) for line in
+            (snap / "history.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows]
+    check(len(rows) == 3 and all(np.isfinite(losses)),
+          f"train: matcher epoch losses {losses}")
+    check(losses[-1] < losses[0], f"train: the matcher's epoch mean loss did "
+          f"not fall over 3 epochs at lr {TRAIN_LR}: {losses}")
+    check(all(launches[n] == 8 * steps for n in names),
+          f"train: launches over {steps} matcher steps {launches}, expected "
+          f"{8 * steps} of each")
+    for name in ("matcher_best_loss.npz", "matcher_last.npz"):
+        check((snap / name).exists(), f"train: {name} was not written")
+    check(not same(matcher, params["matcher"]), "train: the matcher did not "
+          "move")
+    phase("train", f"train_matcher: 3 epochs x 4 steps (Adam, lr {TRAIN_LR}, "
+          f"ExpLR) in {matcher_s:.3f} s, checkpoints included; epoch mean "
+          f"loss {[round(x, 5) for x in losses]}, recall "
+          f"{[round(r['recall_coarse'], 4) for r in rows]}, precision "
+          f"{[round(r['precision_coarse'], 4) for r in rows]}; launches "
+          f"{launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # 2. one step from the same start on each attention route
+    b = batches[0]
+    args = (b["pyramid"], b["src_len_c"], b["tgt_len_c"], b["match_gt"],
+            b["match_gt_valid"], b["coarse_flow"], b["gt_rot"], b["gt_trn"])
+    opt = trainer.make_optimizer(tcfg, len(ds))
+    routes = {}
+    for name, cfg in (("flash", lcfg), ("xla", lcfg_xla)):
+        def loss_fn(mp, cfg=cfg):
+            data = apply_matcher(mp, *args[:3], cfg.matcher,
+                                 s_cap=b["s_cap"], t_cap=b["t_cap"])
+            return match_motion_loss(data, *args[3:])
+
+        (loss, _), grads = trainer.value_and_grad(loss_fn, params["matcher"])
+        step = trainer.make_matcher_train_step(cfg, opt, s_cap=b["s_cap"],
+                                               t_cap=b["t_cap"])
+        state = opt.init(params["matcher"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        out = step(params["matcher"], state, *args)
+        torch.cuda.synchronize()
+        routes[name] = dict(
+            loss=float(loss), grads=grads, ok=bool(out[4]),
+            step_ms=(time.perf_counter() - t0) * 1e3, launches=counts(),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del out, state
+    fl, xl = routes["flash"], routes["xla"]
+    check(fl["ok"] and xl["ok"], "train: a route's step was not valid")
+    check(fl["launches"] == [8, 8, 8] and xl["launches"] == [0, 0, 0],
+          f"train: one step launched {fl['launches']} (flash), "
+          f"{xl['launches']} (einsum)")
+    check(abs(fl["loss"] - xl["loss"]) <= 1e-4,
+          f"train: loss {fl['loss']} (flash) against {xl['loss']} (einsum)")
+
+    def worst_leaf(got, ref):
+        """Largest difference of a gradient leaf over that leaf's max."""
+        worst, n = 0.0, 0
+        for g, r in zip(tree_leaves(got), tree_leaves(ref)):
+            scale = float(r.abs().max())
+            if scale == 0.0:
+                check(not bool(g.any()), "train: a leaf with no einsum-route "
+                      "gradient has one on the other side")
+                continue
+            worst = max(worst, float((g - r).abs().max()) / scale)
+            n += 1
+        return worst, n
+
+    # the floor: the einsum route again, every weight moved by one ulp
+    _, moved = trainer.value_and_grad(
+        loss_fn, tree_map(lambda t: t * (1.0 + 2.0 ** -23),
+                          params["matcher"]))
+    floor, _ = worst_leaf(moved, xl["grads"])
+    del moved
+    worst, n_leaves = worst_leaf(fl["grads"], xl["grads"])
+    check(worst <= GRAD_TOL and worst <= floor,
+          f"train: a gradient leaf differs by {worst} of its max between the "
+          f"routes (tolerance {GRAD_TOL}; a one-ulp move of the weights gives "
+          f"{floor})")
+    phase("train", f"one matcher step from the same start: flash "
+          f"{fl['step_ms']:.3f} ms, peak {fl['peak_gib']:.2f} GiB; einsum "
+          f"{xl['step_ms']:.3f} ms, peak {xl['peak_gib']:.2f} GiB; loss "
+          f"{fl['loss']:.6f} / {xl['loss']:.6f}; worst gradient leaf of "
+          f"{n_leaves} differs by {worst:.3e} of its max (<= {GRAD_TOL}, and "
+          f"<= {floor:.3e}, what one ulp on every weight does to the einsum "
+          "route's own gradient)")
+    for r in routes.values():
+        del r["grads"]
+
+    # 3. NeCo on the frozen matcher, loaded back from its checkpoint
+    loaded = load_pytree(str(snap / "matcher_last.npz"), params["matcher"])
+    check(same(loaded, matcher) and tree_leaves(loaded)[0].device == dev,
+          "train: matcher_last.npz does not hold the trained matcher")
+    frozen = tree_map(torch.clone, loaded)
+    # --no-augment, as cli/train_neco.py advises for a matcher that was
+    # trained without augmentation: on rotated pairs it finds no inlier, the
+    # labels have one class and the balanced loss and its gradient are zero
+    nds = FourDMatchDataset(str(root), "train", augment=False)
+    vds = FourDMatchDataset(str(root), "val", augment=False)
+    nb = list(make_batch_stream(nds, lcfg, limits, device=dev)())
+    vb = list(make_batch_stream(vds, lcfg, limits, device=dev)())
+    nsnap = root / "snapshot_neco"
+    ncfg = trainer.TrainConfig(
+        max_epoch=1, optimizer=top.get("optimizer", "SGD"),
+        lr=top.get("lr", 0.01), momentum=top.get("momentum", 0.9),
+        weight_decay=top.get("weight_decay", 1e-6),
+        scheduler=top.get("scheduler", "ExpLR"),
+        scheduler_gamma=top.get("scheduler_gamma", 0.99), iter_size=2,
+        snapshot_dir=str(nsnap))
+    log = []
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    neco = trainer.train_neco(loaded, params["neco"], lcfg, ncfg,
+                              lambda: iter(nb), steps_per_epoch=len(nb),
+                              log_fn=log.append, val_batches=lambda: iter(vb))
+    torch.cuda.synchronize()
+    neco_s = time.perf_counter() - t0
+    nl = counts()
+    check(nl == [8 * (len(nb) + len(vb)), 0, 0], f"train: NeCo training "
+          f"launched {nl}: the frozen matcher must run C7 alone")
+    nrows = [json.loads(line) for line in
+             (nsnap / "history.jsonl").read_text().splitlines()]
+    check([r["phase"] for r in nrows] == ["train", "val"]
+          and all(np.isfinite(r["loss"]) and r["loss"] > 0 for r in nrows)
+          and not any("not valid" in line for line in log),
+          f"train: NeCo history {nrows}")
+    check((nsnap / "model_best_loss.npz").exists(), "train: "
+          "model_best_loss.npz was not written")
+    check(not same(neco, params["neco"]), "train: NeCo did not move")
+    check(same(loaded, frozen), "train: the frozen matcher changed")
+    phase("train", f"train_neco: 1 epoch x {len(nb)} steps, iter_size 2, "
+          f"{len(vb)} val pairs ({ncfg.optimizer}, lr {ncfg.lr}) in "
+          f"{neco_s:.3f} s = {neco_s * 1e3 / (len(nb) + len(vb)):.3f} ms a "
+          f"pair, checkpoints included; rows {nrows}; launches {nl}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          "matcher bit-equal")
+
+    # 4. the combined checkpoint, and serving from it
+    ckpt = root / "landmark.npz"
+    trained = {"matcher": loaded, "neco": neco}
+    save_pytree(str(ckpt), trained)
+    served = load_pytree(str(ckpt), params)
+    check(same(served, trained), "train: landmark.npz does not round-trip")
+    v = vb[0]
+    outs = []
+    for p in (trained, served):
+        reset()
+        outs.append(lm.landmark_inference(
+            p, v["pyramid"], v["src_len_c"], v["tgt_len_c"], lcfg,
+            s_cap=v["s_cap"], t_cap=v["t_cap"]))
+        check(counts() == [8, 0, 0], f"train: landmark_inference launched "
+              f"{counts()}")
+    for key in ("conf_matrix_pred", "neco_confidence", "ldmk_s", "ldmk_t",
+                "ldmk_valid"):
+        check(bool(torch.isfinite(outs[1][key].float()).all())
+              and torch.equal(outs[0][key], outs[1][key]),
+              f"train: {key} from the loaded checkpoint differs")
+    phase("train", f"landmark.npz ({ckpt.stat().st_size / 2 ** 20:.0f} MiB) "
+          "round-trips bit-equal; landmark_inference on a val pair from it "
+          f"equals the in-memory model's: {int(outs[1]['match_valid'].sum())}"
+          f" matches, {int(outs[1]['ldmk_valid'].sum())} landmarks")
+
+    # C7-C9 at the shape this path gave them (the source cloud's
+    # self-attention of the first training pair)
+    shape = dict(L=b["s_cap"], S=b["s_cap"], src_len=lens[0][0], h=4, d=132)
+    at_path = {"flash_attention_fwd": flash_case(dev, seed=14, timed=True,
+                                                 **shape)}
+    at_path.update(flash_bwd_case(dev, seed=14, timed=True, **shape))
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(
+        launches=launches, collate_s=collate_s, caps=[list(c) for c in caps],
+        coarse=lens, matcher_s=matcher_s, matcher_epoch_loss=losses,
+        matcher_epoch_recall=[r["recall_coarse"] for r in rows],
+        routes=routes, grad_worst_rel=worst, grad_one_ulp_floor=floor, neco_s=neco_s, neco_rows=nrows,
+        neco_launches=dict(zip(names, nl)),
+        at_path_shape={n: {k: r[k] for k in SHAPE_KEYS}
+                       for n, r in at_path.items()})
 
 
 def small_landmark_phase(dev):
@@ -1096,11 +1519,12 @@ def main() -> None:
     kernels = [knn.NN_DUAL, fused_iteration.LEVEL_WARP_FWD,
                fused_iteration.SCATTER_ROWS, fused_iteration.LEVEL_WARP_BWD,
                fused_iteration.ADAM_STEP, fused_iteration.LDMK_ITERATION,
-               attention.FLASH_ATTENTION]
+               attention.FLASH_ATTENTION, attention.FLASH_ATTENTION_BWD_DKV,
+               attention.FLASH_ATTENTION_BWD_DQ]
     measured = kernel_phase(dp, dev)
     sim3 = sim3_kernel_phase(dp, dev)
     measured["ldmk_iteration"] = ldmk_kernel_phase(dp, dev)
-    measured["flash_attention_fwd"] = flash_kernel_phase(dev)
+    measured.update(flash_kernel_phase(dev))
 
     fused = slice_phase(dp, dev, kernels, fused=True, n_pairs=3)
     for name in CHAMFER_KERNELS:
@@ -1134,6 +1558,14 @@ def main() -> None:
           f"{statistics.mean(lndp['solve_ms_per_iter']):.4f} ms/iter, "
           f"landmarks {lndp['landmarks']}; {smi}")
 
+    train = train_phase(dp, dev, kernels)
+    fl, xl = train["routes"]["flash"], train["routes"]["xla"]
+    phase("train", f"matcher step {fl['step_ms']:.3f} ms (flash, peak "
+          f"{fl['peak_gib']:.2f} GiB) against {xl['step_ms']:.3f} ms (einsum, "
+          f"peak {xl['peak_gib']:.2f} GiB); 12 steps with checkpoints "
+          f"{train['matcher_s']:.3f} s; NeCo {train['neco_s']:.3f} s; "
+          f"collate {train['collate_s']:.3f} s a pair; {smi}")
+
     small_phase(dp, dev)
     small_landmark_phase(dev)
 
@@ -1148,13 +1580,22 @@ def main() -> None:
                "ldmk_iteration": ("csrc/ldmk_iteration.cu",
                                   "ops/fused_iteration.py:1002"),
                "flash_attention_fwd": ("csrc/flash_attention.cu",
-                                       "match/attention.py:70")}
+                                       "match/attention.py:70"),
+               # the stock op's two backward kernels, which that function's
+               # VJP launches
+               "flash_attention_bwd_dkv": ("csrc/flash_attention_bwd.cu",
+                                           "match/attention.py:70"),
+               "flash_attention_bwd_dq": ("csrc/flash_attention_bwd.cu",
+                                          "match/attention.py:70")}
     # each kernel's count from the path that is its own: the fused bench,
-    # the landmark solve (C5), the lndp path (C7)
+    # the landmark solve (C5), the lndp path (C7), the matcher's training
+    # (C8, C9; C7's count there stands in the train block)
     path_launches = dict(
         fused["launches"],
         ldmk_iteration=landmark["C5"]["launches"]["ldmk_iteration"],
-        flash_attention_fwd=lndp["launches"]["flash_attention_fwd"])
+        flash_attention_fwd=lndp["launches"]["flash_attention_fwd"],
+        flash_attention_bwd_dkv=train["launches"]["flash_attention_bwd_dkv"],
+        flash_attention_bwd_dq=train["launches"]["flash_attention_bwd_dq"])
     rows = []
     for k in kernels:
         row = {"name": k.name, "route": "cuda",
@@ -1175,8 +1616,14 @@ def main() -> None:
                                              "bound_ms", "bound_by",
                                              "design_bound_ms")
                                  if key in sim3[k.name]}
+        if "at_4096_2836" in measured[k.name]:
+            row["at_4096_2836"] = measured[k.name]["at_4096_2836"]
         if k.name == "flash_attention_fwd":
             row["at_path_shape"] = lndp["flash_at_path_shape"]
+            row["at_train_shape"] = train["at_path_shape"][k.name]
+        elif k.name in train["at_path_shape"]:
+            row["at_path_shape"] = train["at_path_shape"][k.name]
+            row["both_ms"] = measured[k.name]["both_ms"]
         rows.append(row)
     print(json.dumps({
         "kernels": rows,
@@ -1187,7 +1634,9 @@ def main() -> None:
         "shape_transfer": shape,
         "landmark": landmark,
         "lndp": {k: v for k, v in lndp.items()
-                 if k != "flash_at_path_shape"}}), flush=True)
+                 if k != "flash_at_path_shape"},
+        "train": {k: v for k, v in train.items()
+                  if k != "at_path_shape"}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,12 @@
 // takes the K buffer's place for the second product. 89 KB of shared memory
 // at d = 132: two blocks an SM. src_len is read on the device; rows at or
 // beyond it are never loaded, and src_len == 0 gives zeros.
+//
+// Where the caller needs a gradient it passes ``lse`` [L, H]: the kernel
+// then also writes each row's log-sum-exp m + log(l) of the scaled logits
+// (-inf for an empty prefix), which the backward kernels C8 and C9
+// (flash_attention_bwd.cu) recompute the probabilities from. A null ``lse``
+// (inference) writes nothing more.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -45,7 +51,8 @@ flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v,
                        const int* __restrict__ src_len_p, int L, int S, int H,
-                       int d, float sm_scale, float* __restrict__ out) {
+                       int d, float sm_scale, float* __restrict__ out,
+                       float* __restrict__ lse) {
   extern __shared__ __align__(16) float fa_smem[];
   float* Qt = fa_smem;              // [d][FA_LD]: Qt[c][r] = q[l0 + r, head, c]
   float* KV = Qt + d * FA_LD;       // K^T [d][FA_LD], then V [FA_BN][d]
@@ -175,6 +182,8 @@ flash_attention_kernel(const float* __restrict__ q,
       l += __shfl_xor_sync(0xffffffffu, l, off);
     const int row = l0 + ty * 4 + i;
     if (row < L) {
+      if (lse != nullptr && tx == 0)
+        lse[(size_t)row * H + head] = l > 0.f ? m_i[i] + logf(l) : -INFINITY;
       float* dst = out + (size_t)row * stride + (size_t)head * d;
 #pragma unroll
       for (int jj = 0; jj < FA_OC; ++jj) {
@@ -188,7 +197,7 @@ flash_attention_kernel(const float* __restrict__ q,
 extern "C" int dp_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* src_len,
                                       int L, int S, int H, int d,
-                                      float sm_scale, void* out,
+                                      float sm_scale, void* out, void* lse,
                                       void* stream) {
   if (d < 1 || d > FA_DMAX || L < 0 || S < 0 || H < 0) {
     return (int)cudaErrorInvalidValue;
@@ -202,7 +211,8 @@ extern "C" int dp_flash_attention_fwd(const void* q, const void* k,
     const dim3 grid((L + FA_BM - 1) / FA_BM, H);
     flash_attention_kernel<<<grid, FA_THREADS, smem, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v,
-        (const int*)src_len, L, S, H, d, sm_scale, (float*)out);
+        (const int*)src_len, L, S, H, d, sm_scale, (float*)out,
+        (float*)lse);
   }
   return (int)cudaGetLastError();
 }

@@ -17,8 +17,11 @@ The two routes differ on padded QUERY rows only: the einsum path masks
 padded source rows where the query row is valid, the streamed path for
 every query row. Both are garbage there that downstream masks.
 
-Inference only: C7 has no backward yet, and the whole landmark path runs
-under ``torch.no_grad()``.
+Under autograd the streamed route is differentiable, as the JAX package's
+is: C7 then also writes each row's log-sum-exp, and the backward launches
+kernels C8 (dK, dV) and C9 (dQ) of ``csrc/flash_attention_bwd.cu``, which
+recompute the probabilities from it. Inference (no gradient asked for)
+launches C7 alone, with no log-sum-exp output.
 """
 from __future__ import annotations
 
@@ -33,7 +36,13 @@ from .position_encoding import embed_rotary
 Tensor = torch.Tensor
 
 FLASH_ATTENTION = Kernel("flash_attention_fwd", "dp_flash_attention_fwd",
-                         [P, P, P, P, I, I, I, I, F, P])
+                         [P, P, P, P, I, I, I, I, F, P, P])
+FLASH_ATTENTION_BWD_DKV = Kernel(
+    "flash_attention_bwd_dkv", "dp_flash_attention_bwd_dkv",
+    [P, P, P, P, P, P, P, I, I, I, I, F, P, P])
+FLASH_ATTENTION_BWD_DQ = Kernel(
+    "flash_attention_bwd_dq", "dp_flash_attention_bwd_dq",
+    [P, P, P, P, P, P, P, I, I, I, I, F, P])
 FLASH_MAX_HEAD_DIM = 144
 
 
@@ -87,69 +96,169 @@ def _source_length(src_len_or_mask: Tensor | None, s: int,
     return src_len_or_mask.sum().to(torch.int32)
 
 
+def _plain_logits(q: Tensor, k: Tensor, src_len: Tensor,
+                  sm_scale: float) -> tuple[Tensor, Tensor]:
+    """Scaled logits [L, S, h] with -inf beyond the valid prefix, and the
+    prefix mask [S]. Rows of k beyond the prefix are not read (NaN there
+    reaches neither the logits nor a gradient)."""
+    valid = torch.arange(k.shape[0], device=q.device) < src_len
+    k = torch.where(valid[:, None, None], k, 0.0)
+    a = torch.einsum("lhd,shd->lsh", q, k) * sm_scale
+    return torch.where(valid[None, :, None], a, -torch.inf), valid
+
+
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
                           src_len_or_mask: Tensor | None,
-                          sm_scale: float) -> Tensor:
+                          sm_scale: float, return_lse: bool = False):
     """Plain version of kernel C7: q [L, h, d], k/v [S, h, d] -> [L, h, d],
     softmax over the valid source prefix for every query row; an empty
-    prefix gives zeros."""
+    prefix gives zeros. With ``return_lse`` also the rows' log-sum-exp
+    [L, h] of the scaled logits (-inf for an empty prefix)."""
     s = k.shape[0]
     if s == 0:
-        return torch.zeros_like(q)
+        o = torch.zeros_like(q)
+        return (o, q.new_full(q.shape[:2], -torch.inf)) if return_lse else o
     src_len = _source_length(src_len_or_mask, s, q.device)
-    valid = torch.arange(s, device=q.device) < src_len
-    a = torch.einsum("lhd,shd->lsh", q, k) * sm_scale
-    a = torch.where(valid[None, :, None], a, -torch.inf)
+    a, valid = _plain_logits(q, k, src_len, sm_scale)
     m = a.max(dim=1, keepdim=True).values
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(a - m)
     denom = p.sum(dim=1)                                   # [L, h]
     o = torch.einsum("lsh,shd->lhd", p,
                      torch.where(valid[:, None, None], v, 0.0))
-    return torch.where(denom[..., None] > 0,
-                       o / denom.clamp_min(1e-38)[..., None], 0.0)
+    o = torch.where(denom[..., None] > 0,
+                    o / denom.clamp_min(1e-38)[..., None], 0.0)
+    if not return_lse:
+        return o
+    lse = torch.where(denom > 0, m[:, 0] + torch.log(denom.clamp_min(1e-38)),
+                      -torch.inf)
+    return o, lse
+
+
+def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                              lse: Tensor, do: Tensor,
+                              src_len_or_mask: Tensor | None,
+                              sm_scale: float
+                              ) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain version of kernels C8 and C9, from the formulas and not through
+    autograd: with p = exp(q k^T * sm_scale - lse) over the valid source
+    prefix and delta = rowsum(do * o),
+
+        dv = p^T do,  ds = p * (do v^T - delta),
+        dk = ds^T q * sm_scale,  dq = ds k * sm_scale.
+
+    Source rows beyond the prefix get zero dk, dv and are not read; an
+    empty prefix gives zero dq. Returns (dq, dk, dv)."""
+    s = k.shape[0]
+    if s == 0 or q.shape[0] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    src_len = _source_length(src_len_or_mask, s, q.device)
+    a, valid = _plain_logits(q, k, src_len, sm_scale)
+    # an empty prefix has lse = -inf: exp(-inf - 0), not exp(-inf + inf)
+    shift = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.exp(a - shift[:, None, :])                   # [L, S, h]
+    vm = torch.where(valid[:, None, None], v, 0.0)
+    km = torch.where(valid[:, None, None], k, 0.0)
+    delta = (do * o).sum(dim=-1)                           # [L, h]
+    dv = torch.einsum("lsh,lhd->shd", p, do)
+    dp = torch.einsum("lhd,shd->lsh", do, vm)
+    ds = p * (dp - delta[:, None, :])
+    dk = torch.einsum("lsh,lhd->shd", ds, q) * sm_scale
+    dq = torch.einsum("lsh,shd->lhd", ds, km) * sm_scale
+    return dq, dk, dv
+
+
+def _check_flash_shapes(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or q.shape[1:] != k.shape[1:]:
+        raise ValueError(f"{name}: expected q [L, h, d] and k, v "
+                         f"[S, h, d], got {tuple(q.shape)}, {tuple(k.shape)},"
+                         f" {tuple(v.shape)}")
+    if not 1 <= q.shape[2] <= FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head width {q.shape[2]} outside "
+                         f"[1, {FLASH_MAX_HEAD_DIM}]")
+
+
+def _device_source_length(name: str, src_len_or_mask: Tensor | None, s: int,
+                          q: Tensor) -> Tensor:
+    src_len = _source_length(src_len_or_mask, s, q.device).contiguous()
+    check_cuda(name, src_len, dtype=torch.int32)
+    if src_len.device != q.device:
+        raise ValueError(f"{name}: the source length lies on "
+                         f"{src_len.device}, q on {q.device}")
+    return src_len
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
                          src_len_or_mask: Tensor | None,
-                         sm_scale: float) -> Tensor:
-    """Kernel C7 (``csrc/flash_attention.cu``) on CUDA tensors."""
-    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
-            or q.shape[1:] != k.shape[1:]:
-        raise ValueError("flash_attention: expected q [L, h, d] and k, v "
-                         f"[S, h, d], got {tuple(q.shape)}, {tuple(k.shape)},"
-                         f" {tuple(v.shape)}")
+                         sm_scale: float, return_lse: bool = False):
+    """Kernel C7 (``csrc/flash_attention.cu``) on CUDA tensors. With
+    ``return_lse`` the kernel also writes the rows' log-sum-exp [L, h],
+    which the backward kernels need: (o, lse)."""
+    _check_flash_shapes("flash_attention", q, k, v)
     l, h, d = q.shape
     s = k.shape[0]
-    if not 1 <= d <= FLASH_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head width {d} outside "
-                         f"[1, {FLASH_MAX_HEAD_DIM}]")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    src_len = _source_length(src_len_or_mask, s, q.device).contiguous()
     check_cuda("flash_attention", q, k, v)
-    check_cuda("flash_attention", src_len, dtype=torch.int32)
-    if src_len.device != q.device:
-        raise ValueError("flash_attention: the source length lies on "
-                         f"{src_len.device}, q on {q.device}")
+    src_len = _device_source_length("flash_attention", src_len_or_mask, s, q)
     out = torch.empty_like(q)
+    lse = q.new_empty((l, h)) if return_lse else None
     FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            src_len.data_ptr(), l, s, h, d, float(sm_scale),
-                           out.data_ptr())
-    return out
+                           out.data_ptr(),
+                           lse.data_ptr() if return_lse else None)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                             lse: Tensor, do: Tensor,
+                             src_len_or_mask: Tensor | None,
+                             sm_scale: float
+                             ) -> tuple[Tensor, Tensor, Tensor]:
+    """Kernels C8 and C9 (``csrc/flash_attention_bwd.cu``) on CUDA tensors:
+    (dq, dk, dv) of C7's output for the upstream gradient ``do``, from C7's
+    inputs, its output ``o`` and the log-sum-exp ``lse`` it wrote."""
+    name = "flash_attention_bwd"
+    _check_flash_shapes(name, q, k, v)
+    l, h, d = q.shape
+    s = k.shape[0]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (l, h):
+        raise ValueError(f"{name}: o {tuple(o.shape)}, do {tuple(do.shape)}, "
+                         f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    check_cuda(name, q, k, v, o, do, lse)
+    delta = (do * o).sum(dim=-1)                           # [L, h]
+    src_len = _device_source_length(name, src_len_or_mask, s, q)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(), src_len.data_ptr(), l, s, h,
+              d, float(sm_scale))
+    FLASH_ATTENTION_BWD_DKV.launch(*common, dk.data_ptr(), dv.data_ptr())
+    FLASH_ATTENTION_BWD_DQ.launch(*common, dq.data_ptr())
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """C7 under autograd: forward only. The JAX package's stock kernel has
-    a VJP; the port's backward kernel comes with the trainers."""
+    """C7 under autograd, with C8 and C9 as its backward (the JAX package's
+    stock kernel ships the same split as its VJP)."""
 
     @staticmethod
     def forward(ctx, q, k, v, src_len_or_mask, sm_scale):
-        return flash_attention_cuda(q, k, v, src_len_or_mask, sm_scale)
+        src_len = _source_length(src_len_or_mask, k.shape[0], q.device)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention_cuda(q, k, v, src_len, sm_scale)
+        o, lse = flash_attention_cuda(q, k, v, src_len, sm_scale,
+                                      return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, src_len)
+        ctx.sm_scale = sm_scale
+        return o
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "flash attention backward: training slice")
+    def backward(ctx, do):
+        q, k, v, o, lse, src_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, src_len,
+                                              ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor,

@@ -87,6 +87,18 @@ def _pad_row(x: Tensor, value: float) -> Tensor:
     return torch.cat([x, x.new_full((1, x.shape[1]), value)], dim=0)
 
 
+def gather_rows(x: Tensor, idx: Tensor) -> Tensor:
+    """``x[idx]`` for x [N, C] and integer idx [...] -> [..., C], through
+    ``index_select``: the same values, but its backward is an
+    ``index_add_`` where advanced indexing's is a sort-based accumulate that
+    walks the copies of one index one after the other. The neighbour tables
+    name the shadow row up to half the time, and at the training shapes that
+    backward alone took 34 ms a gather on an H100, 70% of a matcher step.
+    On CUDA ``index_add_`` sums with atomics, in no fixed order."""
+    return torch.index_select(x, 0, idx.reshape(-1)).reshape(
+        *idx.shape, *x.shape[1:])
+
+
 def apply_kpconv(p: dict, q_pts: Tensor, s_pts: Tensor, neighb: Tensor,
                  x: Tensor, extent: float, cfg: KPConvConfig,
                  deformable: bool = False, with_aux: bool = False):
@@ -161,7 +173,7 @@ def apply_kpconv(p: dict, q_pts: Tensor, s_pts: Tensor, neighb: Tensor,
         raise ValueError(cfg.aggregation_mode)
 
     w = w.transpose(1, 2)                                # [Nq, Kp, K]
-    neighb_x = _pad_row(x, 0.0)[neighb]                  # [Nq, K, C]
+    neighb_x = gather_rows(_pad_row(x, 0.0), neighb)     # [Nq, K, C]
     weighted = torch.einsum("npk,nkc->npc", w, neighb_x)  # [Nq, Kp, C]
     if modulations is not None:
         weighted = weighted * modulations[:, :, None]    # blocks.py:357-358
@@ -259,12 +271,12 @@ def init_resnetb_block(gen: torch.Generator, in_dim: int, out_dim: int,
 
 def max_pool(x: Tensor, inds: Tensor) -> Tensor:
     """[Ns, C] features, [Nq, K] indices (shadow = Ns) -> [Nq, C] max."""
-    return _pad_row(x, 0.0)[inds.long()].max(dim=1).values
+    return gather_rows(_pad_row(x, 0.0), inds.long()).max(dim=1).values
 
 
 def closest_pool(x: Tensor, inds: Tensor) -> Tensor:
     """Pool from the first (closest) neighbor column (``blocks.py:71-83``)."""
-    return _pad_row(x, 0.0)[inds[:, 0].long()]
+    return gather_rows(_pad_row(x, 0.0), inds[:, 0].long())
 
 
 def apply_resnetb_block(p: dict, features: Tensor, q_pts, s_pts, neighb,

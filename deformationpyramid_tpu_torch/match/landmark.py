@@ -7,7 +7,9 @@ into (ldmk_s, ldmk_t). The landmark set keeps the matcher's capacity with a
 validity mask (invalid rows are zeroed), which feeds straight into the
 landmark-mode registration solver (``solve.registration.register_pair``).
 
-Inference runs under ``torch.no_grad()``.
+Inference runs under ``torch.no_grad()``; the trainers call
+``apply_matcher`` / ``apply_neco`` themselves, on a parameter tree that
+:func:`trainable` marked.
 """
 from __future__ import annotations
 
@@ -40,6 +42,13 @@ def init_landmark_model(gen: torch.Generator, cfg: LandmarkConfig,
     params = {"matcher": init_matcher(gen, cfg.matcher),
               "neco": init_neco(gen, cfg.neco)}
     return tree_map(lambda t: t.to(device), params)
+
+
+def trainable(params: Any) -> Any:
+    """The same values as new leaf tensors that require a gradient (they
+    share storage with ``params``, which stays as it was): what a training
+    step differentiates with respect to."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), params)
 
 
 @torch.no_grad()

@@ -14,7 +14,7 @@ from typing import Any
 import torch
 
 from .backbone import KPFCN_ARCHITECTURE, apply_kpfcn_coarse, init_kpfcn
-from .kpconv import KPConvConfig
+from .kpconv import KPConvConfig, gather_rows
 from .matching import (
     MatchingConfig, confidence_matrix, extract_matches, extract_matches_all,
     init_matching,
@@ -67,8 +67,10 @@ def split_coarse(coarse_feats: Tensor, coarse_pts: Tensor,
     tgt_mask = torch.arange(t_cap, device=dev) < tgt_len
     s_gather = s_idx.clamp(0, n - 1)
     t_gather = t_idx.clamp(0, n - 1)
-    src_feats = torch.where(src_mask[:, None], coarse_feats[s_gather], 0.0)
-    tgt_feats = torch.where(tgt_mask[:, None], coarse_feats[t_gather], 0.0)
+    src_feats = torch.where(src_mask[:, None],
+                            gather_rows(coarse_feats, s_gather), 0.0)
+    tgt_feats = torch.where(tgt_mask[:, None],
+                            gather_rows(coarse_feats, t_gather), 0.0)
     s_pcd = torch.where(src_mask[:, None], coarse_pts[s_gather], 0.0)
     t_pcd = torch.where(tgt_mask[:, None], coarse_pts[t_gather], 0.0)
     return src_feats, tgt_feats, s_pcd, t_pcd, src_mask, tgt_mask

@@ -33,13 +33,18 @@ def weighted_procrustes_with_condition(X: Tensor, Y: Tensor, w: Tensor,
     """[N,3],[N,3],[N,1] -> (R, t, condition). f32 3x3 SVD on the tensors'
     device (``torch.linalg.svd``, a library call outside any kernel). U and
     V may differ from another library's by paired signs; R, t and the
-    condition number do not."""
+    condition number do not. A non-finite input gives NaN outputs, as
+    ``jnp.linalg.svd`` does (``torch.linalg.svd`` would raise, and a
+    training step with a NaN in it must reach the gradient guard)."""
     W1 = w.abs().sum(dim=0, keepdim=True)
     w_norm = w / (W1 + eps)
     mean_X = (w_norm * X).sum(dim=0, keepdim=True)
     mean_Y = (w_norm * Y).sum(dim=0, keepdim=True)
     Sxy = (Y - mean_Y).T @ (w_norm * (X - mean_X))
-    U, D, Vt = torch.linalg.svd(Sxy)
+    finite = torch.isfinite(Sxy).all()
+    U, D, Vt = torch.linalg.svd(torch.where(finite, Sxy, 0.0))
+    nan = torch.full((), torch.nan, dtype=Sxy.dtype, device=Sxy.device)
+    U, D = torch.where(finite, U, nan), torch.where(finite, D, nan)
     condition = D.max() / D.min().clamp_min(1e-12)
     det = torch.linalg.det(U) * torch.linalg.det(Vt.T)
     S = torch.diag(torch.stack([torch.ones_like(det), torch.ones_like(det),

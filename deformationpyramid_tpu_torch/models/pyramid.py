@@ -90,15 +90,26 @@ def init_pyramid_params(gen: torch.Generator, cfg: NDPConfig,
     return tree_map(lambda t: t.to(device), params)
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
     """Apply ``fn`` to every leaf of a tree of nested dicts and lists (the
     pyramid's tree has dicts only; the landmark model's has lists of
-    layers too)."""
+    layers too). Further trees of the same structure give ``fn`` their
+    leaves as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of nested dicts and lists, in the order
+    :func:`tree_map` visits them."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
 
 
 def _leaves(tree, prefix=()):

@@ -14,7 +14,11 @@ bit-equal to index_add_ on the CPU. The fused level repeats bit for bit
 C2 and C3 are checked for SE3 + axis_angle and Sim3 + euler. C7 against its
 plain version 2e-5 max abs (outputs are convex combinations of N(0, 1)
 values; the two sum S terms in different orders), at the matcher's shape,
-at an awkward one, with an empty source prefix, and inside a layer.
+at an awkward one, with an empty source prefix, and inside a layer. C8 and
+C9 against ``flash_attention_bwd_plain`` 2e-5 max abs on the same inputs
+and a unit-scale upstream gradient, bit-equal on a second launch, zero
+beyond the prefix, and through autograd inside a layer against the einsum
+route (1e-4 of each gradient's max).
 """
 import pytest
 import torch
@@ -271,10 +275,78 @@ def test_flash_attention_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         tatt.flash_attention(q[:, :, :8], q[:, :, :8].cpu(), q[:, :, :8],
                              None, 1.0)
-    q = torch.zeros(4, 2, 8, device=dev, requires_grad=True)
-    out = tatt.flash_attention(q, q.detach(), q.detach(), None, 1.0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    q = q[:, :, :8].contiguous()
+    lse = torch.zeros(4, 2, device=dev)
+    with pytest.raises(ValueError):
+        tatt.flash_attention_bwd_cuda(q, q, q, q, lse[:3], q, None, 1.0)
+    with pytest.raises(ValueError):
+        tatt.flash_attention_bwd_cuda(q, q, q, q, lse, q.cpu(), None, 1.0)
+
+
+@pytest.mark.parametrize("L,S,src_len,h,d", [(2048, 2048, 1500, 4, 132),
+                                             (777, 1333, 1000, 4, 132),
+                                             (777, 1333, 0, 4, 132),
+                                             (300, 200, 130, 4, 24),
+                                             (130, 70, 70, 8, 18),
+                                             (1, 1, 1, 1, 144)])
+@pytest.mark.parametrize("nan_pad", [False, True])
+def test_flash_attention_backward_matches_plain(dev, L, S, src_len, h, d,
+                                                nan_pad):
+    gen = torch.Generator().manual_seed(10)
+    q, k, v, do = (torch.randn(n, h, d, generator=gen).to(dev)
+                   for n in (L, S, S, L))
+    if nan_pad:
+        k[src_len:], v[src_len:] = torch.nan, torch.inf
+    scale = d ** -0.5
+    n = torch.tensor(src_len, dtype=torch.int32, device=dev)
+    o, lse = tatt.flash_attention_cuda(q, k, v, n, scale, return_lse=True)
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, n, scale,
+                                                return_lse=True)
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(lse_ref))
+    if src_len:
+        assert (lse - lse_ref).abs().max() <= 2e-5
+    counts = (tatt.FLASH_ATTENTION_BWD_DKV.launches,
+              tatt.FLASH_ATTENTION_BWD_DQ.launches)
+    got = tatt.flash_attention_bwd_cuda(q, k, v, o, lse, do, n, scale)
+    again = tatt.flash_attention_bwd_cuda(q, k, v, o, lse, do, n, scale)
+    ref = tatt.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, n,
+                                         scale)
+    torch.cuda.synchronize()
+    assert (tatt.FLASH_ATTENTION_BWD_DKV.launches,
+            tatt.FLASH_ATTENTION_BWD_DQ.launches) == (counts[0] + 2,
+                                                      counts[1] + 2)
+    for a, b, r in zip(got, again, ref):
+        assert a.shape == r.shape and torch.isfinite(a).all()
+        assert torch.equal(a, b)
+        assert (a - r).abs().max() <= 2e-5
+    assert not got[1][src_len:].any() and not got[2][src_len:].any()
+    if src_len == 0:
+        assert not got[0].any()
+
+
+def test_flash_attention_autograd_launches_the_backward_kernels(dev):
+    """Under autograd the wrapper saves the log-sum-exp and its backward
+    launches C8 and C9 once each; without a gradient it launches C7 alone."""
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, do = (torch.randn(n, 4, 132, generator=gen).to(dev)
+                   for n in (200, 260, 260, 200))
+    mask = torch.arange(260, device=dev) < 222
+    kernels = (tatt.FLASH_ATTENTION, tatt.FLASH_ATTENTION_BWD_DKV,
+               tatt.FLASH_ATTENTION_BWD_DQ)
+    for kern in kernels:
+        kern.launches = 0
+    plain = tatt.flash_attention(q, k, v, mask, 0.1)
+    assert [kern.launches for kern in kernels] == [1, 0, 0]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = tatt.flash_attention(*leaves, mask, 0.1)
+    assert torch.equal(out, plain)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert [kern.launches for kern in kernels] == [2, 1, 1]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(
+        tatt.flash_attention_plain(*ref_leaves, mask, 0.1), ref_leaves, do)
+    for a, r in zip(grads, ref):
+        assert (a - r).abs().max() <= 2e-5
 
 
 def test_attention_layer_flash_matches_xla_on_valid_rows(dev):
@@ -293,3 +365,17 @@ def test_attention_layer_flash_matches_xla_on_valid_rows(dev):
             for impl, c in cfg.items()}
     err = (outs["flash"][xm] - outs["xla"][xm]).abs().max()
     assert err <= 1e-4 * outs["xla"][xm].abs().max()
+
+    # and the gradients of both routes, the cotangent zero on padded rows
+    ct = torch.randn(300, 528, generator=gen).to(dev) * xm[:, None]
+    grads = {}
+    for impl, c in cfg.items():
+        leaves = tpyr.tree_map(lambda t: t.detach().requires_grad_(True),
+                               dict(p, x=x, src=src))
+        lp = {k: v for k, v in leaves.items() if k not in ("x", "src")}
+        out = tatt.apply_attention_layer(lp, leaves["x"], leaves["src"], None,
+                                         None, xm, sm, c)
+        flat = tpyr.tree_leaves(leaves)
+        grads[impl] = torch.autograd.grad(out, flat, ct)
+    for a, r in zip(grads["flash"], grads["xla"]):
+        assert (a - r).abs().max() <= 1e-4 * r.abs().max()

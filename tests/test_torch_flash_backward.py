@@ -1,0 +1,194 @@
+"""The streamed attention's backward on the CPU: ``flash_attention_bwd_plain``
+(the plain version of kernels C8 and C9, written from the formulas) against
+
+* autograd through ``flash_attention_plain`` (the plain version of C7): 1e-5
+  max abs on unit-scale inputs in float32, 1e-12 in float64;
+* ``jax.vjp`` of the JAX package's einsum attention, on valid query rows
+  (the two routes differ on padded query rows only): 1e-5;
+* ``jax.vjp`` of the stock TPU flash-attention module's plain reference
+  ``mha_reference`` with segment ids, which is the function the stock Pallas
+  kernels and their two backward kernels compute (pure jnp, runs on the CPU;
+  the kernels themselves do not): 1e-5;
+
+including an empty source prefix and NaN in the padded source rows; and one
+whole attention layer with ``attention_impl='flash'`` (on CPU tensors the
+plain versions) against the JAX layer on its einsum route, gradients w.r.t.
+inputs and every weight: 1e-4 of each leaf's max.
+"""
+import math
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+from jax.experimental.pallas.ops.tpu import flash_attention as stock
+
+from deformationpyramid_tpu.match import attention as jatt
+import deformationpyramid_tpu_torch as tdp
+from deformationpyramid_tpu_torch.match import attention as tatt
+
+from tests.test_torch_match_layers import (_attention_inputs,
+                                           _jax_xla_attention)
+
+HEADS = 4
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _inputs(seed, L, S, d, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(n, HEADS, d)).astype(dtype)
+                 for n in (L, S, S, L))
+
+
+def _plain_bwd(q, k, v, do, src, scale):
+    o, lse = tatt.flash_attention_plain(_t(q), _t(k), _t(v), src, scale,
+                                        return_lse=True)
+    return o, lse, tatt.flash_attention_bwd_plain(
+        _t(q), _t(k), _t(v), o, lse, _t(do), src, scale)
+
+
+@pytest.mark.parametrize("L,S,s_len,d", [(128, 128, 100, 24),
+                                         (77, 133, 100, 132),
+                                         (5, 3, 3, 7), (64, 65, 1, 33),
+                                         (9, 11, 0, 12)])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
+                                       (np.float64, 1e-12)])
+def test_bwd_plain_matches_autograd_of_the_plain_forward(L, S, s_len, d,
+                                                         dtype, tol):
+    q, k, v, do = _inputs(0, L, S, d, dtype)
+    scale = 1.0 / math.sqrt(d)
+    for src in (torch.tensor(s_len), _t(np.arange(S) < s_len)):
+        leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+        o = tatt.flash_attention(*leaves, src, scale)   # CPU: the plain one
+        auto = torch.autograd.grad(o, leaves, _t(do))
+        _, lse, got = _plain_bwd(q, k, v, do, src, scale)
+        for name, a, b in zip(("dq", "dk", "dv"), got, auto):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert float((a - b).abs().max()) <= tol, name
+        assert not got[1][s_len:].any() and not got[2][s_len:].any()
+        if s_len == 0:
+            assert not got[0].any() and torch.isinf(lse).all()
+
+
+def test_bwd_plain_without_a_mask_and_with_no_rows():
+    q, k, v, do = _inputs(1, 6, 8, 10)
+    leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    auto = torch.autograd.grad(
+        tatt.flash_attention_plain(*leaves, None, 0.3), leaves, _t(do))
+    _, _, got = _plain_bwd(q, k, v, do, None, 0.3)
+    assert all(float((a - b).abs().max()) <= 1e-5 for a, b in zip(got, auto))
+    _, _, empty = _plain_bwd(q, k[:0], v[:0], do, None, 0.3)
+    assert not empty[0].any() and empty[1].shape == (0, HEADS, 10)
+    _, _, none = _plain_bwd(q[:0], k, v, do[:0], None, 0.3)
+    assert none[0].shape == (0, HEADS, 10) and not none[1].any()
+
+
+def test_nan_in_padded_source_rows_reaches_no_gradient():
+    q, k, v, do = _inputs(2, 9, 11, 12)
+    k2, v2 = k.copy(), v.copy()
+    k2[6:], v2[6:] = np.nan, np.inf
+    src = torch.tensor(6)
+    _, _, clean = _plain_bwd(q, k, v, do, src, 0.3)
+    _, _, dirty = _plain_bwd(q, k2, v2, do, src, 0.3)
+    for a, b in zip(clean, dirty):
+        assert torch.isfinite(b).all() and torch.equal(a, b)
+    # and through autograd of the plain forward, the CPU training route
+    leaves = [_t(a).requires_grad_(True) for a in (q, k2, v2)]
+    auto = torch.autograd.grad(
+        tatt.flash_attention(*leaves, src, 0.3), leaves, _t(do))
+    for a, b in zip(auto, clean):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("L,S,s_len,d", [(128, 128, 100, 24),
+                                         (77, 133, 100, 132),
+                                         (64, 65, 1, 33)])
+def test_bwd_plain_matches_jax_vjp_of_the_einsum_attention(L, S, s_len, d):
+    """Every query row here is valid, which is where the JAX package's
+    einsum route and the streamed route compute the same function."""
+    q, k, v, do = _inputs(3, L, S, d)
+    scale = 1.0 / math.sqrt(d)
+    mask = np.arange(S) < s_len
+    _, vjp = jax.vjp(lambda a, b, c: _jax_xla_attention(
+        a, b, c, jnp.asarray(mask), scale), *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(do))
+    _, _, got = _plain_bwd(q, k, v, do, _t(mask), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert np.abs(a.numpy() - np.asarray(b)).max() <= 1e-5, name
+
+
+@pytest.mark.parametrize("L,S,s_len,d", [(128, 128, 100, 24),
+                                         (128, 256, 131, 132)])
+def test_bwd_plain_matches_the_stock_reference_with_segment_ids(L, S, s_len,
+                                                                d):
+    """``mha_reference`` is what the stock TPU kernels (forward, dK/dV, dQ)
+    are tested against upstream; the JAX package calls them with query
+    segment id 1 and source ids 1 on the valid prefix, 0 beyond."""
+    q, k, v, do = _inputs(4, L, S, d)
+    scale = 1.0 / math.sqrt(d)
+    seg = stock.SegmentIds(
+        q=jnp.ones((1, L), jnp.int32),
+        kv=jnp.asarray((np.arange(S) < s_len).astype(np.int32))[None])
+    to4 = lambda a: jnp.asarray(a).transpose(1, 0, 2)[None]    # noqa: E731
+    with jax.default_matmul_precision("highest"):
+        out, vjp = jax.vjp(
+            # the reference's own backward takes sm_scale 1 only: scale q
+            lambda a, b, c: stock._mha_reference(
+                a * scale, b, c, None, seg, causal=False,
+                mask_value=stock.DEFAULT_MASK_VALUE, sm_scale=1.0,
+                save_residuals=False), to4(q), to4(k), to4(v))
+        ref = vjp(to4(do))
+    o, _, got = _plain_bwd(q, k, v, do, torch.tensor(s_len), scale)
+    back = lambda a: np.asarray(a)[0].transpose(1, 0, 2)       # noqa: E731
+    assert np.abs(o.numpy() - back(out)).max() <= 1e-5
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert np.abs(a.numpy() - back(b)).max() <= 1e-5, name
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def test_attention_layer_flash_route_gradients_match_jax():
+    """One layer, flash route in the port (plain versions on the CPU)
+    against the JAX layer's einsum route; the cotangent is zero on padded
+    query rows, as every consumer's mask makes it."""
+    fd, L, S, l_len, s_len = 96, 40, 56, 33, 45
+    x, src, x_pe, s_pe, xm, sm = _attention_inputs(2, L, S, s_len, l_len,
+                                                   fd=fd)
+    ct = np.random.default_rng(5).normal(size=(L, fd)).astype(np.float32)
+    ct[l_len:] = 0.0
+    jcfg = jatt.AttentionConfig(fd, HEADS, "rotary")
+    tcfg = tatt.AttentionConfig(fd, HEADS, "rotary", attention_impl="flash")
+    jp = jatt.init_attention_layer(jax.random.key(3), jcfg)
+
+    def jf(p, x_, s_):
+        return jatt.apply_attention_layer(
+            p, x_, s_, jnp.asarray(x_pe), jnp.asarray(s_pe),
+            jnp.asarray(xm), jnp.asarray(sm), jcfg)
+
+    jout, vjp = jax.vjp(jf, jp, jnp.asarray(x), jnp.asarray(src))
+    jg = _np_tree(vjp(jnp.asarray(ct)))
+
+    tp = tdp.params_from_numpy(_np_tree(jp))
+    tp = jax.tree.map(lambda t: t.requires_grad_(True), tp)
+    tx, ts = _t(x).requires_grad_(True), _t(src).requires_grad_(True)
+    tout = tatt.apply_attention_layer(tp, tx, ts, _t(x_pe), _t(s_pe), _t(xm),
+                                      _t(sm), tcfg)
+    assert np.abs(tout.detach().numpy() - np.asarray(jout))[:l_len].max() \
+        < 1e-5
+    leaves, treedef = jax.tree.flatten((tp, tx, ts))
+    tg = jax.tree.unflatten(treedef, torch.autograd.grad(tout, leaves,
+                                                         _t(ct)))
+    for path, (a, b) in zip(
+            jax.tree_util.tree_flatten_with_path(jg)[0],
+            zip(jax.tree.leaves(_np_tree(tg)), jax.tree.leaves(jg))):
+        scale = max(float(np.abs(b).max()), 1e-30)
+        assert np.abs(a - b).max() <= 1e-4 * scale, \
+            jax.tree_util.keystr(path[0])

@@ -148,7 +148,8 @@ def test_kernel_argtypes_match_c_entry_points():
     kinds = {"void*": cuda_lib.P, "int": cuda_lib.I, "float": cuda_lib.F}
     for k in (knn.NN_DUAL, tfi.LEVEL_WARP_FWD, tfi.LEVEL_WARP_BWD,
               tfi.ADAM_STEP, tfi.LDMK_ITERATION, tfi.SCATTER_ROWS,
-              attention.FLASH_ATTENTION):
+              attention.FLASH_ATTENTION, attention.FLASH_ATTENTION_BWD_DKV,
+              attention.FLASH_ATTENTION_BWD_DQ):
         decl = re.search(r'extern "C" int ' + k.symbol + r"\(([^)]*)\)", src)
         assert decl, k.symbol
         params = [re.fullmatch(r"\s*(?:const\s+)?(void\s*\*|int|float)\s*\w+\s*",

@@ -214,9 +214,14 @@ def test_flash_route_matches_jax_layer_on_valid_rows():
 
 
 def test_flash_attention_backward_raises_and_config_checks():
+    # the backward kernels' wrapper takes CUDA tensors only: on CPU tensors
+    # it raises, and the wrapper differentiates its plain version instead
     q = torch.zeros(4, 2, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tatt._FlashAttention.backward(None, q)
+    with pytest.raises(ValueError):
+        tatt.flash_attention_bwd_cuda(q, q, q, q, torch.zeros(4, 2), q, None,
+                                      1.0)
+    out = tatt.flash_attention(q, q.detach(), q.detach(), None, 1.0)
+    assert torch.autograd.grad(out.sum(), q)[0].shape == q.shape
     with pytest.raises(ValueError):
         tatt.AttentionConfig(attention_impl="pallas")
     with pytest.raises(NotImplementedError):

@@ -16,12 +16,15 @@ from deformationpyramid_tpu_torch.data.synthetic import make_pair
 from deformationpyramid_tpu_torch.solve import loop, registration
 from deformationpyramid_tpu_torch.ops import chamfer, cuda_lib, fused_iteration, knn
 from deformationpyramid_tpu_torch.metrics import flow, matching
-from deformationpyramid_tpu_torch.data import collate, ply
-from deformationpyramid_tpu_torch.cli import shape_transfer
-from deformationpyramid_tpu_torch.utils import config
+from deformationpyramid_tpu_torch.data import (
+    collate, correspondence_utils, fourdmatch, ply, synthetic)
+from deformationpyramid_tpu_torch.cli import (
+    shape_transfer, train_matcher, train_neco)
+from deformationpyramid_tpu_torch.train import trainer
+from deformationpyramid_tpu_torch.utils import checkpoint, config, logging
 from deformationpyramid_tpu_torch.match import (
     attention, backbone, config_loader, kernel_points, kpconv, landmark,
-    matching as match_matching, outlier_rejection, pipeline,
+    losses, matching as match_matching, outlier_rejection, pipeline,
     position_encoding, procrustes, transformer)
 
 src, tgt, _ = make_pair(n=120, seed=0)
@@ -73,6 +76,31 @@ warped, _ = dp.register_pair(0, torch.from_numpy(src), torch.from_numpy(tgt),
                              tgt_ldmk=out["ldmk_t"],
                              ldmk_valid=out["ldmk_valid"])
 assert torch.isfinite(warped).all()
+# one narrow training step of each trainer, through the CLIs' batch streams
+import tempfile
+with tempfile.TemporaryDirectory() as root:
+    synthetic.write_4dmatch_suite(root, "train", n_pairs=1,
+                                  size_clusters=(150,), seed=1)
+    ds = fourdmatch.FourDMatchDataset(root, "train")
+    tcfg = trainer.TrainConfig(optimizer="Adam", lr=1e-3, max_epoch=1,
+                               snapshot_dir=root + "/snap")
+    mp = trainer.train_matcher(
+        params["matcher"], lcfg, tcfg,
+        train_matcher.make_matcher_batch_stream(ds, lcfg, limits, 0.1,
+                                                device="cpu"),
+        steps_per_epoch=1, log_fn=lambda *_: None)
+    moved = [float((a - b).abs().max()) for a, b in zip(
+        dp.models.pyramid.tree_leaves(mp),
+        dp.models.pyramid.tree_leaves(params["matcher"]))]
+    assert max(moved) > 0
+    neco = trainer.train_neco(
+        mp, params["neco"], lcfg, tcfg,
+        train_neco.make_batch_stream(ds, lcfg, limits, device="cpu"),
+        steps_per_epoch=1, log_fn=lambda *_: None)
+    back = checkpoint.load_pytree(root + "/snap/model_last.npz", neco)
+    assert all(torch.equal(a, b) for a, b in zip(
+        dp.models.pyramid.tree_leaves(back),
+        dp.models.pyramid.tree_leaves(neco)))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "deformationpyramid_tpu"
              or m.startswith("deformationpyramid_tpu."))

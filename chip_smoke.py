@@ -19,7 +19,12 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             width 128, depth 3, SE3 + axis_angle, a mid level); C2 and C3
             again at the shape-transfer shapes (6000 points, Sim3 + euler);
             C5 ldmk_iteration at 2048 landmark rows (2000 valid), one step
-            and a held step; C7 flash_attention_fwd at L = S = 2048, 4 heads
+            and a held step, and a step at SE3 + quaternion; C2 and C3 at
+            the bench shapes for SE3 + quaternion, SE3 + 6D and sflow
+            (timed) and Sim3 + quaternion, Sim3 + 6D; C10 nsfp_fwd and C11
+            nsfp_bwd at 2000 points, 9 layers x 128 (C11 against its plain
+            version in float64) and C4 at the 125 partial rows C11 hands
+            it; C7 flash_attention_fwd at L = S = 2048, 4 heads
             of 132, 1500 valid source rows, and at L = 777, S = 1333 with
             1000 and with 0 valid rows. Beside each kernel the one PyTorch
             call that computes the same function, where there is one
@@ -81,9 +86,33 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             launched; the combined {matcher, neco} checkpoint round-trips
             and landmark_inference from it equals the in-memory model's;
             then C7-C9 at the shape this path gave them;
-11. small   small solves on the card against the same solves on the CPU,
+11. nolearned the no-learned evaluation CLI (cli/eval_nolearned.py, through
+            its argument parser) on fabricated 4DMatch-F (the first 4 pairs
+            of write_4dmatch_suite's default stream, 1.4k-29k points) and
+            4DLoMatch-F (2 pairs, partial 0.40, seed 1), at the yaml files'
+            widths: config/NDP.yaml as it stands (both splits), --resume on
+            the finished run (solves nothing, the same scores), --no-fast
+            on the first pair (within 0.1 cm of the fast path); the yaml
+            with rotation_format quaternion, 6D and motion_type sflow (2
+            pairs each); config/baselines/NSFP.yaml with
+            use_fused_iteration at its 5000-iteration cap (2 pairs, the
+            first again: a bit-equal ledger row) and without (1 pair);
+            Nerfies.yaml with its cap cut to 300 iterations and
+            Sinkhorn.yaml (1 pair each). Every metric finite; full EPE >= 5x
+            below the initial flow's for NDP as it stands and with sflow,
+            >= 1.5x for NSFP, whose two routes agree within 15% on pair 0
+            (quaternion and 6D start every point from an
+            arbitrary rotation and do not converge, in the unfused loop
+            neither: printed, not gated); iteration counts in
+            [1, cap] and not all at either end; C2 = C3 = C4 launches for
+            every NDP run; C11 = C1 = C6 = C4 = C10 less one a pair (the
+            full-cloud warp) for fused NSFP, within 7 a solve of its
+            iterations; pairs/s, ms/iter and the score line of each;
+12. small   small solves on the card against the same solves on the CPU,
             where every kernel's plain version runs (SE3 + axis_angle,
-            Sim3 + euler, both landmark modes): equal per-level iteration
+            Sim3 + euler, sflow, SE3 + quaternion, Sim3 + 6D, both landmark
+            modes; the two renormalised formats over 5 iterations a level
+            at 1e-2): equal per-level iteration
             counts and warped points within 1e-3; and a narrow landmark
             model on the card (C7 at head width 24) against the CPU: the
             confidence matrix within 1e-4.
@@ -96,6 +125,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -181,7 +211,8 @@ def level_bounds(n: int, cfg, n_params: int, rows: int) -> dict:
     ``design_bound_ms`` counts them, no ``bound_ms`` does (operations bind
     C3 with or without them).
     """
-    heads = cfg.rot_dim + 3 + (1 if cfg.motion == "Sim3" else 0)
+    heads = ((0 if cfg.motion == "sflow" else cfg.rot_dim) + 3
+             + (1 if cfg.motion == "Sim3" else 0))
     fwd = level_mlp_flops(n, cfg, heads)
     p4 = 4.0 * n_params
     adam_design = bound(6.0 * p4 + rows * p4, (rows + 12.0) * n_params)
@@ -411,19 +442,31 @@ def slice_phase(dp, dev, kernels, fused: bool, n_pairs: int):
                 seconds=dt, iters=total_iters, launches=launches)
 
 
+def leaf_names(shapes, prefix="") -> list[str]:
+    """Names of a shape tree's leaves in the order of ``pyramid.unravel``."""
+    if isinstance(shapes, dict):
+        return [n for k in sorted(shapes)
+                for n in leaf_names(shapes[k], f"{prefix}{k}.")]
+    if isinstance(shapes, list):
+        return [n for i, v in enumerate(shapes)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix.rstrip(".")]
+
+
 def rel_grad_err(got, ref, shapes, what, tol=1e-4):
     """Largest error of each parameter tensor's gradient relative to that
     tensor's max |g|; fails above ``tol``."""
     from deformationpyramid_tpu_torch.models import pyramid
 
-    gt, rt = pyramid.unravel(got, shapes), pyramid.unravel(ref, shapes)
-    worst = 0.0
-    for k in rt:
-        for kk in rt[k]:
-            scale = float(rt[k][kk].abs().max())
-            rel = float((gt[k][kk] - rt[k][kk]).abs().max()) / max(scale, 1e-30)
-            check(rel <= tol, f"{what} {k}.{kk}: err {rel} of max|g| > {tol}")
-            worst = max(worst, rel)
+    gl = pyramid.tree_leaves(pyramid.unravel(got, shapes))
+    rl = pyramid.tree_leaves(pyramid.unravel(ref, shapes))
+    worst, at = 0.0, ""
+    for name, g, r in zip(leaf_names(shapes), gl, rl):
+        scale = float(r.abs().max())
+        rel = float((g - r).abs().max()) / max(scale, 1e-30)
+        if rel > worst:
+            worst, at = rel, name
+    check(worst <= tol, f"{what} {at}: err {worst} of max|g| > {tol}")
     return worst
 
 
@@ -475,6 +518,189 @@ def sim3_kernel_phase(dp, dev):
     return res
 
 
+# (motion, rotation format) pairs beyond SE3|Sim3 x axis_angle|euler; the
+# first three are timed, C5 runs at the first.
+NEW_FORMATS = (("SE3", "quaternion"), ("SE3", "6D"), ("sflow", "axis_angle"),
+               ("Sim3", "quaternion"), ("Sim3", "6D"))
+FWD_TOL = 2e-5
+
+
+def format_kernel_phase(dp, dev):
+    """C2 and C3 at the bench shapes (2000 points, width 128, depth 3, a mid
+    level) for the sflow motion and the quaternion and 6D formats, each
+    against its plain version: forward 2e-5 max abs, gradient 1e-4 of each
+    tensor's max |g|."""
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.models import pyramid
+    from deformationpyramid_tpu_torch.ops import fused_iteration as fi
+
+    src, _, flow = make_pair(n=2000, seed=0, deform=0.12)
+    x = torch.from_numpy(src - src.mean(0)).to(dev)
+    g = (torch.from_numpy(flow) * 1e-3).to(dev).contiguous()
+    out = {}
+    for i, (motion, fmt) in enumerate(NEW_FORMATS):
+        cfg = pyramid.NDPConfig(**dict(BENCH_PYRAMID, motion=motion,
+                                       rotation_format=fmt))
+        tag = f"{motion}+{fmt}"
+        check(fi.supports_fused_iteration(cfg, 0.0), f"{tag}: not covered")
+        shapes = pyramid.level_shapes(cfg)
+        flat = pyramid.ravel(pyramid.params_from_numpy(
+            numpy_level_params(shapes, seed=10 + i), device=dev)).contiguous()
+        check(flat.numel() == fi.level_param_count(cfg),
+              f"{tag}: flat level has {flat.numel()} values")
+        warped = fi.level_warp_fwd(flat, x, MID_LEVEL, cfg)
+        ref = fi._plain_warp(flat, x, MID_LEVEL, cfg)
+        part = fi.level_warp_bwd(flat, x, g, MID_LEVEL, cfg)
+        ref_g = fi.level_warp_bwd_plain(flat, x, g, MID_LEVEL, cfg)[0]
+        torch.cuda.synchronize()
+        err = float((warped - ref).abs().max())
+        check(err <= FWD_TOL, f"C2 {tag} max abs err {err} > {FWD_TOL}")
+        worst = rel_grad_err(part.sum(0), ref_g, shapes, f"C3 {tag}")
+        res = {"level_warp_fwd": dict(err=err),
+               "level_warp_bwd": dict(
+                   err=float((part.sum(0) - ref_g).abs().max()),
+                   rel_err=worst)}
+        if i < 3:
+            res["level_warp_fwd"].update(
+                ms=cuda_ms(lambda: fi.level_warp_fwd(flat, x, MID_LEVEL, cfg)),
+                plain_ms=cuda_ms(lambda: fi._plain_warp(flat, x, MID_LEVEL,
+                                                        cfg)))
+            res["level_warp_bwd"].update(
+                ms=cuda_ms(lambda: fi.level_warp_bwd(flat, x, g, MID_LEVEL,
+                                                     cfg)),
+                plain_ms=cuda_ms(lambda: fi.level_warp_bwd_plain(
+                    flat, x, g, MID_LEVEL, cfg)))
+            for name, b in level_bounds(2000, cfg, flat.numel(),
+                                        part.shape[0]).items():
+                if name in res:
+                    res[name].update(b)
+        out[tag] = res
+        timing = ("" if i >= 3 else
+                  f"; C2 {res['level_warp_fwd']['ms']:.4f} ms (plain "
+                  f"{res['level_warp_fwd']['plain_ms']:.4f}, bound "
+                  f"{res['level_warp_fwd']['bound_ms']:.5f}), C3 "
+                  f"{res['level_warp_bwd']['ms']:.4f} ms (plain "
+                  f"{res['level_warp_bwd']['plain_ms']:.4f}, bound "
+                  f"{res['level_warp_bwd']['bound_ms']:.5f})")
+        phase("kernels", f"C2 / C3 [{tag}, 2000 points, {flat.numel()} "
+              f"parameters]: forward max_abs_err {err:.3e} (<= {FWD_TOL}), "
+              f"gradient worst {worst:.2e} of a tensor's max|g| (<= 1e-4)"
+              + timing)
+    return out
+
+
+def numpy_nsfp_params(ncfg, seed: int) -> list:
+    """torch-default Linear weights for the NSFP layer list, made with numpy
+    in the JAX package's layout."""
+    from deformationpyramid_tpu_torch.models.baselines import nsfp_dims
+
+    rng = np.random.default_rng(seed)
+    dims = nsfp_dims(ncfg)
+    out = []
+    for i in range(ncfg.n_layers):
+        lim = dims[i] ** -0.5
+        out.append({"w": rng.uniform(-lim, lim, (dims[i], dims[i + 1])
+                                     ).astype(np.float32),
+                    "b": rng.uniform(-lim, lim, dims[i + 1]
+                                     ).astype(np.float32)})
+    return out
+
+
+def nsfp_kernel_phase(dp, dev):
+    """C10 and C11 at the NSFP path's shapes (2000 points, 9 layers x 128,
+    116,483 parameters) against their plain versions, and C4 at the 125
+    partial rows C11 hands it."""
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.models import pyramid
+    from deformationpyramid_tpu_torch.models.baselines import NSFPConfig
+    from deformationpyramid_tpu_torch.ops import fused_iteration as fi
+    from deformationpyramid_tpu_torch.ops import knn
+
+    ncfg = NSFPConfig()
+    n = 2000
+    src, tgt, _ = make_pair(n=n, seed=0, deform=0.12)
+    x = torch.from_numpy(src - src.mean(0)).to(dev)
+    y = torch.from_numpy(tgt - tgt.mean(0)).to(dev)
+    flat = fi.nsfp_params_to_flat(pyramid.params_from_numpy(
+        numpy_nsfp_params(ncfg, seed=3), device=dev))
+    check(flat.numel() == 116483, f"flat NSFP has {flat.numel()} values")
+    shapes = fi.nsfp_shapes(ncfg)
+    xv = torch.ones(n, dtype=torch.bool, device=dev)
+
+    warped = fi.nsfp_fwd(flat, x, ncfg)
+    ref = fi.nsfp_fwd_plain(flat, x, ncfg)
+    torch.cuda.synchronize()
+    err = float((warped - ref).abs().max())
+    check(err <= FWD_TOL, f"C10 nsfp_fwd max abs err {err} > {FWD_TOL}")
+    # the chamfer gradient of the main path feeds C11
+    _, cidx, _, rarg = knn.nn_argmin_dual(warped, y, xv, xv)
+    n_len = torch.tensor(float(n), device=dev)
+    _, g = fi._chamfer_glue(warped, cidx, rarg, y, xv, xv, n_len, n_len, 1e9)
+    partials = fi.nsfp_bwd(flat, x, g, ncfg)
+    # Nine layers deep, two float32 gradients differ by more than either
+    # is wrong: the plain version runs in float64 on the same inputs, and
+    # its float32 run is held to the same tolerance beside the kernel.
+    ref_g = fi.nsfp_bwd_plain(flat.double(), x.double(), g.double(),
+                              ncfg)[0].float()
+    plain_g = fi.nsfp_bwd_plain(flat, x, g, ncfg)[0]
+    got_g = partials.sum(0)
+    torch.cuda.synchronize()
+    worst = rel_grad_err(got_g, ref_g, shapes, "C11")
+    plain_worst = rel_grad_err(plain_g, ref_g, shapes, "C11's plain version",
+                               tol=1.0)
+    again = fi.nsfp_bwd(flat, x, g, ncfg)
+    check(torch.equal(again, partials), "C11 does not repeat bit for bit")
+
+    w, nl = ncfg.width, ncfg.n_layers
+    fwd_flops = 2.0 * n * (3 * w + (nl - 2) * w * w + 3 * w)
+    p4 = 4.0 * flat.numel()
+    res = {
+        "nsfp_fwd": dict(
+            err=err, tol=f"max abs {FWD_TOL}", library_ms=None,
+            ms=cuda_ms(lambda: fi.nsfp_fwd(flat, x, ncfg)),
+            plain_ms=cuda_ms(lambda: fi.nsfp_fwd_plain(flat, x, ncfg)),
+            **bound(p4 + 24.0 * n, fwd_flops)),
+        "nsfp_bwd": dict(
+            err=float((got_g - ref_g).abs().max()), library_ms=None,
+            tol=f"1e-4 of each tensor's max|g| against the plain version in "
+            f"float64 (worst {worst:.2e}; the plain version in float32 "
+            f"{plain_worst:.2e}); a repeat bit-equal",
+            ms=cuda_ms(lambda: fi.nsfp_bwd(flat, x, g, ncfg)),
+            plain_ms=cuda_ms(lambda: fi.nsfp_bwd_plain(flat, x, g, ncfg)),
+            **bound(2.0 * p4 + 36.0 * n, 3.0 * fwd_flops))}
+    for name, r in res.items():
+        print_kernel(f"{name} [{n} points, {nl} x {w}]", r)
+    # C4 at this path's shape: 125 rows of 116,483
+    pa, ma, va = flat.clone(), torch.zeros_like(flat), torch.zeros_like(flat)
+    zero = torch.zeros((), device=dev)
+    outs = []
+    for fn in (fi.adam_step, fi.adam_step_plain):
+        p, m, v = flat.clone(), torch.zeros_like(flat), torch.zeros_like(flat)
+        fn(p, m, v, partials, zero, zero, 0.01)
+        outs.append((p, m))
+    torch.cuda.synchronize()
+    e = float((outs[0][1] - outs[1][1]).abs().max())
+    check(e <= 1e-6 * float(outs[1][1].abs().max()),
+          f"C4 at the NSFP shape: m err {e}")
+    rows = partials.shape[0]
+    adam = dict(
+        rows=rows, params=flat.numel(),
+        ms=cuda_ms(lambda: fi.adam_step(pa, ma, va, partials, zero, zero,
+                                        0.01)),
+        plain_ms=cuda_ms(lambda: fi.adam_step_plain(pa, ma, va, partials,
+                                                    zero, zero, 0.01)),
+        **bound(7.0 * p4, 12.0 * flat.numel()),
+        design_bound_ms=bound(6.0 * p4 + rows * p4,
+                              (rows + 12.0) * flat.numel())["bound_ms"])
+    phase("kernels", f"adam_step [NSFP: {rows} partial rows of "
+          f"{flat.numel()}]: kernel {adam['ms']:.4f} ms, plain "
+          f"{adam['plain_ms']:.4f} ms, bound {adam['bound_ms']:.5f} ms "
+          f"(bytes), with this design's partial rows "
+          f"{adam['design_bound_ms']:.5f} ms")
+    res["adam_step_at_nsfp"] = adam
+    return res
+
+
 LNDP_PYRAMID = dict(m=10, k0=-8, depth=3, width=128,
                     rotation_format="axis_angle", motion="SE3")
 LNDP_SOLVER = dict(iters=500, lr=0.01, max_break_count=15,
@@ -501,14 +727,15 @@ def landmark_rows(seed: int, n: int = 4000):
     return src, tgt, flow, s_l, t_l, np.arange(LDMK_ROWS) < N_LDMK
 
 
-def ldmk_kernel_phase(dp, dev):
-    """C5 at 2048 landmark rows (2000 valid), LNDP's pyramid, a mid level:
-    one step from fresh state and a held step, against its plain version."""
+def ldmk_kernel_phase(dp, dev, pyr=None, label="", timed=True):
+    """C5 at 2048 landmark rows (2000 valid), LNDP's pyramid (or ``pyr``),
+    a mid level: one step from fresh state and a held step, against its
+    plain version."""
     from deformationpyramid_tpu_torch.models import pyramid
     from deformationpyramid_tpu_torch.ops import fused_iteration as fi
     from deformationpyramid_tpu_torch.solve.loop import LoopConfig
 
-    cfg = pyramid.NDPConfig(**LNDP_PYRAMID)
+    cfg = pyramid.NDPConfig(**(pyr or LNDP_PYRAMID))
     src, _, _, s_l, t_l, valid = landmark_rows(seed=5)
     mean = src.mean(0)
     x = torch.from_numpy(s_l - mean).to(dev)
@@ -551,6 +778,11 @@ def ldmk_kernel_phase(dp, dev):
           and not held[1].any() and not held[2].any()
           and int(held[4].it) == 1, "C5 did not hold with done set")
 
+    if not timed:
+        phase("kernels", f"ldmk_iteration [{label}, {LDMK_ROWS} rows]: "
+              f"max_abs_err {err:.3e} (rows 1e-5; loss 1e-6 rel; m, v 1e-6 of "
+              "max; p 1e-6 where |m| > 1e-3 max|m|; held step exact)")
+        return dict(err=err)
     # Timing: an early stop that never fires, so every call steps.
     never = LoopConfig(iters=10 ** 9, loss_eps=0.0, max_break_count=10 ** 9)
     states = {}
@@ -732,6 +964,11 @@ def small_phase(dp, dev):
         "SE3+axis_angle": (dict(small, k0=-6), {}),
         "Sim3+euler": (dict(small, k0=-6, motion="Sim3",
                             rotation_format="euler"), {}),
+        "sflow": (dict(small, k0=-6, motion="sflow"), {}),
+        "SE3+quaternion": (dict(small, k0=-6,
+                                rotation_format="quaternion"), {}),
+        "Sim3+6D": (dict(small, k0=-6, motion="Sim3",
+                         rotation_format="6D"), {}),
         "landmark C5": (dict(small, k0=-8),
                         dict(w_cd=0.0, use_fused_ldmk=True)),
         "landmark+chamfer": (dict(small, k0=-8), dict(w_cd=1.0)),
@@ -746,7 +983,12 @@ def small_phase(dp, dev):
     l_valid = torch.arange(48) < 40
     valid = torch.ones(200, dtype=torch.bool)
     for name, (pk, knobs) in cases.items():
-        cfg = dp.SolverConfig(pyramid=dp.NDPConfig(**pk), iters=30,
+        # The quaternion and 6D formats renormalise a head output of
+        # ~mlp_scale: their float32 trajectories part after ~5 steps (the
+        # horizon and the 1e-2 of the CPU parity tests).
+        short = pk.get("rotation_format") in ("quaternion", "6D")
+        iters, tol = (5, 1e-2) if short else (30, 1e-3)
+        cfg = dp.SolverConfig(pyramid=dp.NDPConfig(**pk), iters=iters,
                               samples=200, use_fused_iteration=True, **knobs)
         n_ldmk, pts, pv = 0, s, valid
         if "w_cd" in knobs:
@@ -768,10 +1010,10 @@ def small_phase(dp, dev):
         check(res["cuda"][1] == res["cpu"][1],
               f"small {name}: iterations {res['cuda'][1]} vs CPU "
               f"{res['cpu'][1]}")
-        check(err <= 1e-3, f"small {name}: warped err {err} vs CPU > 1e-3")
+        check(err <= tol, f"small {name}: warped err {err} vs CPU > {tol}")
         phase("small", f"{name}: card vs CPU plain: iterations "
               f"{res['cuda'][1]} equal, warped max abs err {err:.3e} "
-              "(<= 1e-3)")
+              f"(<= {tol})")
 
 FLASH_SHAPE = dict(L=2048, S=2048, src_len=1500, h=4, d=132)
 # what a timed attention case reports of a further shape in the JSON line
@@ -1432,6 +1674,252 @@ def train_phase(dp, dev, kernels):
                        for n, r in at_path.items()})
 
 
+NERFIES_ITERS = 300      # of config/baselines/Nerfies.yaml's 5000: time
+NSFP_KERNELS = ("nsfp_fwd", "nn_dual", "scatter_rows", "nsfp_bwd",
+                "adam_step")
+
+
+def nolearned_phase(dp, dev, kernels):
+    """The no-learned evaluation CLI on fabricated 4DMatch-F (the first 4
+    pairs of write_4dmatch_suite's default stream) and 4DLoMatch-F (2
+    pairs, partial 0.40, seed 1), through ``eval_nolearned.main`` and its
+    argument parser, at the yaml files' widths."""
+    import shutil
+
+    from deformationpyramid_tpu_torch.cli import eval_nolearned as ev
+    from deformationpyramid_tpu_torch.data.fourdmatch import \
+        FourDMatchDataset
+    from deformationpyramid_tpu_torch.data.synthetic import \
+        write_4dmatch_suite
+
+    work = REPO / "build" / "chip_smoke" / "nolearned"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "split"
+    write_4dmatch_suite(str(root), "4DMatch-F", n_pairs=4)
+    write_4dmatch_suite(str(root), "4DLoMatch-F", n_pairs=2, partial=0.40,
+                        seed=1)
+    init_epe, sizes = {}, {}
+    for split in ("4DMatch-F", "4DLoMatch-F"):
+        ds = FourDMatchDataset(str(root), split)
+        pairs = [ds[i] for i in range(len(ds))]
+        init_epe[split] = [100.0 * float(np.linalg.norm(p.flow_gt, axis=-1)
+                                         .mean()) for p in pairs]
+        sizes[split] = [(len(p.src), len(p.tgt)) for p in pairs]
+    phase("nolearned", f"fabricated {sizes}; initial flow EPE (cm) "
+          f"{ {k: [round(v, 2) for v in vs] for k, vs in init_epe.items()} }")
+
+    def variant(name, src, *edits, append=""):
+        text = (REPO / src).read_text()
+        for old, new_text in edits:
+            check(old in text, f"nolearned: {src} has no {old!r}")
+            text = text.replace(old, new_text)
+        path = work / f"{name}.yaml"
+        path.write_text(text + append)
+        return str(path)
+
+    def run(tag, cfg, splits, limit=None, extra=(), snap=None):
+        argv = ["--config", cfg, "--data-root", str(root), "--device", "cuda",
+                "--splits", *splits, "--log-dir", str(work / (snap or tag)),
+                *extra]
+        if limit is not None:
+            argv += ["--limit", str(limit)]
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        report = ev.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        pairs = sum(r["pairs"] for r in report.values())
+        iters = sum(sum(v) for r in report.values()
+                    for v in r["iters"].values())
+        for split, r in report.items():
+            check(all(np.isfinite(v) for v in r["scores"].values())
+                  and len(r["scores"]) == 12,
+                  f"nolearned {tag}: {split} scores {r['scores']}")
+        out = dict(report=report, launches=launches, pairs=pairs, iters=iters,
+                   seconds=dt, pairs_per_s=pairs / dt if pairs else None,
+                   ms_per_iter=dt * 1e3 / iters if iters else None)
+        if pairs:
+            score = {s: " ".join(f"{k} {v:.3f}" for k, v in r["scores"].items())
+                     for s, r in report.items()}
+            phase("nolearned", f"{tag}: {pairs} pairs in {dt:.3f} s = "
+                  f"{pairs / dt:.4f} pairs/s, {iters} iterations, "
+                  f"{dt * 1e3 / iters:.4f} ms/iter; iterations "
+                  f"{ {s: list(r['iters'].values()) for s, r in report.items()} }"
+                  f"; launches { {k: v for k, v in launches.items() if v} }"
+                  f"; score {score}")
+        return out
+
+    def sane_iterations(tag, res, cap):
+        """Each solve's iteration counts in [1, cap], not all at either
+        end."""
+        for split, r in res["report"].items():
+            counts = [c for v in r["iters"].values() for c in v]
+            check(all(1 <= c <= cap for c in counts)
+                  and not all(c <= 2 for c in counts)
+                  and not all(c == cap for c in counts),
+                  f"nolearned {tag}: {split} iterations {r['iters']}")
+
+    def converged(tag, res, cap, factor=5.0):
+        """EPE `factor` x below the initial flow's on every split, and sane
+        iteration counts."""
+        sane_iterations(tag, res, cap)
+        for split, r in res["report"].items():
+            init = float(np.mean(init_epe[split][:len(r["iters"])]))
+            epe = r["scores"]["full-epe"]
+            check(epe * factor <= init, f"nolearned {tag}: {split} full-epe "
+                  f"{epe} not {factor}x below the initial {init}")
+
+    out = {}
+    both = ("4DMatch-F", "4DLoMatch-F")
+    one = ("4DMatch-F",)
+
+    # NDP: config/NDP.yaml as it stands, both splits
+    ndp = out["NDP"] = run("NDP", str(REPO / "config/NDP.yaml"), both)
+    check(ndp["pairs"] == 6, f"nolearned NDP: {ndp['pairs']} pairs")
+    converged("NDP", ndp, 500)
+    for name in CHAMFER_KERNELS:
+        check(ndp["launches"][name] > 0, f"nolearned NDP: {name} not launched")
+    check(ndp["launches"]["level_warp_fwd"] == ndp["launches"]["level_warp_bwd"]
+          >= ndp["iters"], f"nolearned NDP: launches {ndp['launches']}")
+    # --resume on the finished splits solves nothing and scores the same
+    again = run("NDP --resume", str(REPO / "config/NDP.yaml"), both,
+                extra=["--resume"], snap="NDP")
+    check(again["pairs"] == 0 and not any(again["launches"].values()),
+          f"nolearned resume: solved {again['pairs']} pairs, launches "
+          f"{again['launches']}")
+    for split in both:
+        a, b = again["report"][split]["scores"], ndp["report"][split]["scores"]
+        check(all(abs(a[k] - b[k]) < 1e-9 for k in b),
+              f"nolearned resume: {split} scores {a} against {b}")
+    phase("nolearned", "NDP --resume: 0 pairs solved, no kernel launched, "
+          "both splits' scores reproduced")
+    # The fast path against --no-fast (padded buckets through
+    # register_pair, the same initial weights). Pair 1 is smaller than
+    # `samples`, so both paths solve the same points in another order: the
+    # EPEs agree to 1e-3 in the clouds' units (0.1 cm). Pair 0's 27k points
+    # are subsampled from two different streams: its gap is printed.
+    legacy = out["NDP --no-fast"] = run(
+        "NDP --no-fast", str(REPO / "config/NDP.yaml"), one, limit=2,
+        extra=["--no-fast"])
+    check(legacy["pairs"] == 2 and legacy["launches"]["adam_step"]
+          <= legacy["iters"] + 7 * 9 * 2,
+          f"nolearned --no-fast: {legacy['pairs']} pairs, launches "
+          f"{legacy['launches']} for {legacy['iters']} iterations")
+    epes = []
+    for snap in ("NDP", "NDP --no-fast"):
+        with open(work / snap / "4DMatch-F.pairs.jsonl") as f:
+            rows = {os.path.basename(r["name"]): r["full-epe"]
+                    for r in map(json.loads, f)}
+        epes.append([rows["pair0000.npz"], rows["pair0001.npz"]])
+    gaps = [abs(a - b) for a, b in zip(*epes)]
+    check(gaps[1] <= 0.1, f"nolearned: fast and --no-fast differ by "
+          f"{gaps[1]} cm on pair 1 (> 0.1)")
+    phase("nolearned", f"fast against --no-fast, full-epe (cm): pair 1 (the "
+          f"same 1392 points) {epes[0][1]:.4f} and {epes[1][1]:.4f}, gap "
+          f"{gaps[1]:.4f} <= 0.1; pair 0 (two subsamples of 26968 points) "
+          f"{epes[0][0]:.4f} and {epes[1][0]:.4f}")
+    legacy["fast_epe_cm"], legacy["no_fast_epe_cm"] = epes
+
+    # The yaml's other motions and formats, 2 pairs each. sflow converges
+    # like SE3. The quaternion and 6D formats normalise a head output of
+    # ~mlp_scale, so every point starts from an arbitrary rotation (in the
+    # reference and the JAX package too) and the solve does not reach the
+    # target: their runs are held to finite metrics, sane iteration counts
+    # and the launch counts, and one pair runs through the unfused loop
+    # (the plain warp under autograd) beside them, where the same happens.
+    fmt_line = 'rotation_format: &rotation_format "axis_angle"'
+    for tag, edit, gate in (
+            ("NDP quaternion", (fmt_line, fmt_line.replace(
+                "axis_angle", "quaternion")), sane_iterations),
+            ("NDP 6D", (fmt_line, fmt_line.replace("axis_angle", "6D")),
+             sane_iterations),
+            ("NDP sflow", ('motion_type: &motion_type "SE3"',
+                           'motion_type: &motion_type "sflow"'), converged)):
+        cfg = variant(tag.replace(" ", "_"), "config/NDP.yaml", edit)
+        res = out[tag] = run(tag, cfg, one, limit=2)
+        gate(tag, res, 500)
+        la = res["launches"]
+        check(la["level_warp_fwd"] == la["level_warp_bwd"] == la["adam_step"]
+              >= res["iters"] > 0, f"nolearned {tag}: launches {la}")
+    cfg = variant("NDP_quaternion_unfused", "config/NDP.yaml",
+                  (fmt_line, fmt_line.replace("axis_angle", "quaternion")),
+                  append="use_fused_iteration: false\n")
+    res = out["NDP quaternion unfused"] = run("NDP quaternion unfused", cfg,
+                                              one, limit=1)
+    sane_iterations("NDP quaternion unfused", res, 500)
+    check(res["launches"]["level_warp_fwd"] == 0,
+          f"nolearned NDP quaternion unfused: launches {res['launches']}")
+
+    # NSFP: fused at the full 5000-iteration cap (2 pairs), one of them
+    # again (bit-equal), then unfused (1 pair). The flow MLP has no
+    # coarse-to-fine schedule and fits these pairs' 0.2 rad rotation less
+    # well than the pyramid does (14 cm of 26 on the 27k-point pair 0, 1.2
+    # of 20 on pair 1): its EPE is held to 1.5x below the initial flow's,
+    # not to 5x, and the two routes to each other on pair 0 within 15%.
+    fused_cfg = variant("NSFP_fused", "config/baselines/NSFP.yaml",
+                        append="use_fused_iteration: true\n")
+    nsfp = out["NSFP fused"] = run("NSFP fused", fused_cfg, one, limit=2)
+    converged("NSFP fused", nsfp, 5000, factor=1.5)
+    la = nsfp["launches"]
+    check(la["nsfp_bwd"] == la["adam_step"] == la["nn_dual"]
+          == la["scatter_rows"] == la["nsfp_fwd"] - nsfp["pairs"],
+          f"nolearned NSFP fused: launches {la}")
+    # an iteration that starts halted still launches (the host reads the
+    # stop flag every 8): at most 7 more than the iterations a solve
+    check(nsfp["iters"] <= la["nsfp_bwd"] <= nsfp["iters"] + 7 * nsfp["pairs"],
+          f"nolearned NSFP fused: {la['nsfp_bwd']} launches for "
+          f"{nsfp['iters']} iterations")
+    check(la["level_warp_fwd"] == la["level_warp_bwd"] == 0,
+          f"nolearned NSFP fused: level kernels launched {la}")
+    first = sorted(nsfp["report"]["4DMatch-F"]["iters"])[0]
+    twice = run("NSFP fused again", fused_cfg, one, limit=1)
+    rows = []
+    for snap in ("NSFP fused", "NSFP fused again"):
+        with open(work / snap / "4DMatch-F.pairs.jsonl") as f:
+            rows.append(json.loads(f.readline()))
+    check(rows[0] == rows[1] and twice["report"]["4DMatch-F"]["iters"][first]
+          == nsfp["report"]["4DMatch-F"]["iters"][first],
+          f"nolearned: fused NSFP twice: {rows[0]} then {rows[1]}")
+    phase("nolearned", "fused NSFP, pair 0 twice: equal iterations and a "
+          "bit-equal ledger row")
+    unf = out["NSFP unfused"] = run(
+        "NSFP unfused", str(REPO / "config/baselines/NSFP.yaml"), one,
+        limit=1)
+    converged("NSFP unfused", unf, 5000, factor=1.5)
+    check(unf["launches"]["nsfp_fwd"] == unf["launches"]["nsfp_bwd"] == 0
+          and unf["launches"]["nn_dual"] > 0,
+          f"nolearned NSFP unfused: launches {unf['launches']}")
+    a = rows[0]["full-epe"]
+    b = unf["report"]["4DMatch-F"]["scores"]["full-epe"]
+    check(abs(a - b) <= 0.15 * max(a, b), f"nolearned NSFP: pair 0 full-epe "
+          f"{a} fused against {b} unfused")
+    phase("nolearned", f"NSFP fused {nsfp['ms_per_iter']:.4f} ms/iter against "
+          f"unfused {unf['ms_per_iter']:.4f} ms/iter; pair 0 full-epe "
+          f"{a:.3f} against {b:.3f} cm")
+
+    # Nerfies (its iteration cap cut for time) and Sinkhorn, 1 pair each
+    nerf_cfg = variant("Nerfies", "config/baselines/Nerfies.yaml",
+                       ("iters: 5000", f"iters: {NERFIES_ITERS}"))
+    nerf = out["Nerfies"] = run(f"Nerfies (iters cut to {NERFIES_ITERS})",
+                                nerf_cfg, one, limit=1)
+    counts = list(nerf["report"]["4DMatch-F"]["iters"].values())[0]
+    check(1 <= counts[0] <= NERFIES_ITERS, f"nolearned Nerfies: {counts}")
+    check(nerf["launches"]["nn_dual"] > 0, "nolearned Nerfies: no C1 launch")
+    sink = out["Sinkhorn"] = run(
+        "Sinkhorn", str(REPO / "config/baselines/Sinkhorn.yaml"), one, limit=1)
+    check(list(sink["report"]["4DMatch-F"]["iters"].values())[0] == [11],
+          "nolearned Sinkhorn: not 11 steps")
+    for res in out.values():
+        report = res.pop("report")
+        res["scores"] = {s: r["scores"] for s, r in report.items()}
+        res["iterations"] = {s: list(r["iters"].values())
+                             for s, r in report.items()}
+    return dict(out, initial_epe_cm=init_epe, sizes=sizes)
+
+
 def small_landmark_phase(dev):
     """A narrow landmark model on the card (C7 at head width 24) against the
     same model on the CPU (C7's plain version)."""
@@ -1520,11 +2008,18 @@ def main() -> None:
                fused_iteration.SCATTER_ROWS, fused_iteration.LEVEL_WARP_BWD,
                fused_iteration.ADAM_STEP, fused_iteration.LDMK_ITERATION,
                attention.FLASH_ATTENTION, attention.FLASH_ATTENTION_BWD_DKV,
-               attention.FLASH_ATTENTION_BWD_DQ]
+               attention.FLASH_ATTENTION_BWD_DQ, fused_iteration.NSFP_FWD,
+               fused_iteration.NSFP_BWD]
     measured = kernel_phase(dp, dev)
     sim3 = sim3_kernel_phase(dp, dev)
+    formats = format_kernel_phase(dp, dev)
     measured["ldmk_iteration"] = ldmk_kernel_phase(dp, dev)
+    ldmk_quat = ldmk_kernel_phase(
+        dp, dev, pyr=dict(LNDP_PYRAMID, rotation_format="quaternion"),
+        label="SE3+quaternion", timed=False)
     measured.update(flash_kernel_phase(dev))
+    nsfp_k = nsfp_kernel_phase(dp, dev)
+    measured.update({k: nsfp_k[k] for k in ("nsfp_fwd", "nsfp_bwd")})
 
     fused = slice_phase(dp, dev, kernels, fused=True, n_pairs=3)
     for name in CHAMFER_KERNELS:
@@ -1566,6 +2061,14 @@ def main() -> None:
           f"{train['matcher_s']:.3f} s; NeCo {train['neco_s']:.3f} s; "
           f"collate {train['collate_s']:.3f} s a pair; {smi}")
 
+    nolearned = nolearned_phase(dp, dev, kernels)
+    phase("nolearned", f"NDP {nolearned['NDP']['pairs_per_s']:.4f} pairs/s, "
+          f"{nolearned['NDP']['ms_per_iter']:.4f} ms/iter; NSFP fused "
+          f"{nolearned['NSFP fused']['ms_per_iter']:.4f} ms/iter, unfused "
+          f"{nolearned['NSFP unfused']['ms_per_iter']:.4f} ms/iter; Nerfies "
+          f"{nolearned['Nerfies']['ms_per_iter']:.4f} ms/iter; Sinkhorn "
+          f"{nolearned['Sinkhorn']['seconds']:.3f} s a pair; {smi}")
+
     small_phase(dp, dev)
     small_landmark_phase(dev)
 
@@ -1586,12 +2089,18 @@ def main() -> None:
                "flash_attention_bwd_dkv": ("csrc/flash_attention_bwd.cu",
                                            "match/attention.py:70"),
                "flash_attention_bwd_dq": ("csrc/flash_attention_bwd.cu",
-                                          "match/attention.py:70")}
+                                          "match/attention.py:70"),
+               # kernels 1 and 2 with model="nsfp"
+               "nsfp_fwd": ("csrc/nsfp.cu", "ops/fused_iteration.py:139"),
+               "nsfp_bwd": ("csrc/nsfp.cu", "ops/fused_iteration.py:439")}
     # each kernel's count from the path that is its own: the fused bench,
     # the landmark solve (C5), the lndp path (C7), the matcher's training
-    # (C8, C9; C7's count there stands in the train block)
+    # (C8, C9; C7's count there stands in the train block), the fused NSFP
+    # evaluation (C10, C11)
     path_launches = dict(
         fused["launches"],
+        nsfp_fwd=nolearned["NSFP fused"]["launches"]["nsfp_fwd"],
+        nsfp_bwd=nolearned["NSFP fused"]["launches"]["nsfp_bwd"],
         ldmk_iteration=landmark["C5"]["launches"]["ldmk_iteration"],
         flash_attention_fwd=lndp["launches"]["flash_attention_fwd"],
         flash_attention_bwd_dkv=train["launches"]["flash_attention_bwd_dkv"],
@@ -1616,6 +2125,16 @@ def main() -> None:
                                              "bound_ms", "bound_by",
                                              "design_bound_ms")
                                  if key in sim3[k.name]}
+        if k.name in ("level_warp_fwd", "level_warp_bwd"):
+            row["formats"] = {tag: res[k.name]
+                              for tag, res in formats.items()}
+            row["nolearned_launches"] = {
+                tag: nolearned[tag]["launches"][k.name]
+                for tag in ("NDP", "NDP quaternion", "NDP 6D", "NDP sflow")}
+        if k.name == "ldmk_iteration":
+            row["se3_quaternion"] = ldmk_quat
+        if k.name == "adam_step":
+            row["at_nsfp_shape"] = nsfp_k["adam_step_at_nsfp"]
         if "at_4096_2836" in measured[k.name]:
             row["at_4096_2836"] = measured[k.name]["at_4096_2836"]
         if k.name == "flash_attention_fwd":
@@ -1636,7 +2155,8 @@ def main() -> None:
         "lndp": {k: v for k, v in lndp.items()
                  if k != "flash_at_path_shape"},
         "train": {k: v for k, v in train.items()
-                  if k != "at_path_shape"}}), flush=True)
+                  if k != "at_path_shape"},
+        "nolearned": nolearned}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@
 #include "common.cuh"
 
 // Shared memory of the backward tile, in floats: xs, fea, head, gs, gh
-// and the activations of every layer plus two gradient buffers.
+// (hs head outputs a point: 3 for sflow up to 10 for Sim3 + 6D) and the
+// activations of every layer plus two gradient buffers.
 __host__ inline size_t bwd_tile_floats(int tp, int width, int depth,
                                        int hs) {
   return (size_t)tp * (3 + 6 + hs + 3 + hs) + (size_t)(depth + 2) * tp * width;

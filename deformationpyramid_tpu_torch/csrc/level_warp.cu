@@ -1,6 +1,6 @@
 // C2 level_warp_fwd and C3 level_warp_bwd: one pyramid level's warp
-// (SE3 or Sim3 motion, axis-angle or XYZ-Euler rotation) and its parameter
-// VJP.
+// (SE3, Sim3 or sflow motion; axis-angle, XYZ-Euler, quaternion or 6D
+// rotation) and its parameter VJP.
 //
 // C2 replaces the warp half of the JAX package's kernel 1
 // (ops/fused_iteration.py _fwd_sweep_kernel, through
@@ -10,7 +10,8 @@
 // The math, per point x: posenc at one frequency, a 6->w ReLU layer,
 // (depth-1) w->w ReLU layers, the rotation, translation and (Sim3) scale
 // heads scaled by mlp_scale, then out = s R x + t (common.cuh motion_fwd;
-// SE3: s = 1; Sim3: s = head + 1). Full-precision sinf/cosf/sqrtf and plain
+// SE3: s = 1; Sim3: s = head + 1; sflow: out = x + t, no rotation head).
+// Full-precision sinf/cosf/sqrtf and plain
 // f32 FMAs: the axis-angle VJP divides by theta ~ 1e-3, so the build uses
 // no fast-math.
 //
@@ -35,8 +36,8 @@
 #define BWD_TP 32
 
 // Each kernel is instantiated for every (motion, format) pair
-// (common.cuh dispatch_layout), so the per-point head arrays have a
-// compile-time size and stay in registers.
+// (common.cuh dispatch_layout: nine of them), so the per-point head arrays
+// have a compile-time size (3 to 10 floats) and stay in registers.
 
 template <int TP, int MOTION, int FMT>
 __global__ void level_warp_fwd_kernel(const float* __restrict__ prm,

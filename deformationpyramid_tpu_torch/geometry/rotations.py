@@ -39,6 +39,20 @@ def exp_so3(w: Tensor, theta: Tensor) -> Tensor:
     return eye + torch.sin(theta) * W + (1.0 - torch.cos(theta)) * (W @ W)
 
 
+def exp_se3(w: Tensor, v: Tensor, theta: Tensor) -> tuple[Tensor, Tensor]:
+    """Screw motion exponential (the Nerfies baseline's warp): unit
+    rotation axis ``w`` and translation direction ``v`` [..., 3], ``theta``
+    [..., 1]. Returns (R [..., 3, 3], t [..., 3, 1]), as the reference's
+    ``model/rigid_body.py:97-111``."""
+    theta = theta[..., None]
+    W = skew(w)
+    WW = W @ W
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    R = eye + torch.sin(theta) * W + (1.0 - torch.cos(theta)) * WW
+    p = eye + (1.0 - torch.cos(theta)) * W + (theta - torch.sin(theta)) * WW
+    return R, p @ v[..., None]
+
+
 def axis_angle_to_SO3(r: Tensor) -> Tensor:
     """Unnormalized axis-angle vector [..., 3] -> rotation matrix."""
     theta = _safe_norm(r)

@@ -112,33 +112,42 @@ def tree_leaves(tree) -> list:
     return out
 
 
-def _leaves(tree, prefix=()):
-    """(path, leaf) pairs in sorted-key order: the order of JAX's
-    ``ravel_pytree``, so a flat vector here matches the JAX solver's."""
+def _leaves(tree):
+    """Leaves in the order of JAX's ``ravel_pytree`` (dict keys sorted,
+    lists in index order), so a flat vector here matches the JAX
+    solver's. A tuple is a leaf (a shape)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves(tree[k], prefix + (k,))
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
     else:
-        yield prefix, tree
+        yield tree
 
 
-def ravel(tree: dict) -> Tensor:
-    """Nested dict of tensors -> one flat vector (sorted-key order)."""
-    return torch.cat([leaf.reshape(-1) for _, leaf in _leaves(tree)])
+def ravel(tree) -> Tensor:
+    """Tree of tensors (nested dicts and lists) -> one flat vector."""
+    return torch.cat([leaf.reshape(-1) for leaf in _leaves(tree)])
 
 
-def unravel(flat: Tensor, shapes: dict) -> dict[str, Any]:
+def unravel(flat: Tensor, shapes) -> Any:
     """Inverse of :func:`ravel`: views of ``flat`` shaped by ``shapes``
-    (a nested dict of shape tuples with the same keys)."""
-    out: dict[str, Any] = {}
+    (the same tree with a shape tuple at every leaf)."""
     offset = 0
-    for path, shape in _leaves(shapes):
-        size = int(np.prod(shape, dtype=np.int64))
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = flat[offset:offset + size].view(shape)
+
+    def build(node):
+        nonlocal offset
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        size = int(np.prod(node, dtype=np.int64))
+        leaf = flat[offset:offset + size].view(node)
         offset += size
+        return leaf
+
+    out = build(shapes)
     if offset != flat.numel():
         raise ValueError(f"flat vector has {flat.numel()} values, the "
                          f"shapes need {offset}")
@@ -255,6 +264,46 @@ def level_warp(p: dict[str, Any], x: Tensor, level: int,
         else:
             nonrigidity = torch.ones_like(nr)
     return x_, nonrigidity
+
+
+def warp_numpy(params, x, cfg: NDPConfig) -> np.ndarray:
+    """Host-side (numpy) full-pyramid warp, mirroring :func:`warp`: what the
+    evaluation's ``--host-metrics`` mode runs on the fetched parameters.
+    SE3 / Sim3 / sflow with axis_angle only, no nonrigidity head. ``params``
+    is the stacked tree with numpy leaves (:func:`params_to_numpy`)."""
+    if cfg.rotation_format != "axis_angle" or cfg.nonrigidity_est:
+        raise ValueError("warp_numpy covers axis_angle without the "
+                         "nonrigidity head only")
+    x = np.asarray(x, np.float32)
+    p = {k: {kk: np.asarray(vv) for kk, vv in v.items()}
+         for k, v in params.items()}
+    for lvl in range(cfg.m):
+        freq = np.float32(2.0 ** (lvl + 1 + cfg.k0))
+        s, c = np.sin(x * freq), np.cos(x * freq)
+        fea = np.stack([s[:, 0], c[:, 0], s[:, 1], c[:, 1],
+                        s[:, 2], c[:, 2]], axis=-1)
+        fea = np.maximum(fea @ p["input"]["w"][lvl] + p["input"]["b"][lvl], 0.0)
+        for h in range(p["hidden"]["w"].shape[1]):
+            fea = np.maximum(fea @ p["hidden"]["w"][lvl, h]
+                             + p["hidden"]["b"][lvl, h], 0.0)
+        t = cfg.mlp_scale * (fea @ p["trn"]["w"][lvl] + p["trn"]["b"][lvl])
+        if cfg.motion == "sflow":
+            x = x + t
+            continue
+        r = cfg.mlp_scale * (fea @ p["rot"]["w"][lvl] + p["rot"]["b"][lvl])
+        theta = np.sqrt(np.maximum((r * r).sum(-1, keepdims=True), 1e-12))
+        w = r / theta
+        sn, cs = np.sin(theta), np.cos(theta)
+        wxx = np.cross(w, x)
+        wdx = (w * x).sum(-1, keepdims=True)
+        rx = x + sn * wxx + (1.0 - cs) * (w * wdx - x)
+        if cfg.motion == "Sim3":
+            sc = cfg.mlp_scale * (fea @ p["scale"]["w"][lvl]
+                                  + p["scale"]["b"][lvl]) + 1.0
+            x = sc * rx + t
+        else:
+            x = rx + t
+    return x
 
 
 def warp(params: dict[str, Any], x: Tensor, cfg: NDPConfig,

@@ -22,18 +22,21 @@ C2 + C1 replace the JAX package's kernel 1 (``_fwd_sweep_kernel``), C3 + C4
 its kernel 2 (``_bwd_adam_kernel``). The landmark-only loop (LNDP with
 ``w_cd == 0``) runs one launch per iteration instead: **C5**
 ``ldmk_iteration`` (``csrc/ldmk_iteration.cu``) replaces
-``_ldmk_iter_kernel`` (:func:`run_fused_level_ldmk`). Each kernel's
+``_ldmk_iter_kernel`` (:func:`run_fused_level_ldmk`). The NSFP baseline's
+loop (:func:`run_fused_nsfp`) is the chamfer-mode iteration with the
+flow-field MLP in place of the level: **C10** ``nsfp_fwd`` and **C11**
+``nsfp_bwd`` (``csrc/nsfp.cu``) replace kernels 1 and 2 with
+``model="nsfp"``, around the same C1, glue, C6 and C4. Each kernel's
 wrapper runs the plain PyTorch version of the same function when its
 tensors are on the CPU.
 
 The early-stop state stays on the device as 0-d tensors (:class:`EarlyStop`)
 and the host reads it every ``SYNC_EVERY`` iterations only; an iteration
 that starts halted changes nothing, so the result is the one of checking
-after every iteration. The kernels cover SE3 and Sim3 motion with the
-axis-angle and the XYZ-Euler rotation, ``w_reg == 0`` and depth >= 2 (the
-reference ``config/NDP.yaml``, ``config/LNDP.yaml`` and the Sim3
-shape-transfer demo); every other configuration takes the unfused loop
-(``solve/registration.py``).
+after every iteration. The level kernels cover every ``motion_type`` and
+``rotation_format`` of ``config/NDP.yaml`` (SE3, Sim3, sflow; axis_angle,
+euler, quaternion, 6D) with ``w_reg == 0`` and depth >= 2; the nonrigidity
+head (``w_reg > 0``) takes the unfused loop (``solve/registration.py``).
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ import math
 
 import torch
 
-from ..models import pyramid
+from ..models import baselines, pyramid
 from .cuda_lib import F, I, Kernel, P, check_cuda, on_cpu
 from .knn import nn_argmin_dual
 
@@ -56,8 +59,9 @@ SMEM_LIMIT = 232448     # shared memory a Hopper block may opt in to
 _FLOOR = 1e-16          # sqrt floor, as ops/chamfer._gathered_sum
 
 # Codes of csrc/common.cuh DpMotion and DpRotFmt.
-MOTIONS = {"SE3": 0, "Sim3": 1}
-ROTATION_FORMATS = {"axis_angle": 0, "euler": 1}
+MOTIONS = {"SE3": 0, "Sim3": 1, "sflow": 2}
+ROTATION_FORMATS = {"axis_angle": 0, "euler": 1, "quaternion": 2, "6D": 3}
+NSFP_TILE = 16          # NSFP_TP in csrc/nsfp.cu: points per C10 / C11 block
 
 LEVEL_WARP_FWD = Kernel("level_warp_fwd", "dp_level_warp_fwd",
                         [P, P, I, I, I, I, I, F, F, P])
@@ -70,12 +74,16 @@ LDMK_ITERATION = Kernel(
     [P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P, P, P, I, I, F, F,
      F, F, F, F, F, F, P, P, P, I])
 SCATTER_ROWS = Kernel("scatter_rows", "dp_scatter_rows", [P, I, P, P, I])
+NSFP_FWD = Kernel("nsfp_fwd", "dp_nsfp_fwd", [P, P, I, I, I, P])
+NSFP_BWD = Kernel("nsfp_bwd", "dp_nsfp_bwd", [P, P, P, I, I, I, P, I])
 
 
 def _head_slots(pcfg: pyramid.NDPConfig) -> int:
     """Head outputs per point in the kernels (csrc/common.cuh LevelLayout
-    ``hs``): rotation, translation and the Sim3 scale."""
-    return pcfg.rot_dim + 3 + (pcfg.motion == "Sim3")
+    ``hs``): rotation (none for sflow), translation and the Sim3 scale;
+    3 for sflow up to 10 for Sim3 + 6D."""
+    rot = 0 if pcfg.motion == "sflow" else pcfg.rot_dim
+    return rot + 3 + (pcfg.motion == "Sim3")
 
 
 def bwd_smem(pcfg: pyramid.NDPConfig) -> int:
@@ -96,12 +104,12 @@ def _supports_warp(pcfg: pyramid.NDPConfig) -> bool:
 
 def supports_fused_iteration(pcfg: pyramid.NDPConfig, w_reg: float,
                              n_ldmk: int = 0) -> bool:
-    """What the chamfer-mode kernels cover: SE3 or Sim3 motion with the
-    axis_angle or euler rotation, no nonrigidity branch or regulariser, no
-    landmarks, at least one hidden layer, width <= 256, and C3's
-    activations of every layer within one block's shared memory (at width
-    256, depth <= 5 for SE3). Narrower than the JAX package's gate (which
-    also takes sflow, the quaternion and 6D formats and w_reg > 0)."""
+    """What the chamfer-mode kernels cover: every motion (SE3, Sim3, sflow)
+    and rotation format (axis_angle, euler, quaternion, 6D), no
+    nonrigidity branch or regulariser, no landmarks, at least one hidden
+    layer, width <= 256, and C3's activations of every layer within one
+    block's shared memory (at width 256, depth <= 5 for SE3). The JAX
+    package's gate also takes w_reg > 0 with the nonrigidity head."""
     return _supports_warp(pcfg) and w_reg == 0 and n_ldmk == 0
 
 
@@ -117,7 +125,8 @@ def supports_fused_iteration_ldmk(pcfg: pyramid.NDPConfig, w_reg: float,
 
 def level_param_count(pcfg: pyramid.NDPConfig) -> int:
     """Length of one level's flat parameter vector (34,694 at width 128,
-    depth 3 with SE3 + axis_angle; the Sim3 scale head adds width + 1)."""
+    depth 3 with SE3 + axis_angle; every further head output adds
+    width + 1)."""
     w, nh = pcfg.width, pcfg.depth - 1
     return nh * (w + w * w) + 7 * w + _head_slots(pcfg) * (w + 1)
 
@@ -141,9 +150,8 @@ def _check_level(name: str, flat: Tensor, x: Tensor,
                  pcfg: pyramid.NDPConfig, *more: Tensor) -> None:
     check_cuda(name, flat, x, *more)
     if not _supports_warp(pcfg):
-        raise ValueError(f"{name}: the kernel covers SE3|Sim3 x "
-                         f"axis_angle|euler, depth >= 2, width <= "
-                         f"{MAX_WIDTH} only")
+        raise ValueError(f"{name}: the kernel covers no nonrigidity head, "
+                         f"depth >= 2 and width <= {MAX_WIDTH} only")
     if flat.shape != (level_param_count(pcfg),):
         raise ValueError(f"{name}: flat params of shape {tuple(flat.shape)}")
     if x.ndim != 2 or x.shape[1] != 3:
@@ -505,3 +513,150 @@ def run_fused_level_ldmk(lvl_params: dict, pts: Tensor, ldmk_valid: Tensor,
     stop.run(lambda: ldmk_iteration(p, m, v, x, tgt, mask, count, stop, aux,
                                     level, pcfg, lcfg.lr, scratch))
     return pyramid.unravel(p, shapes), aux, stop.stats()
+
+
+# ---------------------------------------------------------------------------
+# The fused NSFP loop (the Neural Prior baseline): C10, C1, glue + C6, C11, C4
+# ---------------------------------------------------------------------------
+
+def nsfp_shapes(ncfg: baselines.NSFPConfig) -> list[dict]:
+    """Shapes of the NSFP layer list (``models.baselines.init_nsfp_params``)."""
+    dims = baselines.nsfp_dims(ncfg)
+    return [{"w": (dims[i], dims[i + 1]), "b": (dims[i + 1],)}
+            for i in range(ncfg.n_layers)]
+
+
+def nsfp_param_count(ncfg: baselines.NSFPConfig) -> int:
+    """Length of the flat NSFP parameter vector (116,483 at 9 x 128)."""
+    w, nl = ncfg.width, ncfg.n_layers
+    return 4 * w + (nl - 2) * (w + w * w) + 3 + 3 * w
+
+
+def nsfp_params_to_flat(params: list[dict]) -> Tensor:
+    """NSFP layer list [{w [in, out], b [out]}] -> the flat f32 vector the
+    kernels read: per layer its bias, then its weight (row-major), the
+    order of JAX's ``ravel_pytree`` (``csrc/nsfp.cu``). The counterpart of
+    the JAX package's ``nsfp_params_to_t``."""
+    return pyramid.ravel(params).to(torch.float32).contiguous()
+
+
+def nsfp_flat_to_params(flat: Tensor, ncfg: baselines.NSFPConfig
+                        ) -> list[dict]:
+    """Inverse of :func:`nsfp_params_to_flat` (views of ``flat``)."""
+    return pyramid.unravel(flat, nsfp_shapes(ncfg))
+
+
+def nsfp_bwd_smem(ncfg: baselines.NSFPConfig) -> int:
+    """Shared memory of one C11 block in bytes (``csrc/nsfp.cu``): the
+    activations of every layer but the last plus two gradient buffers,
+    unit-major with a pad of 4 points, and the tile's points and
+    cotangents."""
+    return 4 * (6 * NSFP_TILE
+                + (ncfg.n_layers + 1) * ncfg.width * (NSFP_TILE + 4))
+
+
+def supports_fused_nsfp(ncfg: baselines.NSFPConfig) -> bool:
+    """What C10 / C11 cover: ReLU, at least two layers, a width that is a
+    multiple of 4 up to 256, and C11's activations within one block's
+    shared memory (at width 128, up to 20 layers)."""
+    return (ncfg.act == "relu" and ncfg.n_layers >= 2
+            and 4 <= ncfg.width <= MAX_WIDTH and ncfg.width % 4 == 0
+            and nsfp_bwd_smem(ncfg) <= SMEM_LIMIT)
+
+
+def nsfp_fwd_plain(flat: Tensor, x: Tensor, ncfg: baselines.NSFPConfig
+                   ) -> Tensor:
+    """Plain version of kernel C10: x + nsfp_flow(x) from the flat vector."""
+    return x + baselines.nsfp_flow(nsfp_flat_to_params(flat, ncfg), x, ncfg)
+
+
+def nsfp_bwd_plain(flat: Tensor, x: Tensor, g: Tensor,
+                   ncfg: baselines.NSFPConfig) -> Tensor:
+    """Plain version of kernel C11: ``torch.func.vjp`` of the plain warp for
+    the cotangent g [N, 3], as one partial row [1, P]."""
+    _, vjp = torch.func.vjp(lambda f: nsfp_fwd_plain(f, x, ncfg), flat)
+    return vjp(g)[0][None]
+
+
+def _check_nsfp(name: str, flat: Tensor, x: Tensor,
+                ncfg: baselines.NSFPConfig, *more: Tensor) -> None:
+    check_cuda(name, flat, x, *more)
+    if not supports_fused_nsfp(ncfg):
+        raise ValueError(f"{name}: the kernel covers ReLU, >= 2 layers and a "
+                         f"width that is a multiple of 4 up to {MAX_WIDTH}")
+    if flat.shape != (nsfp_param_count(ncfg),):
+        raise ValueError(f"{name}: flat params of shape {tuple(flat.shape)}")
+    if x.ndim != 2 or x.shape[1] != 3:
+        raise ValueError(f"{name}: points must be [N, 3]")
+    for t in more:
+        if t.shape != x.shape:
+            raise ValueError(f"{name}: cotangent must be [N, 3]")
+
+
+def nsfp_fwd(flat: Tensor, x: Tensor, ncfg: baselines.NSFPConfig) -> Tensor:
+    """The NSFP warp x + mlp(x) of x [N, 3] from the flat parameter vector:
+    kernel C10 on CUDA tensors, the plain version on CPU tensors."""
+    if on_cpu(flat, x):
+        return nsfp_fwd_plain(flat, x, ncfg)
+    _check_nsfp("nsfp_fwd", flat, x, ncfg)
+    out = torch.empty_like(x)
+    NSFP_FWD.launch(flat.data_ptr(), x.data_ptr(), x.shape[0], ncfg.width,
+                    ncfg.n_layers, out.data_ptr())
+    return out
+
+
+def nsfp_bwd(flat: Tensor, x: Tensor, g: Tensor,
+             ncfg: baselines.NSFPConfig) -> Tensor:
+    """Parameter gradient of the NSFP warp for the cotangent g [N, 3], as
+    partial rows [n_blocks, P] whose sum is the gradient: kernel C11 on
+    CUDA tensors (one row per block of NSFP_TILE points, summed by
+    :func:`adam_step` in block order), the plain VJP on CPU tensors (one
+    row)."""
+    if on_cpu(flat, x, g):
+        return nsfp_bwd_plain(flat, x, g, ncfg)
+    _check_nsfp("nsfp_bwd", flat, x, ncfg, g)
+    n_blocks = -(-x.shape[0] // NSFP_TILE)
+    partial = torch.empty((n_blocks, flat.shape[0]), dtype=torch.float32,
+                          device=flat.device)
+    NSFP_BWD.launch(flat.data_ptr(), x.data_ptr(), g.data_ptr(), x.shape[0],
+                    ncfg.width, ncfg.n_layers, partial.data_ptr(), n_blocks)
+    return partial
+
+
+def run_fused_nsfp(params: list[dict], s_sample: Tensor, s_valid: Tensor,
+                   t_sample: Tensor, t_valid: Tensor, lcfg,
+                   ncfg: baselines.NSFPConfig = baselines.NSFPConfig()):
+    """Adam-optimize the NSFP flow field with the fused iteration: C10,
+    C1, the chamfer glue with C6, C11, C4, one launch each an iteration.
+
+    Drop-in for the unfused ``solve/baselines.optimize_nsfp`` loop (the
+    plain chamfer objective, trunc 1e9, the same 3-way early stop and
+    optax Adam). Returns (updated layer list, stats {iters, loss}).
+    """
+    if not supports_fused_nsfp(ncfg):
+        raise ValueError("run_fused_nsfp: configuration not covered by the "
+                         "kernels; use the unfused loop")
+    p = nsfp_params_to_flat(params).clone()
+    m = torch.zeros_like(p)
+    v = torch.zeros_like(p)
+    x = s_sample.to(torch.float32).contiguous()
+    y = t_sample.to(torch.float32).contiguous()
+    xv = s_valid.to(torch.bool).contiguous()
+    yv = t_valid.to(torch.bool).contiguous()
+    x_len = torch.clamp_min(xv.sum(), 1).to(torch.float32)
+    y_len = torch.clamp_min(yv.sum(), 1).to(torch.float32)
+    stop = EarlyStop(lcfg, x.device)
+
+    def step():
+        warped = nsfp_fwd(p, x, ncfg)
+        _, cidx, _, rarg = nn_argmin_dual(warped, y, xv, yv)
+        loss, g = _chamfer_glue(warped, cidx, rarg, y, xv, yv, x_len, y_len,
+                                1e9)
+        halt, hold = stop.decide(loss)
+        partials = nsfp_bwd(p, x, g, ncfg)
+        adam_step(p, m, v, partials, stop.applied, hold.to(torch.float32),
+                  lcfg.lr)
+        stop.advance(loss, halt, hold)
+
+    stop.run(step)
+    return nsfp_flat_to_params(p, ncfg), stop.stats()

@@ -17,7 +17,7 @@ reference hands it to the next stage.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -36,12 +36,18 @@ class LoopConfig:
     loss_eps: float = 1e-4
 
 
-def run_adam_loop(loss_fn: Callable[[dict], tuple[Tensor, Tensor]],
-                  params: dict, cfg: LoopConfig, aux_init: Tensor | None = None):
-    """Optimize ``params`` with Adam under the early stop.
+def run_adam_loop(loss_fn: Callable[[Any, Tensor],
+                                    tuple[Tensor, Tensor | None]],
+                  params: Any, cfg: LoopConfig, aux_init: Tensor | None = None):
+    """Optimize ``params`` (a tree of nested dicts and lists) with Adam
+    under the early stop.
 
-    ``loss_fn(params) -> (loss, aux)``; gradients come from autograd.
-    Returns (params, aux of the last evaluation, stats {iters, loss}).
+    ``loss_fn(params, it) -> (loss, aux)``: ``it`` is the iteration index
+    as a 0-d int32 tensor on the parameters' device (the Nerfies baseline
+    windows its encoding by it); ``aux`` may be None. Gradients come from
+    autograd. Returns (params, aux of the last evaluation, stats {iters,
+    loss}). The JAX loop's ``lr_decay`` and per-iteration random key serve
+    the embedded-deformation baseline only and are not here.
     """
     shapes = pyramid.tree_map(lambda t: tuple(t.shape), params)
     flat = pyramid.ravel(params).detach().to(torch.float32).clone()
@@ -53,15 +59,16 @@ def run_adam_loop(loss_fn: Callable[[dict], tuple[Tensor, Tensor]],
     def step():
         nonlocal aux
         f = flat.detach().requires_grad_(True)
-        loss, new_aux = loss_fn(pyramid.unravel(f, shapes))
+        loss, new_aux = loss_fn(pyramid.unravel(f, shapes), stop.it)
         (g,) = torch.autograd.grad(loss, f)
         loss = loss.detach()
         halt, hold = stop.decide(loss)
         adam_step(flat, m, v, g[None], stop.applied,
                   hold.to(torch.float32), cfg.lr)
         stop.advance(loss, halt, hold)
-        new_aux = new_aux.detach()
-        aux = new_aux if aux is None else torch.where(halt, aux, new_aux)
+        if new_aux is not None:
+            new_aux = new_aux.detach()
+            aux = new_aux if aux is None else torch.where(halt, aux, new_aux)
 
     stop.run(step)
     return pyramid.unravel(flat, shapes), aux, stop.stats()

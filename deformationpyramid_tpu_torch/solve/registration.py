@@ -34,6 +34,7 @@ from typing import Sequence
 
 import torch
 
+from ..losses import bce_with_zeros_target
 from ..models.pyramid import (NDPConfig, init_pyramid_params, level_params,
                               level_warp, warp)
 from ..ops.chamfer import truncated_chamfer
@@ -80,15 +81,6 @@ class SolverConfig:
                           loss_eps=self.loss_eps)
 
 
-def _bce_zeros(p: Tensor, valid: Tensor | None = None) -> Tensor:
-    """BCE(p, target=0) = -mean(log(1-p)), torch-style -100 clamp."""
-    log1mp = torch.clamp_min(torch.log1p(-p), -100.0)
-    if valid is None:
-        return -torch.mean(log1mp)
-    return -torch.sum(torch.where(valid, log1mp, 0.0)) \
-        / torch.clamp_min(valid.sum(), 1)
-
-
 def _as_generator(key: int | torch.Generator) -> torch.Generator:
     if isinstance(key, torch.Generator):
         return key
@@ -124,7 +116,7 @@ def _solve_level(lvl_params: dict, lvl: int, pts: Tensor, pts_valid: Tensor,
                 return run_fused_level_ldmk(lvl_params, pts, ldmk_valid,
                                             tgt_ldmk, lvl, pcfg, lcfg)
 
-    def loss_fn(p):
+    def loss_fn(p, it):
         warped, nr = level_warp(p, pts, lvl, pcfg)
         if n_ldmk > 0:
             sq = torch.sum((warped[:n_ldmk] - tgt_ldmk) ** 2, dim=-1)
@@ -138,21 +130,28 @@ def _solve_level(lvl_params: dict, lvl: int, pts: Tensor, pts_valid: Tensor,
             loss = truncated_chamfer(warped, t_sample, x_valid=pts_valid,
                                      y_valid=t_valid, trunc=cfg.trunc_chamfer)
         if cfg.w_reg > 0 and lvl > 0:
-            loss = loss + cfg.w_reg * _bce_zeros(nr, pts_valid)
+            loss = loss + cfg.w_reg * bce_with_zeros_target(
+                nr, pts_valid)
         return loss, warped
 
     return run_adam_loop(loss_fn, lvl_params, lcfg, aux_init=pts)
 
 
-def _random_subset(gen: torch.Generator, pts: Tensor, valid: Tensor, k: int
-                   ) -> tuple[Tensor, Tensor]:
+def _random_subset_idx(gen: torch.Generator, pts: Tensor, valid: Tensor,
+                       k: int) -> tuple[Tensor, Tensor, Tensor]:
     """Random k-subset of the valid rows, fixed output shape: rows ranked by
     a uniform score (drawn on the CPU from ``gen``) with invalid rows last;
-    if fewer than k rows are valid the extras come back masked out."""
+    if fewer than k rows are valid the extras come back masked out. Returns
+    (rows, their validity, their indices into ``pts``)."""
     score = torch.rand(pts.shape[0], generator=gen).to(pts.device)
     score = torch.where(valid, score, 2.0)
     idx = torch.topk(-score, k).indices
-    return pts[idx], valid[idx]
+    return pts[idx], valid[idx], idx
+
+
+def _random_subset(gen: torch.Generator, pts: Tensor, valid: Tensor, k: int
+                   ) -> tuple[Tensor, Tensor]:
+    return _random_subset_idx(gen, pts, valid, k)[:2]
 
 
 def optimize_pyramid(params: dict, pts0: Tensor, pts_valid: Tensor,

@@ -11,7 +11,12 @@ rows 1e-5, loss 1e-6 relative, counter and done equal, moments 1e-6 of
 their max, params 1e-6 where |g| > 1e-3 max|g|, a held step bit-exact; C6
 bit-equal to index_add_ on the CPU. The fused level repeats bit for bit
 (the glue's scatter has a fixed order).
-C2 and C3 are checked for SE3 + axis_angle and Sim3 + euler. C7 against its
+C2 and C3 are checked for SE3 + axis_angle, Sim3 + euler, sflow, and SE3 and
+Sim3 with the quaternion and 6D formats. C10 warped points 2e-5; C11
+gradients 1e-4 of each tensor's max |g| against the plain version in float64
+(nine float32 layers deep, two float32 gradients differ by more), bit-equal
+on a second launch, at a ragged last tile and at width 32; the fused NSFP
+loop against the CPU's plain loop. C7 against its
 plain version 2e-5 max abs (outputs are convex combinations of N(0, 1)
 values; the two sum S terms in different orders), at the matcher's shape,
 at an awkward one, with an empty source prefix, and inside a layer. C8 and
@@ -35,6 +40,12 @@ CONFIGS = {"SE3-axis_angle": CFG,
            "Sim3-euler": tpyr.NDPConfig(m=4, k0=-6, depth=3, width=64,
                                         motion="Sim3",
                                         rotation_format="euler")}
+CONFIGS.update({
+    f"{motion}-{fmt}": tpyr.NDPConfig(m=4, k0=-6, depth=3, width=64,
+                                      motion=motion, rotation_format=fmt)
+    for motion, fmt in (("sflow", "axis_angle"), ("SE3", "quaternion"),
+                        ("SE3", "6D"), ("Sim3", "quaternion"),
+                        ("Sim3", "6D"))})
 
 
 @pytest.fixture
@@ -96,6 +107,84 @@ def test_level_warp_bwd_matches_vjp(dev, name):
             scale = ref_t[k][kk].abs().max().clamp_min(1e-30)
             err = (got_t[k][kk] - ref_t[k][kk]).abs().max() / scale
             assert err < 1e-4, (k, kk, float(err))
+
+
+def _nsfp(dev, ncfg, n, seed=0):
+    from deformationpyramid_tpu_torch.models import baselines as tbase
+
+    gen = torch.Generator().manual_seed(seed)
+    flat = tfi.nsfp_params_to_flat(tbase.init_nsfp_params(gen, ncfg)).to(dev)
+    x = (torch.randn(n, 3, generator=gen) * 0.5).to(dev)
+    g = (torch.randn(n, 3, generator=gen) * 0.1).to(dev)
+    return flat, x, g
+
+
+NSFP_CASES = {"9x128-2000": (dict(), 2000), "9x128-ragged": (dict(), 333),
+              "4x32": (dict(width=32, n_layers=4), 50),
+              "2x64": (dict(width=64, n_layers=2), 17)}
+
+
+@pytest.mark.parametrize("name", sorted(NSFP_CASES))
+def test_nsfp_fwd_and_bwd_match_plain(dev, name):
+    from deformationpyramid_tpu_torch.models.baselines import NSFPConfig
+
+    kw, n = NSFP_CASES[name]
+    ncfg = NSFPConfig(**kw)
+    flat, x, g = _nsfp(dev, ncfg, n)
+    got = tfi.nsfp_fwd(flat, x, ncfg)
+    assert (got - tfi.nsfp_fwd_plain(flat, x, ncfg)).abs().max() < 2e-5
+    part = tfi.nsfp_bwd(flat, x, g, ncfg)
+    assert part.shape == (-(-n // tfi.NSFP_TILE), flat.numel())
+    assert torch.equal(part, tfi.nsfp_bwd(flat, x, g, ncfg))
+    ref = tfi.nsfp_bwd_plain(flat.double(), x.double(), g.double(),
+                             ncfg)[0].float()
+    shapes = tfi.nsfp_shapes(ncfg)
+    for a, b in zip(tpyr.tree_leaves(tpyr.unravel(part.sum(0), shapes)),
+                    tpyr.tree_leaves(tpyr.unravel(ref, shapes))):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp_min(1e-30)
+
+
+def test_nsfp_kernels_refuse_what_they_do_not_cover(dev):
+    from deformationpyramid_tpu_torch.models.baselines import NSFPConfig
+
+    ncfg = NSFPConfig(width=32, n_layers=4)
+    flat, x, g = _nsfp(dev, ncfg, 20)
+    with pytest.raises(ValueError):
+        tfi.nsfp_fwd(flat, x, NSFPConfig(width=32, n_layers=4, act="sigmoid"))
+    with pytest.raises(ValueError):
+        tfi.nsfp_fwd(flat[:-1].contiguous(), x, ncfg)
+    with pytest.raises(ValueError):
+        tfi.nsfp_bwd(flat, x, g[:10].contiguous(), ncfg)
+    with pytest.raises(ValueError):
+        tfi.nsfp_fwd(flat, x.cpu(), ncfg)
+
+
+def test_fused_nsfp_matches_cpu_plain_and_repeats(dev):
+    """The fused NSFP loop on the card (C10, C1, C6, C11, C4) against the
+    same loop on the CPU (plain versions) over 5 iterations: equal
+    iteration count, loss 1e-4, parameters 2e-2 (Adam's +-lr steps on
+    rounding noise; the band of the CPU parity tests); twice on the card
+    bit-equal."""
+    from deformationpyramid_tpu_torch.models import baselines as tbase
+    from deformationpyramid_tpu_torch.solve.loop import LoopConfig
+
+    ncfg = tbase.NSFPConfig(width=64, n_layers=5)
+    gen = torch.Generator().manual_seed(4)
+    params = tbase.init_nsfp_params(gen, ncfg)
+    pts = torch.randn(180, 3, generator=gen) * 0.4
+    tgt = torch.randn(200, 3, generator=gen) * 0.4
+    ones = lambda n: torch.ones(n, dtype=torch.bool)
+    outs = [tfi.run_fused_nsfp(
+        tpyr.tree_map(lambda t: t.to(d), params), pts.to(d), ones(180).to(d),
+        tgt.to(d), ones(200).to(d), LoopConfig(iters=5), ncfg)
+        for d in (dev, dev, "cpu")]
+    (p1, st1), (p2, st2), (pc, stc) = outs
+    assert int(st1["iters"]) == int(stc["iters"]) == 5
+    assert abs(float(st1["loss"]) - float(stc["loss"])) < 1e-4
+    for a, b, c in zip(tpyr.tree_leaves(p1), tpyr.tree_leaves(p2),
+                       tpyr.tree_leaves(pc)):
+        assert torch.equal(a, b)
+        assert (a.cpu() - c).abs().max() < 2e-2
 
 
 def test_adam_step_matches_plain_and_holds(dev):

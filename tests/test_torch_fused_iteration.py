@@ -7,7 +7,10 @@ the plain Adam, C5: the plain landmark iteration). The JAX kernels run in
 Pallas interpret mode with the pins of tests/test_fused_iteration.py
 (HIGHEST wide matmuls, the exact unpacked VPU-distance sweep). The kernel
 pairs are checked for SE3 + axis_angle (``config/NDP.yaml``,
-``config/LNDP.yaml``) and Sim3 + euler (the shape-transfer demo).
+``config/LNDP.yaml``), Sim3 + euler (the shape-transfer demo) and the
+yaml's further options: sflow, SE3 + quaternion, SE3 + 6D, Sim3 +
+quaternion (level loops of those at the JAX tests' own horizons and
+tolerances, tests/test_fused_iteration.py:289-297).
 Tolerances: warped points 1e-5, indices equal up to near-ties < 3e-4
 relative, glue value 1e-6 and gradient 1e-5, one Adam step 1e-5 (with
 ``done`` bit-exact), a 25-iteration level loop equal iteration count, loss
@@ -36,7 +39,9 @@ JCFG = jpyr.NDPConfig(**KW)
 TCFG = tpyr.NDPConfig(**KW)
 LEVEL = 1
 # (motion, rotation_format) pairs that the kernels cover
-MOTION_FORMATS = [("SE3", "axis_angle"), ("Sim3", "euler")]
+MOTION_FORMATS = [("SE3", "axis_angle"), ("Sim3", "euler"),
+                  ("sflow", "axis_angle"), ("SE3", "quaternion"),
+                  ("SE3", "6D"), ("Sim3", "quaternion")]
 
 
 def _cfgs(motion, fmt):
@@ -103,11 +108,14 @@ def test_supports_gate():
     assert not tfi.supports_fused_iteration(TCFG, 0.5, 0)
     assert not tfi.supports_fused_iteration(TCFG, 0.0, 5)
     for kw in (dict(motion="Sim3"), dict(rotation_format="euler"),
-               dict(motion="Sim3", rotation_format="euler")):
+               dict(motion="Sim3", rotation_format="euler"),
+               dict(motion="sflow"), dict(rotation_format="quaternion"),
+               dict(rotation_format="6D"),
+               dict(motion="Sim3", rotation_format="6D"),
+               dict(motion="sflow", rotation_format="quaternion")):
         assert tfi.supports_fused_iteration(tpyr.NDPConfig(**kw), 0.0, 0)
-    for kw in (dict(motion="sflow"), dict(rotation_format="quaternion"),
-               dict(rotation_format="6D"), dict(nonrigidity_est=True),
-               dict(depth=1), dict(width=512), dict(width=256, depth=6)):
+    for kw in (dict(nonrigidity_est=True), dict(depth=1), dict(width=512),
+               dict(width=256, depth=6)):
         assert not tfi.supports_fused_iteration(tpyr.NDPConfig(**kw), 0.0, 0)
     # C3 keeps every layer's activations in shared memory: 227 KB at most,
     # which the Sim3 scale head's extra slot exceeds at width 256, depth 5
@@ -120,8 +128,16 @@ def test_supports_gate():
     assert tfi.supports_fused_iteration_ldmk(TCFG, 0.0, 5)
     assert not tfi.supports_fused_iteration_ldmk(TCFG, 0.0, 0)
     assert not tfi.supports_fused_iteration_ldmk(TCFG, 0.5, 5)
+    for kw in (dict(motion="sflow"), dict(rotation_format="quaternion"),
+               dict(rotation_format="6D")):
+        assert tfi.supports_fused_iteration_ldmk(tpyr.NDPConfig(**kw), 0.0, 5)
     assert not tfi.supports_fused_iteration_ldmk(
-        tpyr.NDPConfig(motion="sflow"), 0.0, 5)
+        tpyr.NDPConfig(nonrigidity_est=True), 0.0, 5)
+    # head outputs a point: 3 (sflow) to 10 (Sim3 + 6D)
+    assert tfi._head_slots(tpyr.NDPConfig(motion="sflow",
+                                          rotation_format="6D")) == 3
+    assert tfi._head_slots(tpyr.NDPConfig(motion="Sim3",
+                                          rotation_format="6D")) == 10
 
 
 @pytest.mark.parametrize("motion,fmt", MOTION_FORMATS)
@@ -148,7 +164,7 @@ def test_kernel_argtypes_match_c_entry_points():
     kinds = {"void*": cuda_lib.P, "int": cuda_lib.I, "float": cuda_lib.F}
     for k in (knn.NN_DUAL, tfi.LEVEL_WARP_FWD, tfi.LEVEL_WARP_BWD,
               tfi.ADAM_STEP, tfi.LDMK_ITERATION, tfi.SCATTER_ROWS,
-              attention.FLASH_ATTENTION, attention.FLASH_ATTENTION_BWD_DKV,
+              tfi.NSFP_FWD, tfi.NSFP_BWD, attention.FLASH_ATTENTION, attention.FLASH_ATTENTION_BWD_DKV,
               attention.FLASH_ATTENTION_BWD_DQ):
         decl = re.search(r'extern "C" int ' + k.symbol + r"\(([^)]*)\)", src)
         assert decl, k.symbol
@@ -284,6 +300,43 @@ def test_run_fused_level_matches_jax():
     for k in ref:
         for kk in ref[k]:
             assert (tp[k][kk] - ref[k][kk]).abs().max() < 1e-3, (k, kk)
+
+
+@pytest.mark.parametrize("motion,fmt,iters,tol", [
+    # the quaternion and 6D formats renormalise a head output of ~mlp_scale,
+    # so their backward is conditioned by 1 / |r| ~ 1e3 and float32
+    # trajectories part after ~5 steps: the JAX tests' own short horizon
+    ("sflow", "axis_angle", 25, 1e-3), ("SE3", "quaternion", 5, 1e-2),
+    ("SE3", "6D", 5, 1e-2), ("Sim3", "quaternion", 5, 1e-2)])
+def test_run_fused_level_variants_match_jax(motion, fmt, iters, tol):
+    """A level loop for the further motions and formats: same iteration
+    count, params and warped points within ``tol``, loss within ``tol`` /
+    10 (1e-4 at the 25-iteration horizon; across two packages the
+    renormalised formats' five steps agree on the loss to ~2e-4 of 0.35,
+    in step with their parameters)."""
+    jcfg, tcfg = _cfgs(motion, fmt)
+    pts, tgt, _ = _setup(n=180, m=200, seed=8, jcfg=jcfg)
+    # the JAX test's weights: the package's own init, level 1
+    lvl = jax.tree.map(np.asarray, jpyr.level_params(
+        jpyr.init_pyramid_params(jax.random.key(8), jcfg), LEVEL))
+    lk = dict(iters=iters, lr=0.01, max_break_count=15,
+              break_threshold_ratio=0.001)
+    pv = np.ones(pts.shape[0], bool)
+    tv = np.ones(tgt.shape[0], bool)
+    jp, jw, jst = jfi.run_fused_level(
+        jax.tree.map(jnp.asarray, lvl), jnp.asarray(pts), jnp.asarray(pv),
+        jnp.asarray(tgt), jnp.asarray(tv), jnp.int32(LEVEL), jcfg,
+        JLoopConfig(**lk), interpret=True)
+    tp, tw, tst = tfi.run_fused_level(
+        tpyr.params_from_numpy(lvl), _t(pts), _t(pv), _t(tgt), _t(tv),
+        LEVEL, tcfg, LoopConfig(**lk))
+    assert int(tst["iters"]) == int(jst["iters"])
+    assert abs(float(tst["loss"]) - float(jst["loss"])) < tol / 10
+    assert np.abs(tw.numpy() - np.asarray(jw)).max() < tol
+    ref = tpyr.params_from_numpy(jax.tree.map(np.asarray, jp))
+    for k in ref:
+        for kk in ref[k]:
+            assert (tp[k][kk] - ref[k][kk]).abs().max() < tol, (k, kk)
 
 
 def test_early_stop_halts_with_host_reads_every_few_iterations():

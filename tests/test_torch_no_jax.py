@@ -19,7 +19,12 @@ from deformationpyramid_tpu_torch.metrics import flow, matching
 from deformationpyramid_tpu_torch.data import (
     collate, correspondence_utils, fourdmatch, ply, synthetic)
 from deformationpyramid_tpu_torch.cli import (
-    shape_transfer, train_matcher, train_neco)
+    eval_nolearned, shape_transfer, train_matcher, train_neco)
+from deformationpyramid_tpu_torch import losses as dp_losses
+from deformationpyramid_tpu_torch.models import baselines as model_baselines
+from deformationpyramid_tpu_torch.ops import sinkhorn
+from deformationpyramid_tpu_torch.solve import baselines as solve_baselines
+from deformationpyramid_tpu_torch.utils import reporting, timers
 from deformationpyramid_tpu_torch.train import trainer
 from deformationpyramid_tpu_torch.utils import checkpoint, config, logging
 from deformationpyramid_tpu_torch.match import (
@@ -101,6 +106,23 @@ with tempfile.TemporaryDirectory() as root:
     assert all(torch.equal(a, b) for a, b in zip(
         dp.models.pyramid.tree_leaves(back),
         dp.models.pyramid.tree_leaves(neco)))
+# the no-learned evaluation CLI on a fabricated split: NDP on the fast
+# path, NSFP fused, Nerfies and Sinkhorn
+with tempfile.TemporaryDirectory() as root:
+    synthetic.write_4dmatch_suite(root, "4DMatch-F", n_pairs=1,
+                                  size_clusters=(150,), seed=2)
+    for name, body in (
+            ("NDP", "m: 2\\nwidth: 16\\niters: 4\\nrotation_format: 6D\\n"),
+            ("NSFP", "iters: 4\\nuse_fused_iteration: true\\n"),
+            ("Nerfies", "iters: 2\\n"), ("Sinkhorn", "Nsteps: 2\\n")):
+        path = f"{root}/{name}.yaml"
+        with open(path, "w") as f:
+            f.write(f"deformation_model: {name}\\nsamples: 60\\n"
+                    f"data_root: {root}\\n" + body)
+        scores = eval_nolearned.main(
+            ["--config", path, "--splits", "4DMatch-F", "--device", "cpu",
+             "--log-dir", f"{root}/snap_{name}"])
+        assert len(scores["4DMatch-F"]["scores"]) == 12
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "deformationpyramid_tpu"
              or m.startswith("deformationpyramid_tpu."))

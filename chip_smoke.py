@@ -6,6 +6,9 @@
 Phases, each printing its own line; any failure raises, so the script exits
 non-zero and never prints the closing ``{"ok": true, ...}`` line:
 
+0. machine  the first line: the card's name, driver version, power limit and
+            compute capability (nvidia-smi), torch.version.cuda and the
+            nvcc --version line;
 1. device   the card's name and power limit (nvidia-smi); float32 matmuls
             at "highest" precision and no TF32 anywhere;
 2. build    nvcc compiles deformationpyramid_tpu_torch/csrc/*.cu for sm_90a,
@@ -26,7 +29,16 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             version in float64) and C4 at the 125 partial rows C11 hands
             it; C7 flash_attention_fwd at L = S = 2048, 4 heads
             of 132, 1500 valid source rows, and at L = 777, S = 1333 with
-            1000 and with 0 valid rows. Beside each kernel the one PyTorch
+            1000 and with 0 valid rows; C12 chamfer_fused at 2000 x 2000
+            with masks and the truncation at the median (five outputs
+            within 2e-5, the gradient within 1e-4 of its max, a repeat
+            bit-equal; beside it the time of C1 + glue + C6, the work it
+            replaces); C13 sum_partials on C3's 63 partial rows of 34,694
+            and of 34,823 (with the nonrigidity head): bit-equal to a sum in
+            block order and on a repeat, within 1e-6 of a float64 sum; C2 /
+            C3 with the nonrigidity head at levels 0 and 1 (at level 0 nr
+            is all ones and its head's gradient exactly 0). Beside each
+            kernel the one PyTorch
             call that computes the same function, where there is one
             (index_add_, the fused torch.optim.Adam step,
             scaled_dot_product_attention), timed here and used nowhere in
@@ -108,7 +120,18 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             every NDP run; C11 = C1 = C6 = C4 = C10 less one a pair (the
             full-cloud warp) for fused NSFP, within 7 a solve of its
             iterations; pairs/s, ms/iter and the score line of each;
-12. small   small solves on the card against the same solves on the CPU,
+12. optin   the solver's opt-in routes at the bench configuration on one
+            bench pair, each with its own launch counts: the unfused loop
+            (control), use_fused (C2, C3, C13 under autograd),
+            use_fused_chamfer (C12 once an iteration), both, use_fused +
+            transposed, and the fused iteration with sweep reuse 4 (C1 on
+            the exact iterations only); EPE >= 10x below the initial flow,
+            iterations in [1, cap], ms/iter and pairs/s of each; then
+            cli/eval_nolearned.py with config/NDP.yaml at w_reg 0.2 on two
+            fabricated 4DMatch-F pairs: fused (C2 / C3 with the nonrigidity
+            head), unfused and --no-fast; finite metrics below the initial
+            flow, the fused route's EPE within 2x of the unfused one's;
+13. small   small solves on the card against the same solves on the CPU,
             where every kernel's plain version runs (SE3 + axis_angle,
             Sim3 + euler, sflow, SE3 + quaternion, Sim3 + 6D, both landmark
             modes; the two renormalised formats over 5 iterations a level
@@ -126,6 +149,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -212,7 +236,8 @@ def level_bounds(n: int, cfg, n_params: int, rows: int) -> dict:
     C3 with or without them).
     """
     heads = ((0 if cfg.motion == "sflow" else cfg.rot_dim) + 3
-             + (1 if cfg.motion == "Sim3" else 0))
+             + (1 if cfg.motion == "Sim3" else 0)
+             + (1 if cfg.nonrigidity_est else 0))
     fwd = level_mlp_flops(n, cfg, heads)
     p4 = 4.0 * n_params
     adam_design = bound(6.0 * p4 + rows * p4, (rows + 12.0) * n_params)
@@ -246,6 +271,18 @@ def numpy_level_params(shapes: dict, seed: int) -> dict:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def near_ties(q, db, idx, ref_idx, what):
+    """Index flips between two 1-NN results only where the two candidates'
+    squared distances agree to 3e-4 relative."""
+    flips = idx != ref_idx
+    if bool(flips.any()):
+        dg = ((q[flips] - db[idx[flips]]) ** 2).sum(-1)
+        dr = ((q[flips] - db[ref_idx[flips]]) ** 2).sum(-1)
+        rel = float(((dg - dr).abs() / dr.clamp_min(1e-30)).max())
+        check(rel < 3e-4, f"{what}: index flip beyond a near-tie: rel {rel}")
+    return int(flips.sum())
 
 
 def kernel_phase(dp, dev):
@@ -285,12 +322,7 @@ def kernel_phase(dp, dev):
     for q, db, (d, i), (rd, ri) in ((warped, y, got[:2], ref[:2]),
                                     (y, warped, got[2:], ref[2:])):
         err = max(err, float((d - rd).abs().max()))
-        flips = i != ri
-        if bool(flips.any()):
-            dg = ((q[flips] - db[i[flips]]) ** 2).sum(-1)
-            dr = ((q[flips] - db[ri[flips]]) ** 2).sum(-1)
-            rel = float(((dg - dr).abs() / dr.clamp_min(1e-30)).max())
-            check(rel < 3e-4, f"C1 index flip beyond a near-tie: rel {rel}")
+        near_ties(q, db, i, ri, "C1")
     check(err <= 1e-5, f"C1 nn_dual distance err {err} > 1e-5")
     results["nn_dual"] = dict(
         err=err,
@@ -1407,7 +1439,6 @@ def train_phase(dp, dev, kernels):
     the matcher, compare the two attention routes on one step, train NeCo on
     the frozen matcher, and serve from the combined checkpoint: all at full
     width."""
-    import shutil
     from deformationpyramid_tpu_torch.cli.train_matcher import \
         make_matcher_batch_stream
     from deformationpyramid_tpu_torch.cli.train_neco import make_batch_stream
@@ -1684,8 +1715,6 @@ def nolearned_phase(dp, dev, kernels):
     pairs of write_4dmatch_suite's default stream) and 4DLoMatch-F (2
     pairs, partial 0.40, seed 1), through ``eval_nolearned.main`` and its
     argument parser, at the yaml files' widths."""
-    import shutil
-
     from deformationpyramid_tpu_torch.cli import eval_nolearned as ev
     from deformationpyramid_tpu_torch.data.fourdmatch import \
         FourDMatchDataset
@@ -1920,6 +1949,331 @@ def nolearned_phase(dp, dev, kernels):
     return dict(out, initial_epe_cm=init_epe, sizes=sizes)
 
 
+OPTIN_TOL = 2e-5
+
+
+def optin_kernel_phase(dp, dev):
+    """The kernels of the solver's opt-in routes at the bench shapes
+    (2000 points, width 128, depth 3, a mid level) against their plain
+    versions: C12 chamfer_fused with masks and truncation, C13
+    sum_partials on C3's partial rows (with and without the nonrigidity
+    head), and C2 / C3 with the nonrigidity head at levels 0 and 1."""
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.models import pyramid
+    from deformationpyramid_tpu_torch.ops import chamfer_fused as cf
+    from deformationpyramid_tpu_torch.ops import fused_iteration as fi
+    from deformationpyramid_tpu_torch.ops import knn
+
+    n = 2000
+    cfg = pyramid.NDPConfig(**BENCH_PYRAMID)
+    src, tgt, flow = make_pair(n=n, seed=0, deform=0.12)
+    x = torch.from_numpy(src - src.mean(0)).to(dev)
+    y = torch.from_numpy(tgt - tgt.mean(0)).to(dev)
+    flat = pyramid.ravel(pyramid.params_from_numpy(
+        numpy_level_params(pyramid.level_shapes(cfg), seed=0),
+        device=dev)).contiguous()
+    warped = fi.level_warp_fwd(flat, x, MID_LEVEL, cfg)
+    rng = np.random.default_rng(5)
+    xv = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+    yv = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+    res = {}
+
+    # C12: the truncation at the median squared distance of the valid rows,
+    # so that half the rows and about half the columns are cut
+    rmin0 = cf.chamfer_fused_plain(warped, y, xv, yv, 1e9)[2]
+    trunc = float(rmin0[xv].median())
+    got = cf.chamfer_fused(warped, y, xv, yv, trunc)
+    ref = cf.chamfer_fused_plain(warped, y, xv, yv, trunc)
+    again = cf.chamfer_fused(warped, y, xv, yv, trunc)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "C12 does not repeat bit for bit")
+    (sums, cgrad, rmin, rarg), (rsums, rcgrad, rrmin, rrarg) = got, ref
+    e_sums = float(((sums - rsums).abs() / rsums.abs()).max())
+    e_cgrad = float((cgrad - rcgrad).abs().max() / rcgrad.abs().max())
+    e_rmin = float((rmin - rrmin)[xv].abs().max())
+    flips = near_ties(warped[xv], y, rarg[xv], rrarg[xv], "C12 rarg")
+    check(e_sums <= OPTIN_TOL and e_cgrad <= OPTIN_TOL
+          and e_rmin <= OPTIN_TOL,
+          f"C12: sums {e_sums}, cgrad {e_cgrad} (relative), rmin {e_rmin} "
+          f"> {OPTIN_TOL}")
+    kept = float((rmin[xv] < trunc).float().mean())
+    wq = warped.clone().requires_grad_(True)
+    cf.chamfer_l1_fused(wq, y, xv, yv, trunc=trunc).backward()
+    wc = warped.cpu().requires_grad_(True)
+    cf.chamfer_l1_fused(wc, y.cpu(), xv.cpu(), yv.cpu(),
+                        trunc=trunc).backward()
+    e_grad = float((wq.grad.cpu() - wc.grad).abs().max()
+                   / wc.grad.abs().max())
+    check(e_grad <= 1e-4, f"C12 gradient {e_grad} of max|g| > 1e-4")
+    n_len = xv.sum().float()
+    m_len = yv.sum().float()
+
+    def replaced():
+        # the work C12 replaces: C1, the glue and its C6 scatter
+        _, cidx, _, ra = knn.nn_argmin_dual(warped, y, xv, yv)
+        return fi._chamfer_glue(warped, cidx, ra, y, xv, yv, n_len, m_len,
+                                trunc)
+
+    res["chamfer_fused"] = dict(
+        err=max(float((sums - rsums).abs().max()),
+                float((cgrad - rcgrad).abs().max()), e_rmin),
+        ms=cuda_ms(lambda: cf.chamfer_fused(warped, y, xv, yv, trunc)),
+        plain_ms=cuda_ms(lambda: cf.chamfer_fused_plain(warped, y, xv, yv,
+                                                        trunc)),
+        library_ms=None, c1_glue_c6_ms=cuda_ms(replaced),
+        # 8 flops a pair of points; inputs, masks and outputs once
+        **bound(n * (12 + 1 + 4 + 8 + 12) + n * (12 + 1) + 8,
+                8.0 * n * n),
+        tol=f"sums and cgrad {OPTIN_TOL} of their max, rmin {OPTIN_TOL} abs, "
+        f"rarg equal up to near-ties ({flips} flips), the gradient 1e-4 of "
+        f"its max ({e_grad:.2e}); a repeat bit-equal")
+    print_kernel(f"chamfer_fused [{n} x {n}, masks, trunc {trunc:.3e}: "
+                 f"{100 * kept:.0f}% of rows kept]", res["chamfer_fused"])
+    phase("kernels", f"chamfer_fused replaces C1 + glue + C6: "
+          f"{res['chamfer_fused']['c1_glue_c6_ms']:.4f} ms")
+
+    # C13 on C3's partial rows: the block-order sum, a repeat, float64
+    n_len = torch.tensor(float(n), device=dev)
+    _, cidx, _, ra = knn.nn_argmin_dual(warped, y)
+    _, g = fi._chamfer_glue(warped, cidx, ra, y, torch.ones_like(xv),
+                            torch.ones_like(yv), n_len, n_len, 1e9)
+    cfg_nr = pyramid.NDPConfig(**BENCH_PYRAMID, nonrigidity_est=True)
+    shapes_nr = pyramid.level_shapes(cfg_nr)
+    flat_nr = pyramid.ravel(pyramid.params_from_numpy(
+        numpy_level_params(shapes_nr, seed=21), device=dev)).contiguous()
+    check(flat_nr.numel() == fi.level_param_count(cfg_nr),
+          f"nonrigid flat level has {flat_nr.numel()} values")
+    g_nr = (torch.from_numpy(rng.standard_normal(n)) * 1e-2).float().to(dev)
+    sum_res = {}
+    for tag, f_, c_, gn in (("", flat, cfg, None),
+                            (" with the nonrigidity head", flat_nr, cfg_nr,
+                             g_nr)):
+        partials = fi.level_warp_bwd(f_, x, g, MID_LEVEL, c_, gn)
+        got_s = fi.sum_partials(partials)
+        again_s = fi.sum_partials(partials)
+        order = partials[0].clone()
+        for b in range(1, partials.shape[0]):
+            order = order + partials[b]
+        f64 = partials.double().sum(0)
+        torch.cuda.synchronize()
+        check(torch.equal(got_s, order), f"C13{tag}: not the block-order sum")
+        check(torch.equal(got_s, again_s), f"C13{tag}: no bit-equal repeat")
+        e64 = float((got_s.double() - f64).abs().max() / f64.abs().max())
+        check(e64 <= 1e-6, f"C13{tag}: {e64} of max off the float64 sum")
+        p4 = 4.0 * partials.numel()
+        sum_res[tag] = dict(
+            err=float((got_s.double() - f64).abs().max()),
+            ms=cuda_ms(lambda: fi.sum_partials(partials)),
+            plain_ms=cuda_ms(lambda: partials.sum(0)),
+            # one call of the library computes it: partials.sum(0)
+            library_ms=None, rows=partials.shape[0],
+            params=partials.shape[1],
+            **bound(p4 + 4.0 * partials.shape[1], float(partials.numel())),
+            tol=f"bit-equal to the block-order sum and on a repeat; "
+            f"{e64:.2e} of max off the float64 sum (<= 1e-6)")
+        sum_res[tag]["library_ms"] = sum_res[tag]["plain_ms"]
+        print_kernel(f"sum_partials [{partials.shape[0]} partial rows of "
+                     f"{partials.shape[1]}{tag}]", sum_res[tag])
+    res["sum_partials"] = dict(sum_res[""], nonrigid=sum_res[
+        " with the nonrigidity head"])
+
+    # C2 / C3 with the nonrigidity head, levels 0 (ungated, nr = 1, its
+    # parameters get exactly zero gradient) and 1 (gated)
+    nr_res = {}
+    for level in (0, 1):
+        w_, nr_ = fi.level_warp_fwd_nr(flat_nr, x, level, cfg_nr)
+        rw, rnr = fi._plain_warp_nr(flat_nr, x, level, cfg_nr)
+        part = fi.level_warp_bwd(flat_nr, x, g, level, cfg_nr, g_nr).sum(0)
+        ref_g = fi.level_warp_bwd_plain(flat_nr, x, g, level, cfg_nr,
+                                        g_nr)[0]
+        torch.cuda.synchronize()
+        err = max(float((w_ - rw).abs().max()), float((nr_ - rnr).abs().max()))
+        check(err <= FWD_TOL, f"C2 nonrigid level {level}: err {err}")
+        worst = rel_grad_err(part, ref_g, shapes_nr,
+                             f"C3 nonrigid level {level}")
+        nr_grad = pyramid.unravel(part, shapes_nr)["nr"]
+        if level == 0:
+            check(bool(nr_.eq(1.0).all()),
+                  "C2 nonrigid level 0: nr is not all ones")
+            check(not bool(nr_grad["w"].any() or nr_grad["b"].any()),
+                  "C3 nonrigid level 0: the head got a gradient")
+        r = {"level_warp_fwd": dict(err=err, tol=f"max abs {FWD_TOL}"),
+             "level_warp_bwd": dict(
+                 err=float((part - ref_g).abs().max()),
+                 tol=f"1e-4 of each tensor's max|g| (worst {worst:.2e})")}
+        if level == 1:
+            r["level_warp_fwd"].update(
+                ms=cuda_ms(lambda: fi.level_warp_fwd_nr(flat_nr, x, 1,
+                                                        cfg_nr)),
+                plain_ms=cuda_ms(lambda: fi._plain_warp_nr(flat_nr, x, 1,
+                                                           cfg_nr)),
+                library_ms=None)
+            r["level_warp_bwd"].update(
+                ms=cuda_ms(lambda: fi.level_warp_bwd(flat_nr, x, g, 1,
+                                                     cfg_nr, g_nr)),
+                plain_ms=cuda_ms(lambda: fi.level_warp_bwd_plain(
+                    flat_nr, x, g, 1, cfg_nr, g_nr)), library_ms=None)
+            for name, b in level_bounds(n, cfg_nr, flat_nr.numel(),
+                                        -(-n // fi.BWD_TILE)).items():
+                if name in r:
+                    r[name].update(b)
+            for name in r:
+                print_kernel(f"{name} [nonrigid, level 1]", r[name])
+        else:
+            phase("kernels", f"C2 / C3 [nonrigid, level 0]: forward err "
+                  f"{err:.3e}, nr all ones, gradient worst {worst:.2e} of "
+                  f"max|g|, the nonrigidity head's gradient exactly 0")
+        nr_res[level] = r
+    res["nonrigid"] = nr_res
+    return res
+
+
+OPTIN_ROUTES = (
+    ("plain", {}),
+    ("use_fused", dict(use_fused=True)),
+    ("use_fused_chamfer", dict(use_fused_chamfer=True)),
+    ("use_fused + use_fused_chamfer", dict(use_fused=True,
+                                           use_fused_chamfer=True)),
+    ("use_fused + transposed", dict(use_fused=True, transposed=True)),
+    ("fused iteration, sweep reuse 4", dict(use_fused_iteration=True,
+                                            sweep_reuse=4)),
+)
+
+
+def optin_phase(dp, dev, kernels):
+    """The solver's opt-in routes on a bench pair (make_batch(2, n=2000,
+    seed=100, deform=0.12), pair 1; the bench configuration), each with the
+    launch counts set to 0 before and read after; then the evaluation CLI
+    with the nonrigidity head (config/NDP.yaml at w_reg 0.2) on two
+    fabricated 4DMatch-F pairs: the fused iteration (C2 / C3 with the
+    head), the unfused loop and --no-fast."""
+    from deformationpyramid_tpu_torch.cli import eval_nolearned as ev
+    from deformationpyramid_tpu_torch.data.fourdmatch import \
+        FourDMatchDataset
+    from deformationpyramid_tpu_torch.data.synthetic import (
+        make_batch, write_4dmatch_suite)
+
+    srcs, tgts, flows = make_batch(2, n=2000, seed=100, deform=0.12)
+    s, t, f = (torch.from_numpy(a[1]).to(dev) for a in (srcs, tgts, flows))
+    out = {}
+    cap = BENCH_SOLVER["iters"]
+    levels = BENCH_PYRAMID["m"]
+    for tag, opts in OPTIN_ROUTES:
+        cfg = dp.SolverConfig(pyramid=dp.NDPConfig(**BENCH_PYRAMID),
+                              **BENCH_SOLVER, **opts)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        warped, stats = dp.register_pair(1, s, t, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        la = {k.name: k.launches for k in kernels}
+        epe, init, it = solve_checks(tag, warped, s, f, stats, cap)
+        iters = sum(it)
+        # an iteration that starts halted still launches (the host reads
+        # the stop flag every 8): up to 7 a level beyond the iterations
+        extra = 7 * levels
+
+        def within(name, lo=iters):
+            check(lo <= la[name] <= lo + extra,
+                  f"optin {tag}: {la[name]} launches of {name} for {iters} "
+                  f"iterations")
+
+        fused_warp = opts.get("use_fused", False)
+        if "sweep_reuse" in opts:
+            check(0 < la["nn_dual"] < la["level_warp_fwd"]
+                  and la["level_warp_fwd"] == la["level_warp_bwd"]
+                  == la["adam_step"] and la["chamfer_fused"] == 0,
+                  f"optin {tag}: launches {la}")
+            # one exact sweep a super-iteration of 4
+            check(la["nn_dual"] <= iters + extra, f"optin {tag}: {la}")
+        else:
+            check(la["ldmk_iteration"] == 0, f"optin {tag}: {la}")
+            if opts.get("use_fused_chamfer"):
+                within("chamfer_fused")
+                check(la["nn_dual"] == 0, f"optin {tag}: C1 launched {la}")
+            else:
+                within("nn_dual")
+                check(la["chamfer_fused"] == 0, f"optin {tag}: {la}")
+            if fused_warp:
+                within("level_warp_fwd")
+                check(la["level_warp_bwd"] == la["sum_partials"]
+                      == la["level_warp_fwd"], f"optin {tag}: C3 {la}")
+            else:
+                check(la["level_warp_fwd"] == la["level_warp_bwd"]
+                      == la["sum_partials"] == 0, f"optin {tag}: {la}")
+        out[tag] = dict(epe=epe, initial=init, iterations=it, seconds=dt,
+                        ms_per_iter=dt * 1e3 / iters, pairs_per_s=1.0 / dt,
+                        launches={k: v for k, v in la.items() if v})
+        phase("optin", f"{tag}: EPE {epe:.5f} (initial {init:.5f}), "
+              f"{iters} iterations {it}, {dt * 1e3 / iters:.4f} ms/iter, "
+              f"{1.0 / dt:.4f} pairs/s, launches {out[tag]['launches']}")
+
+    # the nonrigidity head through the evaluation CLI
+    work = REPO / "build" / "chip_smoke" / "optin"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "split"
+    write_4dmatch_suite(str(root), "4DMatch-F", n_pairs=2)
+    base = (REPO / "config/NDP.yaml").read_text()
+    check("w_reg: &w_reg 0.0" in base, "config/NDP.yaml has no w_reg line")
+    text = base.replace("w_reg: &w_reg 0.0", "w_reg: &w_reg 0.2")
+    runs = {}
+    for tag, append, extra in (
+            ("w_reg 0.2 fused", "", []),
+            ("w_reg 0.2 unfused", "use_fused_iteration: false\n", []),
+            ("w_reg 0.2 --no-fast", "", ["--no-fast"])):
+        path = work / f"{tag.replace(' ', '_')}.yaml"
+        path.write_text(text + append)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        report = ev.main(["--config", str(path), "--data-root", str(root),
+                          "--device", "cuda", "--splits", "4DMatch-F",
+                          "--log-dir", str(work / tag.replace(" ", "_")),
+                          *extra])["4DMatch-F"]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        la = {k.name: k.launches for k in kernels}
+        iters = sum(sum(v) for v in report["iters"].values())
+        epe = report["scores"]["full-epe"]
+        check(all(np.isfinite(v) for v in report["scores"].values()),
+              f"optin {tag}: scores {report['scores']}")
+        if "unfused" in tag:
+            check(la["level_warp_fwd"] == 0 and la["nn_dual"] > 0,
+                  f"optin {tag}: launches {la}")
+        else:
+            check(la["level_warp_fwd"] == la["level_warp_bwd"]
+                  == la["adam_step"] >= iters > 0,
+                  f"optin {tag}: launches {la}")
+        runs[tag] = dict(epe_cm=epe, iterations=iters, seconds=dt,
+                         pairs_per_s=report["pairs"] / dt,
+                         ms_per_iter=dt * 1e3 / iters,
+                         iters=list(report["iters"].values()))
+        phase("optin", f"eval_nolearned {tag}: full-epe {epe:.4f} cm, "
+              f"{iters} iterations {runs[tag]['iters']}, "
+              f"{runs[tag]['ms_per_iter']:.4f} ms/iter, "
+              f"{runs[tag]['pairs_per_s']:.4f} pairs/s")
+    ds = FourDMatchDataset(str(root), "4DMatch-F")
+    init = float(np.mean([100.0 * np.linalg.norm(ds[i].flow_gt,
+                                                 axis=-1).mean()
+                          for i in range(len(ds))]))
+    for tag, r in runs.items():
+        check(r["epe_cm"] < init, f"optin {tag}: full-epe {r['epe_cm']} not "
+              f"below the initial flow's {init}")
+    fused, unfused = runs["w_reg 0.2 fused"], runs["w_reg 0.2 unfused"]
+    check(fused["epe_cm"] <= 2.0 * unfused["epe_cm"],
+          f"optin: w_reg 0.2 fused full-epe {fused['epe_cm']} against "
+          f"unfused {unfused['epe_cm']}")
+    phase("optin", f"w_reg 0.2: initial flow {init:.3f} cm; fused "
+          f"{fused['epe_cm']:.4f} cm within 2x of unfused "
+          f"{unfused['epe_cm']:.4f} cm")
+    out["eval_w_reg"] = dict(runs, initial_cm=init)
+    return out
+
+
 def small_landmark_phase(dev):
     """A narrow landmark model on the card (C7 at head width 24) against the
     same model on the CPU (C7's plain version)."""
@@ -1976,14 +2330,34 @@ def small_landmark_phase(dev):
           f"{int(outs['cpu']['match_valid'].sum())} on the CPU")
 
 
+def machine_line() -> str:
+    """The card, its driver, power limit and compute capability, the CUDA
+    of PyTorch and of nvcc: what ties a failing run to its machine."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,driver_version,power.limit,"
+         "compute_cap", "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    try:
+        ver = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+        ver = ver.splitlines()[-1] if ver else "no output"
+    except OSError as exc:
+        ver = f"not run ({exc})"
+    return (f"machine: {smi}; torch.version.cuda {torch.version.cuda}; "
+            f"nvcc {ver}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; the port's main path "
                            "runs only on a GPU")
+    print(machine_line(), flush=True)
     sys.path.insert(0, str(REPO))
     import deformationpyramid_tpu_torch as dp
     from deformationpyramid_tpu_torch.match import attention
-    from deformationpyramid_tpu_torch.ops import cuda_lib, fused_iteration, knn
+    from deformationpyramid_tpu_torch.ops import (chamfer_fused, cuda_lib,
+                                                  fused_iteration, knn)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2009,7 +2383,8 @@ def main() -> None:
                fused_iteration.ADAM_STEP, fused_iteration.LDMK_ITERATION,
                attention.FLASH_ATTENTION, attention.FLASH_ATTENTION_BWD_DKV,
                attention.FLASH_ATTENTION_BWD_DQ, fused_iteration.NSFP_FWD,
-               fused_iteration.NSFP_BWD]
+               fused_iteration.NSFP_BWD, chamfer_fused.CHAMFER_FUSED,
+               fused_iteration.SUM_PARTIALS]
     measured = kernel_phase(dp, dev)
     sim3 = sim3_kernel_phase(dp, dev)
     formats = format_kernel_phase(dp, dev)
@@ -2020,6 +2395,9 @@ def main() -> None:
     measured.update(flash_kernel_phase(dev))
     nsfp_k = nsfp_kernel_phase(dp, dev)
     measured.update({k: nsfp_k[k] for k in ("nsfp_fwd", "nsfp_bwd")})
+    optin_k = optin_kernel_phase(dp, dev)
+    measured.update({k: optin_k[k] for k in ("chamfer_fused",
+                                             "sum_partials")})
 
     fused = slice_phase(dp, dev, kernels, fused=True, n_pairs=3)
     for name in CHAMFER_KERNELS:
@@ -2069,6 +2447,11 @@ def main() -> None:
           f"{nolearned['Nerfies']['ms_per_iter']:.4f} ms/iter; Sinkhorn "
           f"{nolearned['Sinkhorn']['seconds']:.3f} s a pair; {smi}")
 
+    optin = optin_phase(dp, dev, kernels)
+    phase("optin", "ms/iter: " + ", ".join(
+        f"{tag} {r['ms_per_iter']:.4f}" for tag, r in optin.items()
+        if "ms_per_iter" in r) + f"; {smi}")
+
     small_phase(dp, dev)
     small_landmark_phase(dev)
 
@@ -2092,7 +2475,19 @@ def main() -> None:
                                           "match/attention.py:70"),
                # kernels 1 and 2 with model="nsfp"
                "nsfp_fwd": ("csrc/nsfp.cu", "ops/fused_iteration.py:139"),
-               "nsfp_bwd": ("csrc/nsfp.cu", "ops/fused_iteration.py:439")}
+               "nsfp_bwd": ("csrc/nsfp.cu", "ops/fused_iteration.py:439"),
+               "chamfer_fused": ("csrc/chamfer_fused.cu",
+                                 "ops/chamfer_fused.py:53"),
+               # the cross-tile accumulation of the standalone VJP
+               "sum_partials": ("csrc/adam.cu", "ops/fused_level.py:108")}
+    # the TPU kernels a kernel replaces beyond its "replaces" entry
+    also = {"nn_dual": ["ops/knn.py:166", "ops/knn.py:236", "ops/knn.py:306"],
+            "level_warp_fwd": ["ops/fused_level.py:99",
+                               "ops/fused_level.py:440",
+                               "ops/fused_iteration.py:319"],
+            "level_warp_bwd": ["ops/fused_level.py:108",
+                               "ops/fused_level.py:447"],
+            "sum_partials": ["ops/fused_level.py:447"]}
     # each kernel's count from the path that is its own: the fused bench,
     # the landmark solve (C5), the lndp path (C7), the matcher's training
     # (C8, C9; C7's count there stands in the train block), the fused NSFP
@@ -2104,7 +2499,9 @@ def main() -> None:
         ldmk_iteration=landmark["C5"]["launches"]["ldmk_iteration"],
         flash_attention_fwd=lndp["launches"]["flash_attention_fwd"],
         flash_attention_bwd_dkv=train["launches"]["flash_attention_bwd_dkv"],
-        flash_attention_bwd_dq=train["launches"]["flash_attention_bwd_dq"])
+        flash_attention_bwd_dq=train["launches"]["flash_attention_bwd_dq"],
+        chamfer_fused=optin["use_fused_chamfer"]["launches"]["chamfer_fused"],
+        sum_partials=optin["use_fused"]["launches"]["sum_partials"])
     rows = []
     for k in kernels:
         row = {"name": k.name, "route": "cuda",
@@ -2119,6 +2516,15 @@ def main() -> None:
                "library_ms": measured[k.name]["library_ms"]}
         if "design_bound_ms" in measured[k.name]:
             row["design_bound_ms"] = measured[k.name]["design_bound_ms"]
+        if k.name in also:
+            row["also_replaces"] = [f"deformationpyramid_tpu/{r}"
+                                    for r in also[k.name]]
+        if k.name in ("level_warp_fwd", "level_warp_bwd"):
+            row["nonrigid_level_1"] = optin_k["nonrigid"][1][k.name]
+        if k.name == "chamfer_fused":
+            row["c1_glue_c6_ms"] = measured[k.name]["c1_glue_c6_ms"]
+        if k.name == "sum_partials":
+            row["nonrigid"] = measured[k.name]["nonrigid"]
         if k.name in sim3:
             row["sim3_euler"] = {key: sim3[k.name][key]
                                  for key in ("err", "ms", "plain_ms",
@@ -2156,7 +2562,8 @@ def main() -> None:
                  if k != "flash_at_path_shape"},
         "train": {k: v for k, v in train.items()
                   if k != "at_path_shape"},
-        "nolearned": nolearned}), flush=True)
+        "nolearned": nolearned,
+        "optin": optin}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

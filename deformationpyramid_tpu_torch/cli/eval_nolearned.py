@@ -77,8 +77,11 @@ def _fused_iter_explicit(cfg: AttrDict) -> bool | None:
 def _fused_iter_default(cfg: AttrDict, device: torch.device) -> bool | None:
     """The fused-iteration kernels for the NDP sweep: yaml key >
     ``DP_FUSED_ITER`` > on when the device is CUDA. The per-configuration
-    gate (``supports_fused_iteration``) still decides per solve; ``w_reg >
-    0`` and depth < 2 take the unfused loop."""
+    gate (``supports_fused_iteration``) still decides per solve: ``w_reg >
+    0`` runs the kernels with the nonrigidity head (``nonrigidity_est``
+    follows ``w_reg``), depth < 2 the unfused loop. ``DP_SWEEP_REUSE``,
+    ``DP_SWEEP_REUSE_C`` and ``DP_SWEEP_REUSE_DRIFT`` reach the fused
+    level loop from the environment, as in the JAX package."""
     explicit = _fused_iter_explicit(cfg)
     if explicit is not None:
         return explicit

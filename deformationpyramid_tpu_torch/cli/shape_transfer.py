@@ -8,6 +8,8 @@ area-weighted surface sampling are ``data/ply.py``.
 Usage:
   python -m deformationpyramid_tpu_torch.cli.shape_transfer -s src.ply \
       -t tgt.ply [-o out.ply] [--samples N] [--device cuda|cpu]
+
+Runs on the card (``--device cuda``) unless the CPU is asked for.
 """
 from __future__ import annotations
 
@@ -32,21 +34,20 @@ DEMO_CFG = SolverConfig(
 
 
 def register_meshes(src_pts, tgt_pts, vertices, cfg: SolverConfig = DEMO_CFG,
-                    seed: int = 0, device: torch.device | str | None = None,
+                    seed: int = 0, device: torch.device | str = "cuda",
                     params: dict | None = None):
     """Fit the pyramid on sampled surface points, warp arbitrary vertices.
 
     Mirrors the reference flow (``shape_transfer.py:104-168``): mean-centre,
     optimize every level on all the samples (no subsampling in the demo),
     then warp the mesh vertices through all fitted levels and translate
-    them into the target frame. ``device`` defaults to the GPU when there is
-    one; the fused iteration (kernels C1-C4, Sim3 + euler) is on by default
+    them into the target frame. ``device`` defaults to ``cuda``, the
+    port's entry points run on the card unless the caller asks for the CPU;
+    the fused iteration (kernels C1-C4, Sim3 + euler) is on by default
     there. ``params`` (stacked, as ``init_pyramid_params`` makes them)
     replace the initial weights drawn from ``seed``. Returns (warped
     vertices [V, 3], stats {"iters": [m], "loss": [m]}).
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
     if cfg.use_fused_iteration is None:
         cfg = dataclasses.replace(cfg,
@@ -75,8 +76,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("-t", required=True, help="Path to the tgt mesh (.ply)")
     ap.add_argument("-o", default=None, help="Output warped mesh path")
     ap.add_argument("--samples", type=int, default=DEMO_CFG.samples)
-    ap.add_argument("--device", default=None,
-                    help="cuda or cpu (default: cuda when available)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the solve (default cuda)")
     args = ap.parse_args(argv)
 
     src_mesh = load_ply(args.s)

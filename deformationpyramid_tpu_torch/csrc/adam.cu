@@ -1,6 +1,7 @@
 // C4 adam_step: sum of the per-block partial gradients from C3 and one
 // optax-exact Adam step on the flat parameter vector, held while the
-// solver's early-stop flag is set.
+// solver's early-stop flag is set. C13 sum_partials: the same ordered sum
+// alone, for the standalone level-warp VJP (ops/fused_level.py).
 //
 // Replaces the Adam half of the JAX package's kernel 2
 // (ops/fused_iteration.py _bwd_adam_kernel, the last-grid-step update).
@@ -34,6 +35,35 @@ __global__ void adam_step_kernel(float* __restrict__ p, float* __restrict__ m,
   float g = 0.f;
   for (int b = 0; b < n_blocks; ++b) g += partial[(size_t)b * count + i];
   adam_update(p + i, m + i, v + i, g, *applied + 1.f, lr, b1, b2, c1, c2, eps);
+}
+
+// C13 sum_partials: out[i] = sum over b of partial[b][i], in block order.
+//
+// Replaces the cross-tile accumulation of the JAX package's standalone
+// level-warp VJP (ops/fused_level.py _bwd_kernel / _bwd_kernel_t: each
+// grid step adds its tile's gradients into the resident output blocks).
+// Blocks on Hopper run in no order, so C3 writes one partial row a block
+// and this kernel sums the rows as C4 does, one thread a parameter, in the
+// same order, so the gradient repeats bit for bit and equals C4's. What
+// bounds it: bytes, n_blocks x count x 4 read once, coalesced.
+__global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                    int n_blocks, int count,
+                                    float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float g = 0.f;
+  for (int b = 0; b < n_blocks; ++b) g += partial[(size_t)b * count + i];
+  out[i] = g;
+}
+
+extern "C" int dp_sum_partials(const void* partial, int n_blocks, int count,
+                               void* out, void* stream) {
+  if (count > 0) {
+    const int blocks = (count + ADAM_THREADS - 1) / ADAM_THREADS;
+    sum_partials_kernel<<<blocks, ADAM_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)partial, n_blocks, count, (float*)out);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int dp_adam_step(void* p, void* m, void* v, const void* partial,

@@ -17,6 +17,7 @@ enum DpRotFmt { DP_AXIS_ANGLE = 0, DP_EULER = 1, DP_QUATERNION = 2, DP_SIXD = 3 
 // solver optimizes. The order is that of a flattened parameter dict with
 // sorted keys (JAX's ravel_pytree, which the JAX solver's Adam loop uses):
 //   hidden.b [d-1, w], hidden.w [d-1, w, w], input.b [w], input.w [6, w],
+//   nr.b [1], nr.w [w, 1] (the nonrigidity head, nonrigidity_est only),
 //   rot.b [rd], rot.w [w, rd] (not for sflow), scale.b [1], scale.w [w, 1]
 //   (Sim3 only), trn.b [3], trn.w [w, 3]
 // with every weight stored [in, out], row-major; rd is the rotation head's
@@ -24,11 +25,12 @@ enum DpRotFmt { DP_AXIS_ANGLE = 0, DP_EULER = 1, DP_QUATERNION = 2, DP_SIXD = 3 
 // for sflow, which has a translation head only).
 //
 // The heads' outputs of one point sit in `hs` consecutive floats:
-// [0, rd) the rotation head, [rd, rd + 3) the translation head, and for
-// Sim3 the scale head at rd + 3.
+// [0, rd) the rotation head, [rd, rd + 3) the translation head, for Sim3
+// the scale head at rd + 3, and last (hs - 1) the nonrigidity head's
+// pre-activation where the layout has one.
 struct LevelLayout {
   int w, depth, rd, hs;
-  int hb, hw, ib, iw, rb, rw, sb, sw, tb, tw, total;
+  int hb, hw, ib, iw, nb, nw, rb, rw, sb, sw, tb, tw, total;
 };
 
 __host__ __device__ constexpr int rot_dim(int fmt) {
@@ -43,12 +45,13 @@ __host__ __device__ constexpr int head_rot_dim(int motion, int fmt) {
   return motion == DP_SFLOW ? 0 : rot_dim(fmt);
 }
 
-// Head outputs per point for a motion and format, known at compile time so
-// that the per-point head arrays stay in registers.
-template <int MOTION, int FMT>
+// Head outputs per point for a motion and format (and the nonrigidity head
+// when NR), known at compile time so that the per-point head arrays stay
+// in registers.
+template <int MOTION, int FMT, bool NR = false>
 struct HeadCount {
   static constexpr int value =
-      head_rot_dim(MOTION, FMT) + 3 + (MOTION == DP_SIM3 ? 1 : 0);
+      head_rot_dim(MOTION, FMT) + 3 + (MOTION == DP_SIM3 ? 1 : 0) + (NR ? 1 : 0);
 };
 
 // Calls f(motion, fmt) with both as std::integral_constant, for the nine
@@ -81,8 +84,8 @@ __host__ inline cudaError_t dispatch_layout(int motion, int fmt, F f) {
   return cudaErrorInvalidValue;
 }
 
-__host__ __device__ __forceinline__ LevelLayout level_layout(int w, int depth,
-                                                   int motion, int fmt) {
+__host__ __device__ __forceinline__ LevelLayout level_layout(
+    int w, int depth, int motion, int fmt, bool nonrigid = false) {
   LevelLayout L;
   const int nh = depth - 1;
   L.w = w;
@@ -92,7 +95,14 @@ __host__ __device__ __forceinline__ LevelLayout level_layout(int w, int depth,
   L.hw = L.hb + nh * w;
   L.ib = L.hw + nh * w * w;
   L.iw = L.ib + w;
-  L.rb = L.iw + 6 * w;   // empty for sflow (rd = 0)
+  int after_input = L.iw + 6 * w;
+  L.nb = L.nw = -1;
+  if (nonrigid) {
+    L.nb = after_input;
+    L.nw = L.nb + 1;
+    after_input = L.nw + w;
+  }
+  L.rb = after_input;    // empty for sflow (rd = 0)
   L.rw = L.rb + L.rd;
   int next = L.rw + L.rd * w;
   L.sb = L.sw = -1;
@@ -104,7 +114,7 @@ __host__ __device__ __forceinline__ LevelLayout level_layout(int w, int depth,
   L.tb = next;
   L.tw = L.tb + 3;
   L.total = L.tw + 3 * w;
-  L.hs = L.rd + 3 + (motion == DP_SIM3 ? 1 : 0);
+  L.hs = L.rd + 3 + (motion == DP_SIM3 ? 1 : 0) + (nonrigid ? 1 : 0);
   return L;
 }
 
@@ -131,9 +141,13 @@ __device__ __forceinline__ HeadSlot head_slot(const LevelLayout& L, int o) {
     s.b = L.tb + (o - L.rd);
     s.w = L.tw + (o - L.rd);
     s.ncol = 3;
-  } else {
+  } else if (L.sb >= 0 && o == L.rd + 3) {
     s.b = L.sb;
     s.w = L.sw;
+    s.ncol = 1;
+  } else {   // the nonrigidity head, the last slot
+    s.b = L.nb;
+    s.w = L.nw;
     s.ncol = 1;
   }
   return s;
@@ -447,6 +461,12 @@ __device__ __forceinline__ void motion_vjp(const float* head, const float* x,
   } else {
     rot_vjp<FMT>(head, x, g, ghead);
   }
+}
+
+// The nonrigidity head: nr = sigmoid(z) of its (mlp-scaled) pre-activation,
+// as torch.sigmoid and jax.nn.sigmoid compute it.
+__device__ __forceinline__ float sigmoid_f(float z) {
+  return 1.f / (1.f + expf(-z));
 }
 
 // ---------------------------------------------------------------------------

@@ -11,12 +11,14 @@
 
 #include "common.cuh"
 
-// Shared memory of the backward tile, in floats: xs, fea, head, gs, gh
-// (hs head outputs a point: 3 for sflow up to 10 for Sim3 + 6D) and the
+// Shared memory of the backward tile, in floats: xs, fea, head, gs, with
+// the nonrigidity head gnr (its cotangent), gh (hs head outputs a point: 3
+// for sflow up to 11 for Sim3 + 6D with the nonrigidity head) and the
 // activations of every layer plus two gradient buffers.
-__host__ inline size_t bwd_tile_floats(int tp, int width, int depth,
-                                       int hs) {
-  return (size_t)tp * (3 + 6 + hs + 3 + hs) + (size_t)(depth + 2) * tp * width;
+__host__ inline size_t bwd_tile_floats(int tp, int width, int depth, int hs,
+                                       bool nonrigid = false) {
+  return (size_t)tp * (3 + 6 + hs + 3 + (nonrigid ? 1 : 0) + hs) +
+         (size_t)(depth + 2) * tp * width;
 }
 
 __host__ inline int threads_for(int width) { return ((width + 31) / 32) * 32; }
@@ -105,7 +107,7 @@ __device__ __forceinline__ void heads_tile(const float* __restrict__ prm,
 
 // Forward of the tile up to the heads: xs [TP*3] must be loaded and
 // synchronised. Returns the last layer's activations.
-template <int TP, int MOTION, int FMT>
+template <int TP, int MOTION, int FMT, bool NR = false>
 __device__ __forceinline__ const float* forward_tile(const float* __restrict__ prm,
                                      const LevelLayout L, float freq,
                                      float scale, const float* xs, float* fea,
@@ -113,29 +115,72 @@ __device__ __forceinline__ const float* forward_tile(const float* __restrict__ p
   posenc_tile<TP>(xs, fea, freq);
   __syncthreads();
   const float* h = trunk_tile<TP>(prm, L, fea, acts, keep_all);
-  heads_tile<TP, HeadCount<MOTION, FMT>::value>(prm, L, h, head, scale);
+  heads_tile<TP, HeadCount<MOTION, FMT, NR>::value>(prm, L, h, head, scale);
   return h;
+}
+
+// One point's warp from its head outputs `head` (HeadCount<.., NR> of
+// them): out = s R x + t, and with the nonrigidity head (models/pyramid.py
+// level_warp, JAX ops/fused_level.py _forward_math_t `finish`) gated at
+// level > 0: out = x + nr (out - x), nr = sigmoid(head[HS - 1]); at level 0
+// the warp is ungated and the returned nonrigidity is 1.
+template <int MOTION, int FMT, bool NR>
+__device__ __forceinline__ float point_warp(const float* head, const float* x,
+                                            bool gate, float* out) {
+  motion_fwd<MOTION, FMT>(head, x, out);
+  if constexpr (NR) {
+    constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
+    if (!gate) return 1.f;
+    const float nr = sigmoid_f(head[HS - 1]);
+    for (int k = 0; k < 3; ++k) out[k] = x[k] + nr * (out[k] - x[k]);
+    return nr;
+  } else {
+    return 1.f;
+  }
 }
 
 // VJP of the tile's warp for the cotangents gs [TP*3] (zero on rows past
 // the end), after forward_tile(keep_all = true); writes every entry of
 // the parameter-gradient row `part` [L.total]. gh [TP*HS], dA and dB
-// [TP*W] are scratch.
-template <int TP, int MOTION, int FMT>
+// [TP*W] are scratch. With NR, gnr [TP] is the cotangent of the returned
+// nonrigidity and `gate` the level > 0 gate of point_warp; at level 0 the
+// nonrigidity head gets exactly zero gradient.
+template <int TP, int MOTION, int FMT, bool NR = false>
 __device__ __forceinline__ void backward_tile(const float* __restrict__ prm,
                               const LevelLayout L, float scale,
                               const float* xs, const float* fea,
                               const float* head, const float* gs, float* gh,
                               const float* acts, float* dA, float* dB,
-                              float* __restrict__ part) {
-  constexpr int HS = HeadCount<MOTION, FMT>::value;
+                              float* __restrict__ part,
+                              const float* gnr = nullptr, bool gate = false) {
+  constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
   const int W = L.w;
   const float* hL = acts + (L.depth - 1) * TP * W;
 
   // Motion VJP: cotangents of the heads' pre-activations.
   for (int p = threadIdx.x; p < TP; p += blockDim.x) {
     float ghp[HS];
-    motion_vjp<MOTION, FMT>(head + p * HS, xs + p * 3, gs + p * 3, ghp);
+    const float* hp = head + p * HS;
+    const float* xp = xs + p * 3;
+    const float* gp = gs + p * 3;
+    if constexpr (NR) {
+      if (gate) {
+        // out = x + nr (m - x): m gets nr g, nr gets g.(m - x) + gnr
+        const float nr = sigmoid_f(hp[HS - 1]);
+        float m[3];
+        motion_fwd<MOTION, FMT>(hp, xp, m);
+        const float gm[3] = {nr * gp[0], nr * gp[1], nr * gp[2]};
+        motion_vjp<MOTION, FMT>(hp, xp, gm, ghp);
+        const float gn = gp[0] * (m[0] - xp[0]) + gp[1] * (m[1] - xp[1]) +
+                         gp[2] * (m[2] - xp[2]) + gnr[p];
+        ghp[HS - 1] = gn * (nr * (1.f - nr));
+      } else {
+        motion_vjp<MOTION, FMT>(hp, xp, gp, ghp);
+        ghp[HS - 1] = 0.f;
+      }
+    } else {
+      motion_vjp<MOTION, FMT>(hp, xp, gp, ghp);
+    }
 #pragma unroll
     for (int o = 0; o < HS; ++o) gh[p * HS + o] = scale * ghp[o];
   }

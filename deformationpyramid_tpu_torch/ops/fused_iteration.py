@@ -35,15 +35,22 @@ and the host reads it every ``SYNC_EVERY`` iterations only; an iteration
 that starts halted changes nothing, so the result is the one of checking
 after every iteration. The level kernels cover every ``motion_type`` and
 ``rotation_format`` of ``config/NDP.yaml`` (SE3, Sim3, sflow; axis_angle,
-euler, quaternion, 6D) with ``w_reg == 0`` and depth >= 2; the nonrigidity
-head (``w_reg > 0``) takes the unfused loop (``solve/registration.py``).
+euler, quaternion, 6D) and the nonrigidity head (``w_reg > 0``: C2 writes
+the head's output beside the warped points, the glue adds the BCE term in
+plain torch as the JAX package adds it in XLA, C3 takes its cotangent), at
+depth >= 2. With ``resweep_every`` (``DP_SWEEP_REUSE``) >= 2 the chamfer
+loop reuses the sweep's association (:func:`_reuse_loop`): one exact
+iteration, then cheap ones that re-warp with C2 alone (the JAX package's
+``_warp_only_kernel``) and walk precomputed k-NN tables.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
+from ..losses import bce_with_zeros_target
 from ..models import baselines, pyramid
 from .cuda_lib import F, I, Kernel, P, check_cuda, on_cpu
 from .knn import nn_argmin_dual
@@ -64,11 +71,12 @@ ROTATION_FORMATS = {"axis_angle": 0, "euler": 1, "quaternion": 2, "6D": 3}
 NSFP_TILE = 16          # NSFP_TP in csrc/nsfp.cu: points per C10 / C11 block
 
 LEVEL_WARP_FWD = Kernel("level_warp_fwd", "dp_level_warp_fwd",
-                        [P, P, I, I, I, I, I, F, F, P])
+                        [P, P, I, I, I, I, I, I, I, F, F, P, P])
 LEVEL_WARP_BWD = Kernel("level_warp_bwd", "dp_level_warp_bwd",
-                        [P, P, P, I, I, I, I, I, F, F, P, I])
+                        [P, P, P, P, I, I, I, I, I, I, I, F, F, P, I])
 ADAM_STEP = Kernel("adam_step", "dp_adam_step",
                    [P, P, P, P, I, I, P, P, F, F, F, F, F, F])
+SUM_PARTIALS = Kernel("sum_partials", "dp_sum_partials", [P, I, I, P])
 LDMK_ITERATION = Kernel(
     "ldmk_iteration", "dp_ldmk_iteration",
     [P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P, P, P, I, I, F, F,
@@ -80,10 +88,11 @@ NSFP_BWD = Kernel("nsfp_bwd", "dp_nsfp_bwd", [P, P, P, I, I, I, P, I])
 
 def _head_slots(pcfg: pyramid.NDPConfig) -> int:
     """Head outputs per point in the kernels (csrc/common.cuh LevelLayout
-    ``hs``): rotation (none for sflow), translation and the Sim3 scale;
-    3 for sflow up to 10 for Sim3 + 6D."""
+    ``hs``): rotation (none for sflow), translation, the Sim3 scale and
+    the nonrigidity head; 3 for sflow up to 11 for Sim3 + 6D with the
+    nonrigidity head."""
     rot = 0 if pcfg.motion == "sflow" else pcfg.rot_dim
-    return rot + 3 + (pcfg.motion == "Sim3")
+    return rot + 3 + (pcfg.motion == "Sim3") + bool(pcfg.nonrigidity_est)
 
 
 def bwd_smem(pcfg: pyramid.NDPConfig) -> int:
@@ -91,36 +100,44 @@ def bwd_smem(pcfg: pyramid.NDPConfig) -> int:
     ``bwd_tile_floats``): every layer's activations of its 32 points plus
     the gradient buffers."""
     hs = _head_slots(pcfg)
-    return 4 * BWD_TILE * (12 + 2 * hs + (pcfg.depth + 2) * pcfg.width)
+    return 4 * BWD_TILE * (12 + bool(pcfg.nonrigidity_est) + 2 * hs
+                           + (pcfg.depth + 2) * pcfg.width)
 
 
 def _supports_warp(pcfg: pyramid.NDPConfig) -> bool:
+    """What C2 / C3 cover: every motion and rotation format, with or
+    without the nonrigidity head, at least one hidden layer (the JAX
+    kernels take depth >= 1), width <= 256, and C3's activations of every
+    layer within one block's shared memory."""
     return (pcfg.motion in MOTIONS
             and pcfg.rotation_format in ROTATION_FORMATS
-            and not pcfg.nonrigidity_est
             and pcfg.depth >= 2 and pcfg.width <= MAX_WIDTH
             and bwd_smem(pcfg) <= SMEM_LIMIT)
 
 
 def supports_fused_iteration(pcfg: pyramid.NDPConfig, w_reg: float,
                              n_ldmk: int = 0) -> bool:
-    """What the chamfer-mode kernels cover: every motion (SE3, Sim3, sflow)
-    and rotation format (axis_angle, euler, quaternion, 6D), no
-    nonrigidity branch or regulariser, no landmarks, at least one hidden
-    layer, width <= 256, and C3's activations of every layer within one
-    block's shared memory (at width 256, depth <= 5 for SE3). The JAX
-    package's gate also takes w_reg > 0 with the nonrigidity head."""
-    return _supports_warp(pcfg) and w_reg == 0 and n_ldmk == 0
+    """What the chamfer-mode kernels cover, the JAX package's gate: every
+    motion (SE3, Sim3, sflow) and rotation format (axis_angle, euler,
+    quaternion, 6D), the nonrigidity head and its BCE term (``w_reg > 0``
+    needs ``nonrigidity_est``, which ``solver_from_config`` sets from
+    ``w_reg``), no landmarks; and, the port's own limits, at least one
+    hidden layer, width <= 256 and C3's activations of every layer within
+    one block's shared memory (at width 256, depth <= 5 for SE3)."""
+    return (_supports_warp(pcfg) and n_ldmk == 0
+            and (w_reg == 0 or pcfg.nonrigidity_est))
 
 
 def supports_fused_iteration_ldmk(pcfg: pyramid.NDPConfig, w_reg: float,
                                   n_ldmk: int) -> bool:
     """What the landmark paths cover (``config/LNDP.yaml``, ``w_reg ==
-    0``): with ``w_cd == 0`` the one-launch iteration C5
-    (:func:`run_fused_level_ldmk`), with ``w_cd > 0`` C1-C4 with the
-    landmark term in the glue (``run_fused_level(n_ldmk=...)``). The same
-    warp coverage as :func:`supports_fused_iteration`."""
-    return _supports_warp(pcfg) and w_reg == 0 and n_ldmk > 0
+    0``, no nonrigidity head: C5 has none, as ``_ldmk_iter_kernel``): with
+    ``w_cd == 0`` the one-launch iteration C5 (:func:`run_fused_level_ldmk`),
+    with ``w_cd > 0`` C1-C4 with the landmark term in the glue
+    (``run_fused_level(n_ldmk=...)``). The same warp coverage as
+    :func:`supports_fused_iteration`."""
+    return (_supports_warp(pcfg) and not pcfg.nonrigidity_est
+            and w_reg == 0 and n_ldmk > 0)
 
 
 def level_param_count(pcfg: pyramid.NDPConfig) -> int:
@@ -140,18 +157,23 @@ def _layout_args(pcfg: pyramid.NDPConfig) -> tuple[int, int, int, int]:
             ROTATION_FORMATS[pcfg.rotation_format])
 
 
+def _plain_warp_nr(flat: Tensor, x: Tensor, level: int,
+                   pcfg: pyramid.NDPConfig) -> tuple[Tensor, Tensor | None]:
+    p = pyramid.unravel(flat, pyramid.level_shapes(pcfg))
+    return pyramid.level_warp(p, x, level, pcfg)
+
+
 def _plain_warp(flat: Tensor, x: Tensor, level: int,
                 pcfg: pyramid.NDPConfig) -> Tensor:
-    p = pyramid.unravel(flat, pyramid.level_shapes(pcfg))
-    return pyramid.level_warp(p, x, level, pcfg)[0]
+    return _plain_warp_nr(flat, x, level, pcfg)[0]
 
 
 def _check_level(name: str, flat: Tensor, x: Tensor,
                  pcfg: pyramid.NDPConfig, *more: Tensor) -> None:
     check_cuda(name, flat, x, *more)
     if not _supports_warp(pcfg):
-        raise ValueError(f"{name}: the kernel covers no nonrigidity head, "
-                         f"depth >= 2 and width <= {MAX_WIDTH} only")
+        raise ValueError(f"{name}: the kernel covers depth >= 2, width <= "
+                         f"{MAX_WIDTH} and its shared memory only")
     if flat.shape != (level_param_count(pcfg),):
         raise ValueError(f"{name}: flat params of shape {tuple(flat.shape)}")
     if x.ndim != 2 or x.shape[1] != 3:
@@ -161,45 +183,104 @@ def _check_level(name: str, flat: Tensor, x: Tensor,
             raise ValueError(f"{name}: cotangent must be [N, 3]")
 
 
+def _warp_launch(flat: Tensor, x: Tensor, level: int,
+                 pcfg: pyramid.NDPConfig) -> tuple[Tensor, Tensor | None]:
+    """Kernel C2 on CUDA tensors: (warped [N, 3], nonrigidity [N] or
+    None)."""
+    _check_level("level_warp_fwd", flat, x, pcfg)
+    out = torch.empty_like(x)
+    nr = torch.empty(x.shape[0], dtype=torch.float32, device=x.device) \
+        if pcfg.nonrigidity_est else None
+    LEVEL_WARP_FWD.launch(flat.data_ptr(), x.data_ptr(), x.shape[0],
+                          *_layout_args(pcfg), int(pcfg.nonrigidity_est),
+                          int(level > 0), _freq(level, pcfg.k0),
+                          float(pcfg.mlp_scale), out.data_ptr(),
+                          0 if nr is None else nr.data_ptr())
+    return out, nr
+
+
 def level_warp_fwd(flat: Tensor, x: Tensor, level: int,
                    pcfg: pyramid.NDPConfig) -> Tensor:
     """One level's warp of x [N, 3] from its flat parameter vector: kernel
     C2 on CUDA tensors, ``models.pyramid.level_warp`` on CPU tensors."""
     if on_cpu(flat, x):
         return _plain_warp(flat, x, level, pcfg)
-    _check_level("level_warp_fwd", flat, x, pcfg)
-    out = torch.empty_like(x)
-    LEVEL_WARP_FWD.launch(flat.data_ptr(), x.data_ptr(), x.shape[0],
-                          *_layout_args(pcfg), _freq(level, pcfg.k0),
-                          float(pcfg.mlp_scale), out.data_ptr())
-    return out
+    return _warp_launch(flat, x, level, pcfg)[0]
+
+
+def level_warp_fwd_nr(flat: Tensor, x: Tensor, level: int,
+                      pcfg: pyramid.NDPConfig) -> tuple[Tensor, Tensor]:
+    """The warp with the nonrigidity head (``pcfg.nonrigidity_est``):
+    (warped [N, 3], nonrigidity [N]), the gate of ``level_warp`` applied
+    at level > 0 and all ones at level 0. Kernel C2 on CUDA tensors."""
+    if not pcfg.nonrigidity_est:
+        raise ValueError("level_warp_fwd_nr: the configuration has no "
+                         "nonrigidity head")
+    if on_cpu(flat, x):
+        return _plain_warp_nr(flat, x, level, pcfg)
+    return _warp_launch(flat, x, level, pcfg)
 
 
 def level_warp_bwd_plain(flat: Tensor, x: Tensor, g: Tensor, level: int,
-                         pcfg: pyramid.NDPConfig) -> Tensor:
+                         pcfg: pyramid.NDPConfig,
+                         g_nr: Tensor | None = None) -> Tensor:
     """``torch.func.vjp`` of the plain warp: the parameter gradient for
-    the cotangent g [N, 3], as one partial row [1, P]."""
-    _, vjp = torch.func.vjp(lambda f: _plain_warp(f, x, level, pcfg), flat)
-    return vjp(g)[0][None]
+    the cotangent g [N, 3] (and g_nr [N] of the nonrigidity with the
+    head), as one partial row [1, P]."""
+    if not pcfg.nonrigidity_est:
+        _, vjp = torch.func.vjp(lambda f: _plain_warp(f, x, level, pcfg),
+                                flat)
+        return vjp(g)[0][None]
+    _, vjp = torch.func.vjp(lambda f: _plain_warp_nr(f, x, level, pcfg),
+                            flat)
+    if g_nr is None:
+        g_nr = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    return vjp((g, g_nr))[0][None]
 
 
 def level_warp_bwd(flat: Tensor, x: Tensor, g: Tensor, level: int,
-                   pcfg: pyramid.NDPConfig) -> Tensor:
-    """Parameter gradient of one level's warp for the cotangent g [N, 3],
-    as partial rows [n_blocks, P] whose sum is the gradient: kernel C3 on
-    CUDA tensors (one row per block of points), the plain VJP on CPU
+                   pcfg: pyramid.NDPConfig,
+                   g_nr: Tensor | None = None) -> Tensor:
+    """Parameter gradient of one level's warp for the cotangent g [N, 3]
+    (and, with the nonrigidity head, g_nr [N] of its output; zero when
+    None), as partial rows [n_blocks, P] whose sum is the gradient: kernel
+    C3 on CUDA tensors (one row per block of points), the plain VJP on CPU
     tensors (one row)."""
     if on_cpu(flat, x, g):
-        return level_warp_bwd_plain(flat, x, g, level, pcfg)
+        return level_warp_bwd_plain(flat, x, g, level, pcfg, g_nr)
     _check_level("level_warp_bwd", flat, x, pcfg, g)
+    nonrigid = bool(pcfg.nonrigidity_est)
+    if nonrigid:
+        if g_nr is None:
+            g_nr = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        check_cuda("level_warp_bwd", g_nr)
+        if g_nr.shape != (x.shape[0],):
+            raise ValueError("level_warp_bwd: g_nr must be [N]")
     n_blocks = -(-x.shape[0] // BWD_TILE)
     partial = torch.empty((n_blocks, flat.shape[0]), dtype=torch.float32,
                           device=flat.device)
     LEVEL_WARP_BWD.launch(flat.data_ptr(), x.data_ptr(), g.data_ptr(),
-                          x.shape[0], *_layout_args(pcfg),
+                          g_nr.data_ptr() if nonrigid else 0, x.shape[0],
+                          *_layout_args(pcfg), int(nonrigid), int(level > 0),
                           _freq(level, pcfg.k0), float(pcfg.mlp_scale),
                           partial.data_ptr(), n_blocks)
     return partial
+
+
+def sum_partials(partials: Tensor) -> Tensor:
+    """The gradient [P] from C3's partial rows [B, P], summed in block
+    order: kernel C13 (``csrc/adam.cu``) on CUDA tensors, whose sum is
+    C4's and repeats bit for bit; ``partials.sum(0)`` on CPU tensors."""
+    if on_cpu(partials):
+        return partials.sum(0)
+    check_cuda("sum_partials", partials)
+    if partials.ndim != 2:
+        raise ValueError("sum_partials: expected partials [B, P]")
+    out = torch.empty(partials.shape[1], dtype=torch.float32,
+                      device=partials.device)
+    SUM_PARTIALS.launch(partials.data_ptr(), partials.shape[0],
+                        partials.shape[1], out.data_ptr())
+    return out
 
 
 def adam_step_plain(p: Tensor, m: Tensor, v: Tensor, partials: Tensor,
@@ -312,11 +393,16 @@ class EarlyStop:
         self.it = torch.zeros((), **i32)
         self.applied = torch.zeros((), **f32)
 
-    def decide(self, loss: Tensor) -> tuple[Tensor, Tensor]:
+    def decide(self, loss: Tensor, extra_halt: Tensor | None = None
+               ) -> tuple[Tensor, Tensor]:
         """Book-keep this iteration's loss; returns (halt, hold): halt = the
-        iteration is a no-op, hold = no optimizer step."""
+        iteration is a no-op, hold = no optimizer step. ``extra_halt`` (a
+        0-d bool tensor) makes the iteration a no-op too: the sweep-reuse
+        loop's stale association."""
         cfg = self.cfg
         halt = self.done | (self.it >= cfg.iters)
+        if extra_halt is not None:
+            halt = halt | extra_halt
         run = ~halt
         small = loss < cfg.loss_eps
         plateau = torch.abs(self.loss_prev - loss) \
@@ -332,24 +418,63 @@ class EarlyStop:
         self.applied = self.applied + (~hold).to(torch.float32)
         self.loss = torch.where(halt, self.loss, loss)
 
+    def finished(self) -> bool:
+        """The host read of the stop flag (a device synchronisation)."""
+        return bool(self.done | (self.it >= self.cfg.iters))
+
     def run(self, step) -> None:
         """Call ``step`` up to ``iters`` times; read the flag on the host
         every SYNC_EVERY calls and leave once the loop is finished."""
         for i in range(self.cfg.iters):
             step()
-            if (i + 1) % SYNC_EVERY == 0 and \
-                    bool(self.done | (self.it >= self.cfg.iters)):
+            if (i + 1) % SYNC_EVERY == 0 and self.finished():
                 break
 
     def stats(self) -> dict[str, Tensor]:
         return {"iters": self.it, "loss": self.loss}
 
 
+_BIG = 3.0e38           # the +BIG of an invalid row in the k-NN tables
+
+
+def _knn_table(pts: Tensor, big: Tensor, c: int) -> tuple[Tensor, Tensor]:
+    """[P, c] indices of each row's c nearest rows (itself at column 0) and
+    each row's squared distance to its nearest other row, as the JAX
+    package's ``_knn_table``: the [P, P] product form in float32
+    (``torch.matmul``; the port leaves TF32 off, ``chip_smoke.py`` checks)
+    and ``torch.topk``; ``big`` carries +BIG at invalid rows, so that they
+    are never candidates. Built once a level; not a kernel in the JAX
+    package either (XLA)."""
+    sq = torch.sum(pts * pts, dim=-1)
+    d = sq[:, None] + sq[None, :] - 2.0 * (pts @ pts.T)
+    d = torch.clamp_min(d, 0.0) + big[None, :]
+    neg, idx = torch.topk(-d, min(c, pts.shape[0]), dim=1)
+    nn_other = -neg[:, 1] if neg.shape[1] > 1 else torch.zeros_like(neg[:, 0])
+    return idx, nn_other
+
+
+def _walk(w: Tensor, q: Tensor, knn: Tensor, big: Tensor,
+          cur: Tensor) -> Tensor:
+    """One hop of the association walk: for each row of ``q`` the nearest
+    of the k-NN candidates (in ``w``'s index space) of its current nearest
+    row ``cur``; ``big`` keeps invalid candidates out."""
+    cand = knn[cur]                                        # [Q, c]
+    d = torch.sum((q[:, None, :] - w[cand]) ** 2, dim=-1) + big[cand]
+    return torch.gather(cand, 1, torch.argmin(d, dim=1, keepdim=True))[:, 0]
+
+
+def _reuse_env(value, name: str, default: str, cast):
+    return cast(os.environ.get(name, default)) if value is None else value
+
+
 def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
                     t_sample: Tensor, t_valid: Tensor, level: int,
                     pcfg: pyramid.NDPConfig, lcfg, trunc: float = 1e9,
                     n_ldmk: int = 0, tgt_ldmk: Tensor | None = None,
-                    ldmk_valid: Tensor | None = None, w_cd: float = 1.0):
+                    ldmk_valid: Tensor | None = None, w_cd: float = 1.0,
+                    w_reg: float = 0.0, resweep_every: int | None = None,
+                    resweep_c: int | None = None,
+                    resweep_drift: float | None = None):
     """Adam-optimize one pyramid level with the fused iteration.
 
     Drop-in for the unfused level loop (``solve/loop.run_adam_loop`` with
@@ -359,16 +484,33 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
     carry the masked mean-squared landmark term against ``tgt_ldmk``, and
     the chamfer term, scaled by ``w_cd`` and truncated at ``trunc``, sees
     only the sample rows (landmark rows are masked out of both sweep
-    directions and the glue). Returns (updated level params dict, warped
-    pts [N, 3] of the last evaluation, stats {iters, loss}).
+    directions and the glue). With ``pcfg.nonrigidity_est`` C2 applies the
+    level > 0 nonrigidity gate and the loss adds ``w_reg`` times the BCE
+    of the nonrigidity against zeros at level > 0, whose gradient C3 takes
+    as the nonrigidity's cotangent.
+
+    ``resweep_every`` = T >= 2 (default: the ``DP_SWEEP_REUSE`` environment
+    variable, 0) reuses the sweep's association: each super-iteration is
+    one exact iteration (C2, C1, glue, C3, C4) and T - 1 cheap ones (C2, a
+    one-hop walk on k-NN tables of ``resweep_c`` rows, ``DP_SWEEP_REUSE_C``
+    = 8, glue, C3, C4), which hold (no step, no iteration counted) once
+    the warp has moved more than ``resweep_drift`` (``DP_SWEEP_REUSE_DRIFT``
+    = 1.0) times the target's median nearest-neighbour spacing since the
+    exact sweep (JAX ``run_fused_level`` / ``_reuse_loop``). Returns
+    (updated level params dict, warped pts [N, 3] of the last evaluation,
+    stats {iters, loss}).
     """
     if n_ldmk == 0:
-        covered = supports_fused_iteration(pcfg, 0.0)
+        covered = supports_fused_iteration(pcfg, w_reg)
     else:
-        covered = supports_fused_iteration_ldmk(pcfg, 0.0, n_ldmk)
+        covered = supports_fused_iteration_ldmk(pcfg, w_reg, n_ldmk)
     if not covered:
         raise ValueError("run_fused_level: configuration not covered by the "
                          "kernels; use the unfused loop")
+    resweep_every = _reuse_env(resweep_every, "DP_SWEEP_REUSE", "0", int)
+    resweep_c = _reuse_env(resweep_c, "DP_SWEEP_REUSE_C", "8", int)
+    resweep_drift = _reuse_env(resweep_drift, "DP_SWEEP_REUSE_DRIFT", "1.0",
+                               float)
     shapes = pyramid.level_shapes(pcfg)
     p = pyramid.ravel(lvl_params).to(torch.float32).contiguous().clone()
     m = torch.zeros_like(p)
@@ -377,7 +519,8 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
     y = t_sample.to(torch.float32).contiguous()
     n = x.shape[0]
     rows = torch.arange(n, device=x.device)
-    xv = (pts_valid.to(torch.bool) & (rows >= n_ldmk)).contiguous()
+    row_valid = pts_valid.to(torch.bool)
+    xv = (row_valid & (rows >= n_ldmk)).contiguous()
     yv = t_valid.to(torch.bool).contiguous()
     x_len = torch.clamp_min(xv.sum(), 1).to(torch.float32)
     y_len = torch.clamp_min(yv.sum(), 1).to(torch.float32)
@@ -387,28 +530,101 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
         lcount = torch.clamp_min(lmask.sum(), 1.0)
         ltgt = torch.zeros_like(x)
         ltgt[:n_ldmk] = tgt_ldmk.to(torch.float32)
+    nonrigid = bool(pcfg.nonrigidity_est)
+    # the regulariser's weight, gated at level 0 (where nr is all ones)
+    w_eff = float(w_reg) if nonrigid and level > 0 else 0.0
+    zeros_nr = torch.zeros(n, dtype=torch.float32, device=x.device) \
+        if nonrigid else None
     stop = EarlyStop(lcfg, x.device)
     aux = x.clone()
 
-    def step():
+    def warp():
+        if nonrigid:
+            return level_warp_fwd_nr(p, x, level, pcfg)
+        return level_warp_fwd(p, x, level, pcfg), None
+
+    def update(warped, nr, cidx, rarg, extra_halt=None):
+        """The iteration's back half: glue, early stop, C3, C4."""
         nonlocal aux
-        warped = level_warp_fwd(p, x, level, pcfg)
-        _, cidx, _, rarg = nn_argmin_dual(warped, y, xv, yv)
         loss, g = _chamfer_glue(warped, cidx, rarg, y, xv, yv, x_len, y_len,
                                 trunc)
         if n_ldmk > 0:
             diff = (warped - ltgt) * lmask[:, None]
             loss = torch.sum(diff * diff) / lcount + w_cd * loss
             g = (2.0 / lcount) * diff + w_cd * g
-        halt, hold = stop.decide(loss)
-        partials = level_warp_bwd(p, x, g, level, pcfg)
+        g_nr = zeros_nr
+        if w_eff > 0:
+            # the BCE of nr against zeros over all valid rows and its exact
+            # gradient, in plain torch as the JAX package computes it in XLA
+            # (reference registration.py:216-220)
+            reg, vjp = torch.func.vjp(
+                lambda q: bce_with_zeros_target(q, row_valid), nr)
+            loss = loss + w_eff * reg
+            (g_nr,) = vjp(torch.tensor(w_eff, device=nr.device))
+        halt, hold = stop.decide(loss, extra_halt)
+        partials = level_warp_bwd(p, x, g, level, pcfg, g_nr)
         adam_step(p, m, v, partials, stop.applied,
                   hold.to(torch.float32), lcfg.lr)
         stop.advance(loss, halt, hold)
         aux = torch.where(halt, aux, warped)
 
-    stop.run(step)
+    def exact():
+        warped, nr = warp()
+        _, cidx, _, rarg = nn_argmin_dual(warped, y, xv, yv)
+        update(warped, nr, cidx, rarg)
+        return warped, cidx, rarg
+
+    if resweep_every >= 2:
+        _reuse_loop(stop, exact, warp, update, x, y, xv, yv, resweep_every,
+                    resweep_c, resweep_drift)
+    else:
+        stop.run(exact)
     return pyramid.unravel(p, shapes), aux, stop.stats()
+
+
+def _reuse_loop(stop: EarlyStop, exact, warp, update, x: Tensor, y: Tensor,
+                xv: Tensor, yv: Tensor, every: int, c: int,
+                drift_factor: float) -> None:
+    """The sweep-reuse schedule of :func:`run_fused_level` (JAX
+    ``_reuse_loop``): super-iterations of one exact iteration and
+    ``every`` - 1 cheap ones, a static schedule.
+
+    The k-NN tables are built once a level: the target's in target space
+    (a fixed cloud, so exact for good), the source's in source space (a
+    smooth warp keeps neighbourhoods). Column 0 of a row is the row itself,
+    so a walk never loses its current candidate. A cheap iteration that
+    finds the warp moved more than the drift bound since the exact sweep
+    holds, and so do the rest of its super-iteration: a stale association
+    can cost iterations, never a step in a wrong direction. The host reads
+    the stop flag every SYNC_EVERY iterations, exact and cheap alike; once
+    the loop is finished every further iteration is a no-op, so leaving
+    at any read gives the result of the JAX loop.
+    """
+    big_y = torch.where(yv, 0.0, _BIG)
+    big_x = torch.where(xv, 0.0, _BIG)
+    knn_y, nn_y = _knn_table(y, big_y, c)
+    knn_x, _ = _knn_table(x, big_x, c)
+    d1 = torch.sqrt(torch.clamp_min(torch.where(yv, nn_y, math.inf), 0.0))
+    mid = (torch.clamp_min(yv.sum(), 1) - 1) // 2
+    med = torch.sort(d1).values.gather(0, mid.reshape(1))[0]
+    bound = drift_factor * med if drift_factor > 0 else \
+        torch.tensor(math.inf, device=y.device)
+    count = 0
+    for _ in range(stop.cfg.iters):
+        wref, cidx, rarg = exact()
+        stale = torch.zeros((), dtype=torch.bool, device=y.device)
+        for sub in range(every):
+            if sub > 0:
+                warped, nr = warp()
+                cidx = _walk(y, warped, knn_y, big_y, cidx)
+                rarg = _walk(warped, y, knn_x, big_x, rarg)
+                drift = torch.max(torch.where(xv[:, None],
+                                              torch.abs(warped - wref), 0.0))
+                stale = stale | (drift > bound)
+                update(warped, nr, cidx, rarg, stale)
+            count += 1
+            if count % SYNC_EVERY == 0 and stop.finished():
+                return
 
 
 def ldmk_iteration_plain(p: Tensor, m: Tensor, v: Tensor, x: Tensor,
@@ -456,6 +672,8 @@ def ldmk_iteration(p: Tensor, m: Tensor, v: Tensor, x: Tensor, tgt: Tensor,
         ldmk_iteration_plain(p, m, v, x, tgt, mask, count, stop, aux, level,
                              pcfg, lr)
         return
+    if pcfg.nonrigidity_est:
+        raise ValueError("ldmk_iteration: C5 has no nonrigidity head")
     _check_level("ldmk_iteration", p, x, pcfg, tgt, aux)
     check_cuda("ldmk_iteration", p, m, v, mask, count, stop.loss,
                stop.loss_prev, stop.applied)

@@ -75,13 +75,27 @@ def nn_argmin_dual_cuda(x: Tensor, y: Tensor,
     return sq_x, idx_x, sq_y, idx_y
 
 
+# The JAX package's dual-sweep variants (ops/knn.py nn_argmin_dual_pallas):
+# one function in several TPU operand layouts and selection encodings, v1
+# the exact first-index semantics the others approximate. C1 computes v1
+# for every one of them.
+DUAL_VARIANTS = ("v1", "v2", "v3", "v4", "v4h")
+
+
 def nn_argmin_dual(x: Tensor, y: Tensor,
                    x_valid: Tensor | None = None,
-                   y_valid: Tensor | None = None):
+                   y_valid: Tensor | None = None,
+                   variant: str | None = None):
     """Both-direction 1-NN: (sq_x2y [N], idx_x2y [N], sq_y2x [M],
     idx_y2x [M]). Kernel C1 on CUDA tensors, its plain version on CPU
     tensors. ``x_valid``/``y_valid`` mask padded rows out of the search
-    in the other direction (True = real point)."""
+    in the other direction (True = real point). ``variant`` names one of
+    the JAX package's sweep kernels (``DUAL_VARIANTS``); each is C1's
+    function (v2's [3, M] layout and v3 / v4's packed or matrix-unit
+    distances served the TPU), so every one is sent to C1."""
+    if variant is not None and variant not in DUAL_VARIANTS:
+        raise ValueError(f"nn_argmin_dual: unknown variant {variant!r}; "
+                         f"expected one of {DUAL_VARIANTS}")
     tensors = [t for t in (x, y, x_valid, y_valid) if t is not None]
     if on_cpu(*tensors):
         return nn_argmin_dual_plain(x, y, x_valid, y_valid)

@@ -18,14 +18,23 @@ With ``use_fused_iteration`` set and a configuration the kernels cover,
 each level runs:
 
   =====================================  ==================================
-  chamfer mode, or landmarks + w_cd > 0  ``run_fused_level`` (C2, C1, C3, C4)
+  chamfer mode (``w_reg > 0`` with the   ``run_fused_level`` (C2, C1, C3, C4;
+  nonrigidity head too), or landmarks    ``sweep_reuse`` >= 2: C2 alone on
+  + w_cd > 0                             the cheap iterations)
   landmarks, w_cd == 0, use_fused_ldmk   ``run_fused_level_ldmk`` (C5)
   otherwise                              the unfused loop
   =====================================  ==================================
 
-The unfused loop is the plain warp with autograd and ``truncated_chamfer``
-on kernel C1. Pairs are solved one at a time; the device follows the input
-tensors.
+The unfused loop is autograd through the level warp and the loss, as the
+JAX package routes it (``_solve_level``): the warp is the plain one, or
+with ``use_fused`` (SE3 + axis_angle, ``w_reg == 0``) the standalone
+kernels C2 / C3 + C13 (``ops/fused_level.py``; with ``transposed`` too, the
+same kernels on [3, N] points); the loss is ``truncated_chamfer`` on C1, or
+with ``use_fused_chamfer`` kernel C12 (``ops/chamfer_fused.py``).
+``transposed`` without ``use_fused`` is the plain warp: the JAX package's
+``level_warp_t`` computes the same function in a TPU layout, which the
+port does not keep. Pairs are solved one at a time; the device follows the
+input tensors.
 """
 from __future__ import annotations
 
@@ -38,9 +47,12 @@ from ..losses import bce_with_zeros_target
 from ..models.pyramid import (NDPConfig, init_pyramid_params, level_params,
                               level_warp, warp)
 from ..ops.chamfer import truncated_chamfer
+from ..ops.chamfer_fused import chamfer_l1_fused
 from ..ops.fused_iteration import (run_fused_level, run_fused_level_ldmk,
                                    supports_fused_iteration,
                                    supports_fused_iteration_ldmk)
+from ..ops.fused_level import (fused_level_warp, fused_level_warp_t,
+                               supports_fused)
 from .loop import LoopConfig, run_adam_loop
 
 Tensor = torch.Tensor
@@ -66,6 +78,13 @@ class SolverConfig:
     # (``model/registration.py:212``).
     trunc_chamfer: float = 1e9
     loss_eps: float = 1e-4
+    # Opt-in routes of the unfused loop, as in the JAX package (None/False
+    # = off): the standalone level-warp kernels (ops/fused_level.py), the
+    # one-call chamfer loss (ops/chamfer_fused.py), and the [3, N] layout
+    # (with use_fused: the same kernels on transposed points).
+    use_fused: bool | None = None
+    use_fused_chamfer: bool | None = None
+    transposed: bool | None = None
     # The fused iteration (ops/fused_iteration.py); None/False = the
     # unfused loop, as in the JAX package's library default.
     use_fused_iteration: bool | None = None
@@ -73,6 +92,10 @@ class SolverConfig:
     # of use_fused_iteration; None/False = the unfused loop, as in the JAX
     # package's default.
     use_fused_ldmk: bool | None = None
+    # Sweep reuse in the fused iteration: T >= 2 runs one exact sweep per
+    # T iterations (run_fused_level); None = the DP_SWEEP_REUSE
+    # environment variable (default 0, an exact sweep every iteration).
+    sweep_reuse: int | None = None
 
     def loop_config(self) -> LoopConfig:
         return LoopConfig(iters=self.iters, lr=self.lr,
@@ -104,31 +127,51 @@ def _solve_level(lvl_params: dict, lvl: int, pts: Tensor, pts_valid: Tensor,
         if supports_fused_iteration(pcfg, cfg.w_reg, n_ldmk):
             return run_fused_level(lvl_params, pts, pts_valid, t_sample,
                                    t_valid, lvl, pcfg, lcfg,
-                                   trunc=cfg.trunc_chamfer)
+                                   trunc=cfg.trunc_chamfer, w_reg=cfg.w_reg,
+                                   resweep_every=cfg.sweep_reuse)
         if supports_fused_iteration_ldmk(pcfg, cfg.w_reg, n_ldmk):
             if cfg.w_cd > 0:
                 return run_fused_level(lvl_params, pts, pts_valid, t_sample,
                                        t_valid, lvl, pcfg, lcfg,
                                        trunc=cfg.trunc_cd, n_ldmk=n_ldmk,
                                        tgt_ldmk=tgt_ldmk,
-                                       ldmk_valid=ldmk_valid, w_cd=cfg.w_cd)
+                                       ldmk_valid=ldmk_valid, w_cd=cfg.w_cd,
+                                       resweep_every=cfg.sweep_reuse)
             if cfg.use_fused_ldmk:
                 return run_fused_level_ldmk(lvl_params, pts, ldmk_valid,
                                             tgt_ldmk, lvl, pcfg, lcfg)
 
+    # The opt-in routes of JAX _solve_level: fused (C2 / C3 + C13) only
+    # where its gate holds and w_reg == 0, on [3, N] points with
+    # transposed; transposed alone is the plain warp.
+    fused = bool(cfg.use_fused) and supports_fused(pcfg) and cfg.w_reg == 0
+    fused_t = fused and bool(cfg.transposed)
+    fused = fused and not fused_t
+    pts_t = pts.T.contiguous() if fused_t else None
+
+    def chamfer(wx, wv, trunc):
+        if cfg.use_fused_chamfer:
+            return chamfer_l1_fused(wx, t_sample, x_valid=wv,
+                                    y_valid=t_valid, trunc=trunc)
+        return truncated_chamfer(wx, t_sample, x_valid=wv, y_valid=t_valid,
+                                 trunc=trunc)
+
     def loss_fn(p, it):
-        warped, nr = level_warp(p, pts, lvl, pcfg)
+        if fused_t:
+            warped, nr = fused_level_warp_t(p, pts_t, lvl, pcfg).T, None
+        elif fused:
+            warped, nr = fused_level_warp(p, pts, lvl, pcfg), None
+        else:
+            warped, nr = level_warp(p, pts, lvl, pcfg)
         if n_ldmk > 0:
             sq = torch.sum((warped[:n_ldmk] - tgt_ldmk) ** 2, dim=-1)
             loss = torch.sum(torch.where(ldmk_valid, sq, 0.0)) \
                 / torch.clamp_min(ldmk_valid.sum(), 1)
             if cfg.w_cd > 0:
-                loss = loss + cfg.w_cd * truncated_chamfer(
-                    warped[n_ldmk:], t_sample, x_valid=pts_valid[n_ldmk:],
-                    y_valid=t_valid, trunc=cfg.trunc_cd)
+                loss = loss + cfg.w_cd * chamfer(
+                    warped[n_ldmk:], pts_valid[n_ldmk:], cfg.trunc_cd)
         else:
-            loss = truncated_chamfer(warped, t_sample, x_valid=pts_valid,
-                                     y_valid=t_valid, trunc=cfg.trunc_chamfer)
+            loss = chamfer(warped, pts_valid, cfg.trunc_chamfer)
         if cfg.w_reg > 0 and lvl > 0:
             loss = loss + cfg.w_reg * bce_with_zeros_target(
                 nr, pts_valid)

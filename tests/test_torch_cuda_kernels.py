@@ -23,7 +23,12 @@ at an awkward one, with an empty source prefix, and inside a layer. C8 and
 C9 against ``flash_attention_bwd_plain`` 2e-5 max abs on the same inputs
 and a unit-scale upstream gradient, bit-equal on a second launch, zero
 beyond the prefix, and through autograd inside a layer against the einsum
-route (1e-4 of each gradient's max).
+route (1e-4 of each gradient's max). C12 against its plain version: sums
+and cgrad 2e-5 of their max, rmin 2e-5, rarg equal up to near-ties, the
+query gradient 1e-4 of its max, bit-equal on a second launch; C13
+bit-equal to the block-order sum, 1e-6 of the float64 sum's max; C2 / C3
+with the nonrigidity head at levels 0 and 1 as C2 / C3; the opt-in routes'
+small solves on the card against the CPU: equal iterations, warp 1e-3.
 """
 import pytest
 import torch
@@ -468,3 +473,139 @@ def test_attention_layer_flash_matches_xla_on_valid_rows(dev):
         grads[impl] = torch.autograd.grad(out, flat, ct)
     for a, r in zip(grads["flash"], grads["xla"]):
         assert (a - r).abs().max() <= 1e-4 * r.abs().max()
+
+
+# -- the solver's opt-in routes: C12, C13, C2 / C3 with the nonrigidity head
+
+NR_CFG = tpyr.NDPConfig(m=4, k0=-6, depth=3, width=64, nonrigidity_est=True)
+
+
+@pytest.mark.parametrize("trunc", [1e9, 0.05])
+def test_chamfer_fused_matches_plain_and_repeats(dev, trunc):
+    """C12 against its plain version: the sums and cgrad within 2e-5 of
+    their max, rmin 2e-5 on valid rows, rarg equal up to near-ties, the
+    query gradient within 1e-4 of its max against the CPU; a second launch
+    bit-equal."""
+    from deformationpyramid_tpu_torch.ops import chamfer_fused as tcf
+
+    gen = torch.Generator().manual_seed(4)
+    w = (torch.randn(777, 3, generator=gen) * 0.5).to(dev)
+    y = (torch.randn(1033, 3, generator=gen) * 0.5).to(dev)
+    wv = (torch.rand(777, generator=gen) > 0.1).to(dev)
+    yv = (torch.rand(1033, generator=gen) > 0.1).to(dev)
+    got = tcf.chamfer_fused(w, y, wv, yv, trunc)
+    again = tcf.chamfer_fused(w, y, wv, yv, trunc)
+    ref = tcf.chamfer_fused_plain(w, y, wv, yv, trunc)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    (sums, cgrad, rmin, rarg), (rs, rc, rm, ra) = got, ref
+    assert ((sums - rs).abs() / rs.abs()).max() < 2e-5
+    assert (cgrad - rc).abs().max() < 2e-5 * rc.abs().max()
+    assert (rmin - rm)[wv].abs().max() < 2e-5
+    flips = (rarg != ra) & wv
+    if flips.any():
+        dg = ((w[flips] - y[rarg[flips]]) ** 2).sum(-1)
+        dr = ((w[flips] - y[ra[flips]]) ** 2).sum(-1)
+        assert ((dg - dr).abs() / dr.clamp_min(1e-30)).max() < 3e-4
+    wq = w.clone().requires_grad_(True)
+    tcf.chamfer_l1_fused(wq, y, wv, yv, trunc=trunc).backward()
+    wc = w.cpu().requires_grad_(True)
+    tcf.chamfer_l1_fused(wc, y.cpu(), wv.cpu(), yv.cpu(),
+                         trunc=trunc).backward()
+    assert (wq.grad.cpu() - wc.grad).abs().max() < 1e-4 * wc.grad.abs().max()
+
+
+def test_sum_partials_is_the_block_order_sum(dev):
+    """C13 on C3's partial rows: bit-equal to a sum in block order and on a
+    second launch, within 1e-6 of the float64 sum's max."""
+    flat, x, g = _level(dev, n=1000)
+    partials = tfi.level_warp_bwd(flat, x, g, 2, CFG)
+    got = tfi.sum_partials(partials)
+    order = partials[0].clone()
+    for b in range(1, partials.shape[0]):
+        order = order + partials[b]
+    f64 = partials.double().sum(0)
+    assert torch.equal(got, order)
+    assert torch.equal(got, tfi.sum_partials(partials))
+    assert (got.double() - f64).abs().max() <= 1e-6 * f64.abs().max()
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_level_warp_nonrigid_matches_plain(dev, level):
+    """C2 / C3 with the nonrigidity head: the warped points and nr within
+    1e-5, the gradient for (g, g_nr) within 1e-4 of each tensor's max |g|;
+    at level 0 nr is all ones and its head's gradient exactly 0."""
+    flat, x, g = _level(dev, cfg=NR_CFG)
+    g_nr = (torch.randn(x.shape[0], generator=torch.Generator()
+                        .manual_seed(5)) * 0.1).to(dev)
+    w, nr = tfi.level_warp_fwd_nr(flat, x, level, NR_CFG)
+    rw, rnr = tfi._plain_warp_nr(flat, x, level, NR_CFG)
+    assert (w - rw).abs().max() < 1e-5 and (nr - rnr).abs().max() < 1e-5
+    got = tfi.level_warp_bwd(flat, x, g, level, NR_CFG, g_nr).sum(0)
+    ref = tfi.level_warp_bwd_plain(flat, x, g, level, NR_CFG, g_nr)[0]
+    shapes = tpyr.level_shapes(NR_CFG)
+    got_t, ref_t = tpyr.unravel(got, shapes), tpyr.unravel(ref, shapes)
+    for k in ref_t:
+        for kk in ref_t[k]:
+            scale = ref_t[k][kk].abs().max().clamp_min(1e-30)
+            err = (got_t[k][kk] - ref_t[k][kk]).abs().max() / scale
+            assert err < 1e-4, (k, kk, float(err))
+    if level == 0:
+        assert (nr == 1.0).all()
+        assert not got_t["nr"]["w"].any() and not got_t["nr"]["b"].any()
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_fused_level_warp_launches_c2_c3_c13(dev, transposed):
+    """The standalone level warp under autograd: C2 forward, C3 then C13
+    backward, one launch each; the gradient as the plain warp's within
+    1e-4 of each tensor's max |g|."""
+    from deformationpyramid_tpu_torch.ops import fused_level as tfl
+
+    flat, x, g = _level(dev)
+    p = tpyr.tree_map(lambda t: t.clone().requires_grad_(True),
+                      tpyr.unravel(flat, tpyr.level_shapes(CFG)))
+    before = [k.launches for k in (tfi.LEVEL_WARP_FWD, tfi.LEVEL_WARP_BWD,
+                                   tfi.SUM_PARTIALS)]
+    if transposed:
+        out = tfl.fused_level_warp_t(p, x.T.contiguous(), 2, CFG).T
+    else:
+        out = tfl.fused_level_warp(p, x, 2, CFG)
+    (out * g).sum().backward()
+    after = [k.launches for k in (tfi.LEVEL_WARP_FWD, tfi.LEVEL_WARP_BWD,
+                                  tfi.SUM_PARTIALS)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    ref = tpyr.unravel(tfi.level_warp_bwd_plain(flat, x, g, 2, CFG)[0],
+                       tpyr.level_shapes(CFG))
+    for k in ref:
+        for kk in ref[k]:
+            scale = ref[k][kk].abs().max().clamp_min(1e-30)
+            assert (p[k][kk].grad - ref[k][kk]).abs().max() < 1e-4 * scale
+
+
+@pytest.mark.parametrize("opts", [dict(use_fused=True, use_fused_chamfer=True),
+                                  dict(use_fused_iteration=True,
+                                       sweep_reuse=4),
+                                  dict(use_fused_iteration=True, w_reg=0.2)])
+def test_optin_routes_match_cpu(dev, opts):
+    """A small solve through each opt-in route on the card against the same
+    solve on the CPU (the kernels' plain versions): equal per-level
+    iterations and the warp within 1e-3."""
+    import dataclasses
+
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.solve.registration import (
+        SolverConfig, register_pair)
+
+    pyr = tpyr.NDPConfig(m=3, k0=-6, depth=3, width=32,
+                         nonrigidity_est="w_reg" in opts)
+    cfg = SolverConfig(pyramid=pyr, iters=30, samples=256, **opts)
+    src, tgt, _ = make_pair(n=300, seed=2, deform=0.1)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        w, st = register_pair(0, torch.from_numpy(src).to(d),
+                              torch.from_numpy(tgt).to(d),
+                              dataclasses.replace(cfg))
+        outs.append((w.cpu(), st["iters"].cpu()))
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert (outs[0][0] - outs[1][0]).abs().max() < 1e-3

@@ -10,7 +10,10 @@ pairs are checked for SE3 + axis_angle (``config/NDP.yaml``,
 ``config/LNDP.yaml``), Sim3 + euler (the shape-transfer demo) and the
 yaml's further options: sflow, SE3 + quaternion, SE3 + 6D, Sim3 +
 quaternion (level loops of those at the JAX tests' own horizons and
-tolerances, tests/test_fused_iteration.py:289-297).
+tolerances, tests/test_fused_iteration.py:289-297), and the nonrigidity
+head (``w_reg > 0``) at levels 0 and 1: the warped points 1e-5 and the
+nonrigidity 1e-6, one Adam step 1e-5. The sweep-reuse k-NN table: equal
+indices, distances 1e-5.
 Tolerances: warped points 1e-5, indices equal up to near-ties < 3e-4
 relative, glue value 1e-6 and gradient 1e-5, one Adam step 1e-5 (with
 ``done`` bit-exact), a 25-iteration level loop equal iteration count, loss
@@ -44,8 +47,9 @@ MOTION_FORMATS = [("SE3", "axis_angle"), ("Sim3", "euler"),
                   ("SE3", "6D"), ("Sim3", "quaternion")]
 
 
-def _cfgs(motion, fmt):
-    kw = dict(KW, motion=motion, rotation_format=fmt)
+def _cfgs(motion, fmt, nonrigid=False):
+    kw = dict(KW, motion=motion, rotation_format=fmt,
+              nonrigidity_est=nonrigid)
     return jpyr.NDPConfig(**kw), tpyr.NDPConfig(**kw)
 
 
@@ -79,7 +83,7 @@ def _setup(n=200, m=260, seed=0, jcfg=JCFG):
     return pts, tgt, lvl
 
 
-def _pad(pts, tgt):
+def _pad(pts, tgt, level=LEVEL):
     """The padding prologue of JAX's run_fused_level, for the kernel calls."""
     n, m = pts.shape[0], tgt.shape[0]
     n_pad = jfi._round_up(max(n, 128), 128)
@@ -90,7 +94,7 @@ def _pad(pts, tgt):
     yc = jnp.zeros((m_pad, 3), jnp.float32).at[:m].set(tgt)
     yv = jnp.arange(m_pad) < m
     ysqb = jnp.where(yv, jnp.sum(yc * yc, axis=-1), jfi._BIG)[:, None]
-    freq = jnp.exp2(jnp.float32(LEVEL) + 1.0 + JCFG.k0).reshape(1, 1)
+    freq = jnp.exp2(jnp.float32(level) + 1.0 + JCFG.k0).reshape(1, 1)
     return xt_pad, xbig, yc, ysqb, freq, tm, n_pad
 
 
@@ -107,6 +111,13 @@ def test_supports_gate():
     assert tfi.supports_fused_iteration(TCFG, 0.0, 0)
     assert not tfi.supports_fused_iteration(TCFG, 0.5, 0)
     assert not tfi.supports_fused_iteration(TCFG, 0.0, 5)
+    # the JAX package's gate: w_reg > 0 with the nonrigidity head
+    nr = tpyr.NDPConfig(nonrigidity_est=True)
+    for w_reg in (0.0, 0.5):
+        assert tfi.supports_fused_iteration(nr, w_reg, 0)
+        assert jfi.supports_fused_iteration(
+            jpyr.NDPConfig(nonrigidity_est=True), w_reg, 0)
+    assert not tfi.supports_fused_iteration(nr, 0.5, 5)
     for kw in (dict(motion="Sim3"), dict(rotation_format="euler"),
                dict(motion="Sim3", rotation_format="euler"),
                dict(motion="sflow"), dict(rotation_format="quaternion"),
@@ -114,8 +125,7 @@ def test_supports_gate():
                dict(motion="Sim3", rotation_format="6D"),
                dict(motion="sflow", rotation_format="quaternion")):
         assert tfi.supports_fused_iteration(tpyr.NDPConfig(**kw), 0.0, 0)
-    for kw in (dict(nonrigidity_est=True), dict(depth=1), dict(width=512),
-               dict(width=256, depth=6)):
+    for kw in (dict(depth=1), dict(width=512), dict(width=256, depth=6)):
         assert not tfi.supports_fused_iteration(tpyr.NDPConfig(**kw), 0.0, 0)
     # C3 keeps every layer's activations in shared memory: 227 KB at most,
     # which the Sim3 scale head's extra slot exceeds at width 256, depth 5
@@ -138,11 +148,24 @@ def test_supports_gate():
                                           rotation_format="6D")) == 3
     assert tfi._head_slots(tpyr.NDPConfig(motion="Sim3",
                                           rotation_format="6D")) == 10
+    assert tfi._head_slots(tpyr.NDPConfig(motion="Sim3", rotation_format="6D",
+                                          nonrigidity_est=True)) == 11
+    assert tfi.level_param_count(nr) == 34694 + 129
 
 
 @pytest.mark.parametrize("motion,fmt", MOTION_FORMATS)
 def test_level_param_count_matches_ravel_pytree(motion, fmt):
-    jcfg, tcfg = _cfgs(motion, fmt)
+    _param_count_matches(*_cfgs(motion, fmt))
+
+
+@pytest.mark.parametrize("motion,fmt", [("SE3", "axis_angle"),
+                                        ("Sim3", "6D")])
+def test_level_param_count_with_nonrigidity_head(motion, fmt):
+    """The flat layout gains the nr head in sorted-key order."""
+    _param_count_matches(*_cfgs(motion, fmt, nonrigid=True))
+
+
+def _param_count_matches(jcfg, tcfg):
     shapes = jax.eval_shape(lambda k: jpyr.init_pyramid_params(k, jcfg),
                             jax.random.key(0))
     one = jax.tree.map(lambda a: np.zeros(a.shape[1:], np.float32), shapes)
@@ -158,14 +181,15 @@ def test_kernel_argtypes_match_c_entry_points():
     only show as a refused or corrupted call on the card."""
     import re
     from deformationpyramid_tpu_torch.match import attention
-    from deformationpyramid_tpu_torch.ops import cuda_lib, knn
+    from deformationpyramid_tpu_torch.ops import chamfer_fused, cuda_lib, knn
 
     src = "".join(p.read_text() for p in sorted(cuda_lib.CSRC.glob("*.cu")))
     kinds = {"void*": cuda_lib.P, "int": cuda_lib.I, "float": cuda_lib.F}
     for k in (knn.NN_DUAL, tfi.LEVEL_WARP_FWD, tfi.LEVEL_WARP_BWD,
               tfi.ADAM_STEP, tfi.LDMK_ITERATION, tfi.SCATTER_ROWS,
               tfi.NSFP_FWD, tfi.NSFP_BWD, attention.FLASH_ATTENTION, attention.FLASH_ATTENTION_BWD_DKV,
-              attention.FLASH_ATTENTION_BWD_DQ):
+              attention.FLASH_ATTENTION_BWD_DQ, chamfer_fused.CHAMFER_FUSED,
+              tfi.SUM_PARTIALS):
         decl = re.search(r'extern "C" int ' + k.symbol + r"\(([^)]*)\)", src)
         assert decl, k.symbol
         params = [re.fullmatch(r"\s*(?:const\s+)?(void\s*\*|int|float)\s*\w+\s*",
@@ -257,6 +281,81 @@ def test_kernel2_pair_matches_bwd_adam_call(motion, fmt):
                   torch.tensor(1.0), 0.01)
     assert torch.equal(held, flat)
     assert not m0.any() and not v0.any()
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_kernel1_nonrigid_matches_fwd_sweep_call(level):
+    """C2 with the nonrigidity head (plain) against JAX kernel 1 with
+    ``nonrigid``: the warped points within 1e-5 and the nonrigidity within
+    1e-6, gated at level 1, all ones at level 0."""
+    jcfg, tcfg = _cfgs("SE3", "axis_angle", nonrigid=True)
+    pts, tgt, lvl = _setup(seed=11, jcfg=jcfg)
+    xt_pad, xbig, yc, ysqb, freq, tm, _ = _pad(pts, tgt, level)
+    gate = jnp.full((1, 1), float(level > 0), jnp.float32)
+    outs = jfi._fwd_sweep_call(
+        freq, xt_pad, xbig, yc, ysqb, jfi.params_to_t(lvl),
+        mlp_scale=jcfg.mlp_scale, tm=tm, interpret=True, nonrigid=True,
+        gate=gate)
+    n = pts.shape[0]
+    flat = tpyr.ravel(tpyr.params_from_numpy(lvl))
+    warped, nr = tfi.level_warp_fwd_nr(flat, _t(pts), level, tcfg)
+    assert np.abs(warped.numpy() - np.asarray(outs[0]).T[:n]).max() < 1e-5
+    assert np.abs(nr.numpy() - np.asarray(outs[5])[0, :n]).max() < 1e-6
+    assert (level > 0) == bool((nr != 1.0).any())
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_kernel2_nonrigid_matches_bwd_adam_call(level):
+    """C3 with the nonrigidity cotangent + C4 (plain) against JAX kernel 2
+    with ``nonrigid``: one Adam step from zero moments within 1e-5; at
+    level 0 the nonrigidity head's moments stay exactly 0 (its gradient is
+    exactly 0)."""
+    jcfg, tcfg = _cfgs("SE3", "axis_angle", nonrigid=True)
+    pts, tgt, lvl = _setup(seed=12, jcfg=jcfg)
+    xt_pad, _, _, _, freq, _, n_pad = _pad(pts, tgt, level)
+    n = pts.shape[0]
+    rng = np.random.default_rng(13)
+    g = (rng.standard_normal((n, 3)) * 0.1).astype(np.float32)
+    g_nr = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    g_pad = jnp.zeros((3, n_pad), jnp.float32).at[:, :n].set(g.T)
+    gnr_pad = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(g_nr)
+    p_t = jfi.params_to_t(lvl)
+    zeros = [jnp.zeros_like(a) for a in p_t]
+    newp, newm, newv = jfi._bwd_adam_call(
+        freq, jnp.zeros((1, 1)), jnp.zeros((1, 1)), xt_pad, g_pad, p_t,
+        zeros, zeros, mlp_scale=jcfg.mlp_scale, lr=0.01, b1=0.9, b2=0.999,
+        eps=1e-8, tn=128, interpret=True, nonrigid=True,
+        gate=jnp.full((1, 1), float(level > 0), jnp.float32), g_nr=gnr_pad)
+    ref = {k: tpyr.ravel(tpyr.params_from_numpy(jfi.t_to_params(
+        list(t), motion="SE3", nonrigid=True)))
+        for k, t in (("p", newp), ("m", newm), ("v", newv))}
+    flat = tpyr.ravel(tpyr.params_from_numpy(lvl))
+    partials = tfi.level_warp_bwd(flat, _t(pts), _t(g), level, tcfg,
+                                  _t(g_nr))
+    p, m, v = flat.clone(), torch.zeros_like(flat), torch.zeros_like(flat)
+    tfi.adam_step(p, m, v, partials, torch.tensor(0.0), torch.tensor(0.0),
+                  0.01)
+    for k, got in (("p", p), ("m", m), ("v", v)):
+        assert (got - ref[k]).abs().max() < 1e-5, k
+    nr_m = tpyr.unravel(m, tpyr.level_shapes(tcfg))["nr"]
+    assert (level > 0) == bool(nr_m["w"].any() or nr_m["b"].any())
+
+
+def test_knn_table_matches_jax():
+    """The sweep-reuse k-NN table against JAX ``_knn_table``: the same
+    indices (no ties in these points), itself at column 0, the
+    nearest-other distance within 1e-5; invalid rows are no candidates."""
+    rng = np.random.default_rng(3)
+    pts = rng.standard_normal((40, 3)).astype(np.float32)
+    valid = np.arange(40) < 36
+    jidx, jnn = jfi._knn_table(jnp.asarray(pts),
+                               jnp.where(jnp.asarray(valid), 0.0, jfi._BIG), 6)
+    idx, nn = tfi._knn_table(_t(pts), torch.where(_t(valid), 0.0, tfi._BIG),
+                             6)
+    assert np.array_equal(idx.numpy(), np.asarray(jidx))
+    assert (idx[:36, 0] == torch.arange(36)).all()
+    assert not (idx >= 36).any()
+    assert np.abs(nn.numpy()[:36] - np.asarray(jnn)[:36]).max() < 1e-5
 
 
 def test_adam_step_bias_correction_by_applied_steps():

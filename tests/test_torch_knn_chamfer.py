@@ -80,6 +80,20 @@ def test_nn_argmin_dual_first_index_ties_and_exact_distances():
     assert np.abs(sq_x.numpy() - exact).max() < 1e-9
 
 
+@pytest.mark.parametrize("variant", tknn.DUAL_VARIANTS)
+def test_nn_argmin_dual_variant_is_c1(variant):
+    """Every dual-sweep variant of the JAX package (v1's semantics in the
+    TPU's operand layouts and encodings: v2 takes y as [3, M] rows) is sent
+    to C1: the same result as C1's plain version, bit for bit; an unknown
+    name raises."""
+    x, y, xv, yv = _clouds(4)
+    got = tknn.nn_argmin_dual(_t(x), _t(y), _t(xv), _t(yv), variant=variant)
+    ref = tknn.nn_argmin_dual_plain(_t(x), _t(y), _t(xv), _t(yv))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError, match="variant"):
+        tknn.nn_argmin_dual(_t(x), _t(y), variant="v5")
+
+
 def test_nn_argmin_matches_xla():
     x, y, _, yv = _clouds(1)
     sq, idx = tknn.nn_argmin(_t(x), _t(y), _t(yv))

@@ -15,6 +15,12 @@ import deformationpyramid_tpu_torch as dp
 from deformationpyramid_tpu_torch.data.synthetic import make_pair
 from deformationpyramid_tpu_torch.solve import loop, registration
 from deformationpyramid_tpu_torch.ops import chamfer, cuda_lib, fused_iteration, knn
+from deformationpyramid_tpu_torch.ops import chamfer_fused, fused_level
+import bench_torch
+import runpy
+for script in ("parity_torch_vs_ledger", "suite_parity_torch",
+               "check_torch_optin_kernels"):
+    runpy.run_path(f"scripts/{script}.py", run_name="not_main")
 from deformationpyramid_tpu_torch.metrics import flow, matching
 from deformationpyramid_tpu_torch.data import (
     collate, correspondence_utils, fourdmatch, ply, synthetic)
@@ -39,6 +45,22 @@ for fused in (False, True):
     warped, stats = dp.register_pair(0, torch.from_numpy(src),
                                      torch.from_numpy(tgt), cfg)
     assert torch.isfinite(warped).all()
+# the opt-in routes, the nonrigidity head and sweep reuse
+for opts in (dict(use_fused=True, use_fused_chamfer=True),
+             dict(use_fused=True, transposed=True),
+             dict(use_fused_iteration=True, sweep_reuse=4)):
+    cfg = dp.SolverConfig(pyramid=dp.NDPConfig(m=2, width=16), iters=5,
+                          samples=80, **opts)
+    warped, _ = dp.register_pair(0, torch.from_numpy(src),
+                                 torch.from_numpy(tgt), cfg)
+    assert torch.isfinite(warped).all()
+cfg = dp.SolverConfig(pyramid=dp.NDPConfig(m=2, width=16,
+                                           nonrigidity_est=True),
+                      iters=5, samples=80, w_reg=0.2,
+                      use_fused_iteration=True)
+warped, _ = dp.register_pair(0, torch.from_numpy(src), torch.from_numpy(tgt),
+                             cfg)
+assert torch.isfinite(warped).all()
 for w_cd in (0.0, 1.0):
     cfg = dp.SolverConfig(pyramid=dp.NDPConfig(m=2, width=16), iters=5,
                           samples=80, w_cd=w_cd, use_fused_iteration=True,

@@ -175,3 +175,31 @@ def test_shape_transfer_main_writes_warped_mesh(tmp_path, monkeypatch,
     before = np.abs(verts - tgt).mean()
     after = np.abs(out.vertices - tgt).mean()
     assert after < 0.5 * before
+
+
+def test_default_device_is_cuda(monkeypatch):
+    """The entry points run on the card unless the caller asks for the CPU:
+    ``register_meshes`` defaults to ``cuda`` and so does the CLI's
+    ``--device``, with no fallback to the CPU when there is no GPU."""
+    import inspect
+    from types import SimpleNamespace
+
+    import torch
+
+    assert inspect.signature(tst.register_meshes).parameters[
+        "device"].default == "cuda"
+    seen = {}
+    mesh = SimpleNamespace(vertices=np.zeros((4, 3), np.float32),
+                           faces=np.zeros((1, 3), np.int32))
+
+    def fake_register(src, tgt, verts, cfg, seed, device):
+        seen["device"] = device
+        return torch.zeros(4, 3), {"iters": torch.ones(9),
+                                   "loss": torch.zeros(9)}
+
+    monkeypatch.setattr(tst, "load_ply", lambda path: mesh)
+    monkeypatch.setattr(tst, "sample_points_uniformly",
+                        lambda m, n, seed: np.zeros((n, 3), np.float32))
+    monkeypatch.setattr(tst, "register_meshes", fake_register)
+    tst.main(["-s", "a.ply", "-t", "b.ply"])
+    assert seen["device"] == "cuda"

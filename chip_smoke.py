@@ -41,8 +41,10 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             kernel the one PyTorch
             call that computes the same function, where there is one
             (index_add_, the fused torch.optim.Adam step,
-            scaled_dot_product_attention), timed here and used nowhere in
-            the port, and the least time the card could take (bound_ms);
+            scaled_dot_product_attention, torch.cdist without the matmul
+            form and its min for C1, C12 and C14), timed here and used
+            nowhere in the port, and the least time the card could take
+            (bound_ms);
 4. fused    the bench configuration (9 levels, width 128, 500 iterations,
             2000 samples, SE3/axis_angle, fused iteration) on
             make_batch(4, n=2000, seed=100, deform=0.12) through
@@ -131,7 +133,29 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             fabricated 4DMatch-F pairs: fused (C2 / C3 with the nonrigidity
             head), unfused and --no-fast; finite metrics below the initial
             flow, the fused route's EPE within 2x of the unfused one's;
-13. small   small solves on the card against the same solves on the CPU,
+13. ed      ED / N-ICP from depth maps (cli/eval_ed.py): two fabricated
+            480 x 640 depth pairs (tests/depth_pairs.py: a bumpy surface
+            of ~40k pixels at 1.3-1.7 m, the target its bent and moved copy
+            z-buffered with numpy, fx = fy ~ 500); render_depth_silhouette
+            on the card equal to that numpy z-buffer, silhouette_cost
+            within 1e-5 of the CPU's; config/baselines/NICP.yaml as it
+            stands through eval_ed.main (600 iterations, lr 0.02 decaying
+            0.999, 2000 samples, node coverage 0.09, 8 neighbours): every
+            metric finite, full EPE <= 0.5x the initial flow, iterations in
+            [1, 600], C1 and C4 launched, the graph build's seconds by part
+            and the solve's ms/iter printed; pair 0 twice: equal
+            iterations, a bit-equal warp; config/baselines/Lepard+NICP.yaml
+            on one pair with the landmark model from seed 0: it finishes,
+            its landmarks are raw-cloud indices, its metrics finite, C7
+            launched (accuracy not gated); C14 nn_argmin against its plain
+            version on the warped source vertices against the target cloud
+            (~40k x ~37k), without and with a mask, and at 2000 x 2000 and
+            6000 x 6000 beside C1 (indices equal up to near-ties,
+            distances 1e-6 relative; the times, the bound and torch.cdist's
+            time); point_2_plane_distance on those clouds with the meshes'
+            vertex normals: within 1e-5 of the plain 1-NN's value, C14
+            launched twice;
+14. small   small solves on the card against the same solves on the CPU,
             where every kernel's plain version runs (SE3 + axis_angle,
             Sim3 + euler, sflow, SE3 + quaternion, Sim3 + 6D, both landmark
             modes; the two renormalised formats over 5 iterations a level
@@ -213,6 +237,16 @@ def bound(nbytes: float, flops: float) -> dict:
     by_ops = flops / F32_FLOP_PER_S * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def cdist_nn(x: torch.Tensor, y: torch.Tensor, both: bool = True):
+    """The library's exact-difference 1-NN, timed beside C1, C12 and C14
+    and used nowhere in the port: ``torch.cdist`` without the matmul form,
+    then ``min`` (each way where the kernel computes both directions). It
+    returns the root of the distance, so its index equals the kernel's
+    except where the root's rounding merges a near-tie."""
+    d = torch.cdist(x, y, compute_mode="donot_use_mm_for_euclid_dist")
+    return (d.min(1), d.min(0)) if both else d.min(1)
 
 
 def level_mlp_flops(n: int, cfg, heads: int) -> float:
@@ -328,9 +362,7 @@ def kernel_phase(dp, dev):
         err=err,
         ms=cuda_ms(lambda: knn.nn_argmin_dual(warped, y, xv, xv)),
         plain_ms=cuda_ms(lambda: knn.nn_argmin_dual_plain(warped, y, xv, xv)),
-        # torch.cdist + min is two calls a direction, and its matmul form
-        # is not the exact difference: no one library call computes this
-        library_ms=None,
+        library_ms=cuda_ms(lambda: cdist_nn(warped, y)),
         # ~8 flops a pair of points; inputs, masks and both outputs once
         **bound(2 * 2000 * (12 + 1 + 4 + 8), 8.0 * 2000 * 2000),
         tol="indices equal up to near-ties < 3e-4 rel; distances 1e-5")
@@ -2021,7 +2053,10 @@ def optin_kernel_phase(dp, dev):
         ms=cuda_ms(lambda: cf.chamfer_fused(warped, y, xv, yv, trunc)),
         plain_ms=cuda_ms(lambda: cf.chamfer_fused_plain(warped, y, xv, yv,
                                                         trunc)),
-        library_ms=None, c1_glue_c6_ms=cuda_ms(replaced),
+        # the library's exact-difference 1-NN both ways: the sweep alone,
+        # without the masks, the truncation, the sums or the gradient
+        library_ms=cuda_ms(lambda: cdist_nn(warped, y)),
+        c1_glue_c6_ms=cuda_ms(replaced),
         # 8 flops a pair of points; inputs, masks and outputs once
         **bound(n * (12 + 1 + 4 + 8 + 12) + n * (12 + 1) + 8,
                 8.0 * n * n),
@@ -2330,6 +2365,314 @@ def small_landmark_phase(dev):
           f"{int(outs['cpu']['match_valid'].sum())} on the CPU")
 
 
+ED_SHAPE = (480, 640)     # RenderConfig's default image
+C14_SHAPES = (2000, 6000)  # C1's shapes: the bench sample, the shape transfer
+
+
+def vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Unit normals per vertex: the sum of the incident faces' normals
+    (numpy cross products, area-weighted)."""
+    v = vertices.astype(np.float64)
+    fn = np.cross(v[faces[:, 1]] - v[faces[:, 0]], v[faces[:, 2]] - v[faces[:, 0]])
+    n = np.zeros_like(v)
+    for k in range(3):
+        np.add.at(n, faces[:, k], fn)
+    return (n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True),
+                           1e-12)).astype(np.float32)
+
+
+def c14_bound(n: int, m_valid: int, m: int) -> dict:
+    """C14's least time: 8 flops a (query, valid row) pair; the points,
+    the mask and both outputs once."""
+    return bound(n * 12 + m * 13 + n * 12, 8.0 * n * m_valid)
+
+
+def c14_case(dev, x, y, yv, tag, library_ms=None):
+    """C14 against its plain version on the card (indices equal up to
+    near-ties, distances 1e-6 relative), then its time, the plain
+    version's, the library call's and the bound. The library call takes
+    no mask: a masked case reuses the unmasked case's ``library_ms``. At
+    40k x 40k the call takes ~2 s (cdist without the matmul form is a
+    plain kernel that writes the whole [N, M] matrix): median of 3 there."""
+    from deformationpyramid_tpu_torch.ops import knn
+
+    sq, idx = knn.nn_argmin(x, y, yv)
+    rsq, ridx = knn.nn_argmin_plain(x, y, yv)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(rsq)
+    check(bool(torch.equal(fin, torch.isfinite(sq))),
+          f"C14 [{tag}]: rows without a candidate differ")
+    rel = float(((sq - rsq).abs() / rsq.clamp_min(1e-30))[fin].max()) \
+        if bool(fin.any()) else 0.0
+    check(rel <= 1e-6, f"C14 [{tag}]: distance rel err {rel} > 1e-6")
+    flips = near_ties(x, y, idx, ridx, f"C14 [{tag}]")
+    if yv is not None:
+        check(bool(yv[idx[fin]].all()), f"C14 [{tag}]: an invalid row won")
+    m_valid = y.shape[0] if yv is None else int(yv.sum())
+    res = dict(shape=f"{x.shape[0]} x {y.shape[0]}"
+               + ("" if yv is None else f" ({m_valid} valid)"),
+               err=float((sq - rsq)[fin].abs().max()), rel_err=rel,
+               flips=flips, **c14_bound(x.shape[0], m_valid, y.shape[0]))
+    if yv is None:      # cdist takes no mask
+        lib = cdist_nn(x, y, both=False)
+        near_ties(x, y, lib.indices, idx, f"C14 [{tag}] against cdist")
+    if library_ms is None:
+        big = x.shape[0] * y.shape[0] > 1e8
+        library_ms = cuda_ms(lambda: cdist_nn(x, y, both=False),
+                             reps=3 if big else REPS)
+    res.update(ms=cuda_ms(lambda: knn.nn_argmin(x, y, yv)),
+               plain_ms=cuda_ms(lambda: knn.nn_argmin_plain(x, y, yv)),
+               library_ms=library_ms)
+    res["tol"] = (f"indices equal up to near-ties < 3e-4 rel ({flips} "
+                  f"flips); distances 1e-6 rel ({rel:.1e})")
+    return res
+
+
+def ed_phase(dp, dev, kernels):
+    """ED / N-ICP from depth maps: two fabricated 480 x 640 depth pairs
+    (tests/depth_pairs.py) through cli/eval_ed.py with config/baselines/
+    NICP.yaml, one pair twice, Lepard+NICP on one pair, C14 at the pair's
+    full clouds and at C1's shapes, point_2_plane_distance end to end, the
+    renderer against the numpy z-buffer and silhouette_cost against the
+    CPU."""
+    import tempfile
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from depth_pairs import write_ed_split
+    from deformationpyramid_tpu_torch.cli import eval_ed
+    from deformationpyramid_tpu_torch.data.fourdmatch import FourDMatchDataset
+    from deformationpyramid_tpu_torch.data.graph import depth_to_mesh
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.geometry.camera import \
+        depth_to_pointcloud
+    from deformationpyramid_tpu_torch.ops import knn, render
+    from deformationpyramid_tpu_torch.utils.config import load_config
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        return {k.name: k.launches for k in kernels}
+
+    out = {}
+    nicp_yaml = str(REPO / "config" / "baselines" / "NICP.yaml")
+    cfg = load_config(nicp_yaml)
+    check((cfg.iters, cfg.lr, cfg.samples, cfg.node_coverage,
+           cfg.num_neighbors) == (600, 0.02, 2000, 0.09, 8)
+          and eval_ed.solver_config(cfg).lr_decay == 0.999,
+          "ed: config/baselines/NICP.yaml no longer gives the N-ICP solver")
+    h, w = ED_SHAPE
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        pairs = write_ed_split(root, "4DMatch-F", n_pairs=2, h=h, w=w)
+        init = [float(np.linalg.norm(p["flow"], axis=1).mean()) * 100
+                for p in pairs]
+        phase("ed", f"fabricated 2 depth pairs of {h} x {w} in "
+              f"{time.perf_counter() - t0:.2f} s: source "
+              f"{[len(p['src']) for p in pairs]} vertices, target "
+              f"{[int((p['tgt_depth_m'] > 0).sum()) for p in pairs]} pixels; "
+              f"initial flow {[round(v, 3) for v in init]} cm")
+
+        # the renderer at full size against the numpy z-buffer
+        K32 = torch.tensor(pairs[0]["K"], dtype=torch.float32, device=dev)
+        tgt_v = torch.from_numpy(pairs[0]["tgt"]).to(dev)
+        src_v = torch.from_numpy(pairs[0]["src"]).to(dev)
+        rc = render.RenderConfig(height=h, width=w)   # the default at 480 x 640
+        depth, sil = render.render_depth_silhouette(tgt_v, K32, rc)
+        ref = torch.from_numpy(pairs[0]["tgt_depth_m"]).to(dev)
+        torch.cuda.synchronize()
+        d_err = float((depth - ref).abs().max())
+        check(d_err <= 1e-6 and torch.equal(sil > 0, ref > 0),
+              f"ed: render_depth_silhouette against the numpy z-buffer: "
+              f"depth err {d_err}, silhouettes differ by "
+              f"{int(((sil > 0) != (ref > 0)).sum())} pixels")
+        sc = render.silhouette_cost(src_v, tgt_v, K32, rc)
+        sc_cpu = render.silhouette_cost(src_v.cpu(), tgt_v.cpu(), K32.cpu(),
+                                        rc)
+        sc_rel = abs(float(sc) - float(sc_cpu)) / abs(float(sc_cpu))
+        check(sc_rel <= 1e-5, f"ed: silhouette_cost card {float(sc)} against "
+              f"CPU {float(sc_cpu)} (rel {sc_rel} > 1e-5)")
+        out["render"] = dict(
+            depth_err=d_err, pixels=int((sil > 0).sum()),
+            ms=cuda_ms(lambda: render.render_depth_silhouette(tgt_v, K32, rc)),
+            silhouette_cost=float(sc), silhouette_cost_rel_err=sc_rel)
+        phase("ed", f"render_depth_silhouette [{len(tgt_v)} points, {h} x "
+              f"{w}]: equal to the numpy z-buffer (depth err {d_err:.1e}), "
+              f"{out['render']['ms']:.4f} ms; silhouette_cost card "
+              f"{float(sc):.6f} against CPU {float(sc_cpu):.6f} (rel "
+              f"{sc_rel:.1e} <= 1e-5)")
+
+        # N-ICP through the CLI, as a user runs it
+        reset()
+        t0 = time.perf_counter()
+        rep = eval_ed.main(["--config", nicp_yaml, "--data-root", root,
+                            "--splits", "4DMatch-F", "--device", "cuda"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = counts()
+        r = rep["4DMatch-F"]
+        scores = r["scores"]
+        check(r["pairs"] == 2, f"ed: {r['pairs']} pairs scored, not 2")
+        check(all(np.isfinite(v) for v in scores.values()),
+              f"ed: non-finite metrics {scores}")
+        its = [i["iters"] for i in r["info"]]
+        check(all(1 <= i <= cfg.iters for i in its),
+              f"ed: iterations {its} outside [1, {cfg.iters}]")
+        check(scores["full-epe"] <= 0.5 * float(np.mean(init)),
+              f"ed: full EPE {scores['full-epe']:.4f} cm > 0.5x the initial "
+              f"{np.mean(init):.4f} cm")
+        for name in ("nn_dual", "adam_step"):
+            check(launches[name] > 0, f"ed: kernel {name} never launched")
+        graph_s = {k: [round(i["graph_seconds"][k], 3) for i in r["info"]]
+                   for k in ("mesh", "nodes", "dijkstra", "anchors")}
+        ms_iter = [1e3 * i["solve_seconds"] / i["iters"] for i in r["info"]]
+        out["nicp"] = dict(
+            seconds=secs, scores=scores, initial_epe_cm=float(np.mean(init)),
+            iters=its, graph_seconds=graph_s, solve_ms_per_iter=ms_iter,
+            sizes=[(i["n_vertices"], i["n_nodes"], i["n_target"])
+                   for i in r["info"]],
+            launches={k: v for k, v in launches.items() if v})
+        phase("ed", f"NICP.yaml through eval_ed (2 pairs, {secs:.2f} s): "
+              f"graph build seconds by part {graph_s}; solve "
+              f"{[round(v, 4) for v in ms_iter]} ms/iter over {its} "
+              f"iterations; (vertices, nodes, target points) "
+              f"{out['nicp']['sizes']}; C1 {launches['nn_dual']}, C4 "
+              f"{launches['adam_step']} launches")
+        phase("ed", "NICP.yaml scores (cm, %): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in scores.items())
+              + f"; initial flow {np.mean(init):.4f} cm")
+
+        # one pair twice: equal iterations, a bit-equal warp
+        ds = FourDMatchDataset(root, "4DMatch-F")
+        scfg = eval_ed.solver_config(cfg)
+        infos = []
+        for _ in range(2):
+            info = {}
+            eval_ed.evaluate_pair_ed(ds[0], cfg, scfg, 0, device=dev,
+                                     info=info)
+            infos.append(info)
+        torch.cuda.synchronize()
+        check(infos[0]["iters"] == infos[1]["iters"]
+              and torch.equal(infos[0]["warped"], infos[1]["warped"]),
+              f"ed: pair 0 twice: iterations {infos[0]['iters']} / "
+              f"{infos[1]['iters']}, warp differs by "
+              f"{float((infos[0]['warped'] - infos[1]['warped']).abs().max())}")
+        phase("ed", f"pair 0 twice: {infos[0]['iters']} iterations both "
+              f"times, bit-equal warp")
+
+        # Lepard+NICP on one pair: the learned landmarks from seed 0
+        lyaml = str(REPO / "config" / "baselines" / "Lepard+NICP.yaml")
+        reset()
+        t0 = time.perf_counter()
+        lrep = eval_ed.main(["--config", lyaml, "--data-root", root,
+                             "--splits", "4DMatch-F", "--device", "cuda",
+                             "--limit", "1"])
+        torch.cuda.synchronize()
+        lsecs = time.perf_counter() - t0
+        llaunch = counts()
+        check("4DMatch-F" in lrep and lrep["4DMatch-F"]["pairs"] == 1,
+              "ed: Lepard+NICP did not score its pair")
+        lr_ = lrep["4DMatch-F"]
+        li = lr_["info"][0]
+        lm = li["landmarks"]
+        check(lm["src_ldmk_idx"].dtype == np.int64
+              and 0 <= lm["src_ldmk_idx"].min()
+              and lm["src_ldmk_idx"].max() < li["n_vertices"]
+              and 0 <= lm["tgt_ldmk_idx"].min()
+              and lm["tgt_ldmk_idx"].max() < li["n_target"],
+              "ed: Lepard+NICP landmarks are not raw-cloud indices")
+        check(all(np.isfinite(v) for v in lr_["scores"].values()),
+              f"ed: Lepard+NICP non-finite metrics {lr_['scores']}")
+        check(llaunch["flash_attention_fwd"] > 0,
+              "ed: Lepard+NICP never launched C7")
+        l_graph = sum(li["graph_seconds"].values())
+        out["lepard_nicp"] = dict(
+            seconds=lsecs, scores=lr_["scores"], iters=li["iters"],
+            graph_seconds=l_graph, solve_seconds=li["solve_seconds"],
+            landmarks=int(lm["ldmk_valid"].sum()),
+            landmark_rows=len(lm["ldmk_valid"]),
+            launches={k: v for k, v in llaunch.items() if v})
+        phase("ed", f"Lepard+NICP.yaml (1 pair, weights from seed 0, "
+              f"{lsecs:.2f} s: graph {l_graph:.3f} s, solve "
+              f"{li['solve_seconds']:.3f} s = "
+              f"{1e3 * li['solve_seconds'] / li['iters']:.4f} ms/iter, the "
+              f"landmark model with its collate and the I/O the rest): "
+              f"{out['lepard_nicp']['landmarks']} valid "
+              f"landmarks of {len(lm['ldmk_valid'])} rows, {li['iters']} "
+              f"iterations, full-epe {lr_['scores']['full-epe']:.4f} cm "
+              f"(not gated: untrained weights); launches "
+              f"{out['lepard_nicp']['launches']}")
+
+        # C14 at the pair's full clouds: the warped source vertices
+        # against the target cloud, without and with a mask
+        p0 = pairs[0]
+        tgt_depth = p0["tgt_depth_mm"] / 1000.0
+        tgt_pcd = depth_to_pointcloud(tgt_depth, p0["K"]).reshape(3, -1).T[
+            (tgt_depth > 0).reshape(-1)].astype(np.float32)
+        x = infos[0]["warped"].contiguous()
+        y = torch.from_numpy(tgt_pcd).to(dev)
+        yv = torch.from_numpy(
+            np.random.default_rng(9).random(len(tgt_pcd)) > 0.3).to(dev)
+        c14 = c14_case(dev, x, y, None, "full clouds")
+        c14["masked"] = c14_case(dev, x, y, yv, "full clouds, masked",
+                                 library_ms=c14["library_ms"])
+        for n in C14_SHAPES:
+            src, tgt, _ = make_pair(n=n, seed=0, deform=0.12)
+            xs = torch.from_numpy(src - src.mean(0)).to(dev)
+            ys = torch.from_numpy(tgt - tgt.mean(0)).to(dev)
+            case = c14_case(dev, xs, ys, None, f"{n} x {n}")
+            case["c1_ms"] = cuda_ms(lambda: knn.nn_argmin_dual(xs, ys))
+            case["c1_library_ms"] = cuda_ms(lambda: cdist_nn(xs, ys))
+            c14[f"at_{n}"] = case
+        for tag, r_ in (("full clouds", c14), ("masked", c14["masked"]),
+                        *((f"{n} x {n}", c14[f"at_{n}"])
+                          for n in C14_SHAPES)):
+            print_kernel(f"nn_argmin [{tag}: {r_['shape']}]", r_)
+        for n in C14_SHAPES:
+            phase("kernels", f"at {n} x {n}: C1 (both directions) "
+                  f"{c14[f'at_{n}']['c1_ms']:.4f} ms, cdist both ways "
+                  f"{c14[f'at_{n}']['c1_library_ms']:.4f} ms")
+
+        # point_2_plane_distance end to end: the warped source mesh's
+        # normals against the target mesh's, C14 twice a call
+        verts, faces, _ = depth_to_mesh(p0["src_depth_mm"], p0["K"], 0.06,
+                                        1000.0)
+        nx = torch.from_numpy(vertex_normals(x.cpu().numpy(), faces)).to(dev)
+        tv_, tf_, _ = depth_to_mesh(p0["tgt_depth_mm"], p0["K"], 0.06, 1000.0)
+        yt = torch.from_numpy(tv_).to(dev)
+        ny = torch.from_numpy(vertex_normals(tv_, tf_)).to(dev)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, x2p, y2p = render.point_2_plane_distance(x, yt, nx, ny)
+        torch.cuda.synchronize()
+        p2p_ms = (time.perf_counter() - t0) * 1e3
+        p2p_launch = knn.NN_ARGMIN.launches
+        check(p2p_launch == 2, f"ed: point_2_plane_distance launched C14 "
+              f"{p2p_launch} times, not 2")
+        _, ix = knn.nn_argmin_plain(x, yt)
+        _, iy = knn.nn_argmin_plain(yt, x)
+        rx = torch.sqrt(torch.clamp_min(
+            (((x - yt[ix]) * ny[ix]) ** 2).sum(1), 1e-16)).mean()
+        ry = torch.sqrt(torch.clamp_min(
+            (((yt - x[iy]) * nx[iy]) ** 2).sum(1), 1e-16)).mean()
+        p_rel = max(abs(float(x2p) - float(rx)) / float(rx),
+                    abs(float(y2p) - float(ry)) / float(ry))
+        check(np.isfinite(float(total)) and p_rel <= 1e-5,
+              f"ed: point_2_plane_distance against the plain 1-NN: rel "
+              f"{p_rel} > 1e-5")
+        c14["point_2_plane"] = dict(total=float(total), x2p=float(x2p),
+                                    y2p=float(y2p), rel_err=p_rel,
+                                    host_ms=p2p_ms, launches=p2p_launch)
+        phase("ed", f"point_2_plane_distance [{len(x)} x {len(yt)}]: "
+              f"{float(total):.6f} (x2p {float(x2p):.6f}, y2p "
+              f"{float(y2p):.6f}), the plain 1-NN's within {p_rel:.1e}; "
+              f"C14 launched {p2p_launch} times; {p2p_ms:.3f} ms host")
+    out["c14"] = c14
+    return out
+
+
 def machine_line() -> str:
     """The card, its driver, power limit and compute capability, the CUDA
     of PyTorch and of nvcc: what ties a failing run to its machine."""
@@ -2354,6 +2697,7 @@ def main() -> None:
                            "runs only on a GPU")
     print(machine_line(), flush=True)
     sys.path.insert(0, str(REPO))
+    os.chdir(REPO)      # the yaml files name their sub-configs from here
     import deformationpyramid_tpu_torch as dp
     from deformationpyramid_tpu_torch.match import attention
     from deformationpyramid_tpu_torch.ops import (chamfer_fused, cuda_lib,
@@ -2384,7 +2728,7 @@ def main() -> None:
                attention.FLASH_ATTENTION, attention.FLASH_ATTENTION_BWD_DKV,
                attention.FLASH_ATTENTION_BWD_DQ, fused_iteration.NSFP_FWD,
                fused_iteration.NSFP_BWD, chamfer_fused.CHAMFER_FUSED,
-               fused_iteration.SUM_PARTIALS]
+               fused_iteration.SUM_PARTIALS, knn.NN_ARGMIN]
     measured = kernel_phase(dp, dev)
     sim3 = sim3_kernel_phase(dp, dev)
     formats = format_kernel_phase(dp, dev)
@@ -2452,6 +2796,13 @@ def main() -> None:
         f"{tag} {r['ms_per_iter']:.4f}" for tag, r in optin.items()
         if "ms_per_iter" in r) + f"; {smi}")
 
+    ed = ed_phase(dp, dev, kernels)
+    measured["nn_argmin"] = ed["c14"]
+    phase("ed", f"NICP full-epe {ed['nicp']['scores']['full-epe']:.4f} cm "
+          f"(initial {ed['nicp']['initial_epe_cm']:.4f}), solve "
+          f"{statistics.mean(ed['nicp']['solve_ms_per_iter']):.4f} ms/iter; "
+          f"C14 {ed['c14']['ms']:.4f} ms at {ed['c14']['shape']}; {smi}")
+
     small_phase(dp, dev)
     small_landmark_phase(dev)
 
@@ -2479,7 +2830,8 @@ def main() -> None:
                "chamfer_fused": ("csrc/chamfer_fused.cu",
                                  "ops/chamfer_fused.py:53"),
                # the cross-tile accumulation of the standalone VJP
-               "sum_partials": ("csrc/adam.cu", "ops/fused_level.py:108")}
+               "sum_partials": ("csrc/adam.cu", "ops/fused_level.py:108"),
+               "nn_argmin": ("csrc/nn_argmin.cu", "ops/knn.py:76")}
     # the TPU kernels a kernel replaces beyond its "replaces" entry
     also = {"nn_dual": ["ops/knn.py:166", "ops/knn.py:236", "ops/knn.py:306"],
             "level_warp_fwd": ["ops/fused_level.py:99",
@@ -2501,7 +2853,9 @@ def main() -> None:
         flash_attention_bwd_dkv=train["launches"]["flash_attention_bwd_dkv"],
         flash_attention_bwd_dq=train["launches"]["flash_attention_bwd_dq"],
         chamfer_fused=optin["use_fused_chamfer"]["launches"]["chamfer_fused"],
-        sum_partials=optin["use_fused"]["launches"]["sum_partials"])
+        sum_partials=optin["use_fused"]["launches"]["sum_partials"],
+        # the ed path's point_2_plane_distance, once each way
+        nn_argmin=ed["c14"]["point_2_plane"]["launches"])
     rows = []
     for k in kernels:
         row = {"name": k.name, "route": "cuda",
@@ -2541,6 +2895,11 @@ def main() -> None:
             row["se3_quaternion"] = ldmk_quat
         if k.name == "adam_step":
             row["at_nsfp_shape"] = nsfp_k["adam_step_at_nsfp"]
+        if k.name == "nn_argmin":
+            c14 = measured[k.name]
+            row["masked"] = c14["masked"]
+            row.update({f"at_{n}": c14[f"at_{n}"] for n in C14_SHAPES})
+            row["point_2_plane"] = c14["point_2_plane"]
         if "at_4096_2836" in measured[k.name]:
             row["at_4096_2836"] = measured[k.name]["at_4096_2836"]
         if k.name == "flash_attention_fwd":
@@ -2563,7 +2922,8 @@ def main() -> None:
         "train": {k: v for k, v in train.items()
                   if k != "at_path_shape"},
         "nolearned": nolearned,
-        "optin": optin}), flush=True)
+        "optin": optin,
+        "ed": {k: v for k, v in ed.items() if k != "c14"}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

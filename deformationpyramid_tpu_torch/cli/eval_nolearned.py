@@ -14,15 +14,17 @@ Usage:
       --splits 4DMatch-F --limit 64 --resume
 
 ``deformation_model`` NDP (every ``motion_type`` and ``rotation_format`` of
-``config/NDP.yaml``), NSFP, Nerfies and Sinkhorn are covered. The fast path
-(NDP, NSFP, Nerfies) subsamples and centres each pair on the host, runs one
-fixed-shape solve at [samples, 3] and a warp + metrics pass over the full
-cloud at a power-of-two bucket, and fetches the 12 metrics of a pair as one
-vector; ``--no-fast`` solves padded bucket batches pair by pair through
-``register_pair`` and its siblings (Sinkhorn's only path: it scores the moved
-subset). Everything runs on ``--device`` (``cuda`` by default). What is not
-ported raises: ``--visualize`` (``utils/vis.py``), the multi-host shard
-(``parallel/mesh.py``) and ``deformation_model: ED`` (``cli/eval_ed.py``).
+``config/NDP.yaml``), NSFP, Nerfies and Sinkhorn are covered; ED (N-ICP)
+delegates to ``cli/eval_ed.py`` with the same config and splits, as the JAX
+CLI does. The fast path (NDP, NSFP, Nerfies) subsamples and centres each
+pair on the host, runs one fixed-shape solve at [samples, 3] and a warp +
+metrics pass over the full cloud at a power-of-two bucket, and fetches the
+12 metrics of a pair as one vector; ``--no-fast`` solves padded bucket
+batches pair by pair through ``register_pair`` and its siblings
+(Sinkhorn's only path: it scores the moved subset). Everything runs on
+``--device`` (``cuda`` by default). What is not ported raises:
+``--visualize`` (``utils/vis.py``) and the multi-host shard
+(``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -340,10 +342,20 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
         cfg["data_root"] = args.data_root
     model = cfg.get("deformation_model", "NDP")
     if model == "ED":
-        raise NotImplementedError(
-            "deformation_model ED needs the depth / graph evaluation "
-            "(cli/eval_ed.py, data/graph.py, ops/render.py), which is not "
-            "ported")
+        # The reference drives all five deformation models through one entry
+        # point; ED needs the depth / graph path, which lives in eval_ed, as
+        # in the JAX package (cli/eval_nolearned.py:310-322): delegate.
+        from . import eval_ed
+        print("[eval_nolearned] ED config -> delegating to cli.eval_ed")
+        ed_argv = ["--config", args.config, "--splits", *args.splits,
+                   "--device", args.device]
+        if args.limit is not None:
+            ed_argv += ["--limit", str(args.limit)]
+        if args.data_root is not None:
+            ed_argv += ["--data-root", args.data_root]
+        if args.visualize:
+            ed_argv.append("--visualize")
+        return eval_ed.main(ed_argv)
     if args.visualize:
         raise NotImplementedError(
             "--visualize needs utils/vis.py, which is not ported")

@@ -1,13 +1,13 @@
 """Auxiliary registration losses (reference ``model/loss.py:261-379``).
 
-Counterpart of ``deformationpyramid_tpu/losses/__init__.py``, without the
-embedded-deformation graph's ``arap_cost``.
+Counterpart of ``deformationpyramid_tpu/losses/__init__.py``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.chamfer import batched_truncated_chamfer, truncated_chamfer  # noqa: F401
+from ..ops.render import point_2_plane_distance, silhouette_cost  # noqa: F401
 
 Tensor = torch.Tensor
 
@@ -20,6 +20,27 @@ def landmark_cost(x: Tensor, y: Tensor, valid: Tensor | None = None
         return torch.mean(sq)
     return torch.sum(torch.where(valid, sq, 0.0)) \
         / torch.clamp_min(valid.sum(), 1)
+
+
+def arap_cost(R: Tensor, t: Tensor, g: Tensor, e: Tensor, w: Tensor,
+              e_valid: Tensor | None = None) -> Tensor:
+    """As-rigid-as-possible cost over deformation-graph edges.
+
+    R [N, 3, 3] node rotations, t [N, 3] node translations, g [N, 3] node
+    positions, e [N, K] neighbour indices, w [N, K] edge weights. Matches
+    ``model/loss.py:261-285``; ``e_valid`` masks padded edges.
+    """
+    g_j = g[e]                        # [N, K, 3]
+    t_j = t[e]
+    d = g_j - g[:, None]              # [N, K, 3]
+    rot_d = torch.einsum("nij,nkj->nki", R, d)
+    e_ij = torch.sum((rot_d + g[:, None] + t[:, None] - g_j - t_j) ** 2,
+                     dim=-1)
+    cost = w * e_ij
+    if e_valid is None:
+        return torch.mean(cost)
+    return torch.sum(torch.where(e_valid, cost, 0.0)) \
+        / torch.clamp_min(e_valid.sum(), 1)
 
 
 def _sym3x3_max_eigval(A: Tensor) -> Tensor:

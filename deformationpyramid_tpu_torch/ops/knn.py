@@ -1,8 +1,11 @@
 """Nearest-neighbour search: exact 1-NN in one or both directions.
 
-Counterpart of ``deformationpyramid_tpu/ops/knn.py``. The chamfer loss
-needs only the argmin indices; the differentiable distance is rebuilt from
-gathered points (``ops/chamfer.py``), so nothing here has a gradient.
+Counterpart of ``deformationpyramid_tpu/ops/knn.py``: kernel C1
+``nn_dual`` (``csrc/nn_dual.cu``, both directions, the chamfer's sweep) and
+kernel C14 ``nn_argmin`` (``csrc/nn_argmin.cu``, one direction, the
+point-to-plane loss's). The chamfer loss needs only the argmin indices; the
+differentiable distance is rebuilt from gathered points
+(``ops/chamfer.py``), so nothing here has a gradient.
 
 Distances are the exact difference form sum((q - p)^2), in float32 with no
 TF32, and never |q|^2 + |p|^2 - 2 q.p: the cancellation of the expanded
@@ -19,19 +22,69 @@ from .cuda_lib import I, Kernel, P, check_cuda, on_cpu
 Tensor = torch.Tensor
 
 NN_DUAL = Kernel("nn_dual", "dp_nn_dual", [P, P, P, P, I, I, P, P, P, P])
+NN_ARGMIN = Kernel("nn_argmin", "dp_nn_argmin", [P, P, P, I, I, P, P])
+
+
+def nn_argmin_plain(x: Tensor, y: Tensor, y_valid: Tensor | None = None,
+                    chunk: int | None = None) -> tuple[Tensor, Tensor]:
+    """Plain version of kernel C14: the exact squared distance summed left
+    to right, (dx*dx + dy*dy) + dz*dz, then ``torch.min`` (the first index
+    of a tie). Query rows go in chunks of ``chunk`` (default: ~2^25
+    distances a chunk), so that the [rows, M] temporaries stay bounded at
+    40k x 40k; every distance is computed alike in any chunking, so the
+    result does not depend on it."""
+    n, m = x.shape[0], y.shape[0]
+    if n == 0 or m == 0:
+        return (torch.full((n,), torch.inf, dtype=x.dtype, device=x.device),
+                torch.zeros(n, dtype=torch.int64, device=x.device))
+    if chunk is None:
+        chunk = max(1, (1 << 25) // m)
+    sq, idx = [], []
+    for s in range(0, n, chunk):
+        diff = x[s:s + chunk, None, :] - y[None, :, :]
+        d = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) \
+            + diff[..., 2] * diff[..., 2]
+        if y_valid is not None:
+            d = torch.where(y_valid[None, :], d, torch.inf)
+        part = torch.min(d, dim=1)
+        sq.append(part.values)
+        idx.append(part.indices)
+    return torch.cat(sq), torch.cat(idx)
+
+
+def nn_argmin_cuda(x: Tensor, y: Tensor, y_valid: Tensor | None = None
+                   ) -> tuple[Tensor, Tensor]:
+    """Kernel C14 (``csrc/nn_argmin.cu``) on CUDA tensors."""
+    n, m = x.shape[0], y.shape[0]
+    x = x.contiguous()
+    y = y.contiguous()
+    check_cuda("nn_argmin", x, y)
+    if y_valid is not None:
+        y_valid = y_valid.contiguous()
+        check_cuda("nn_argmin", x, y_valid, dtype=None)
+        if y_valid.shape != (m,) or y_valid.dtype != torch.bool:
+            raise ValueError("nn_argmin: expected a bool y_valid [M]")
+    if x.shape != (n, 3) or y.shape != (m, 3):
+        raise ValueError("nn_argmin: expected f32 x [N, 3] and y [M, 3]")
+    sq = torch.empty(n, dtype=torch.float32, device=x.device)
+    idx = torch.empty(n, dtype=torch.int64, device=x.device)
+    NN_ARGMIN.launch(x.data_ptr(), y.data_ptr(),
+                     None if y_valid is None else y_valid.data_ptr(), n, m,
+                     sq.data_ptr(), idx.data_ptr())
+    return sq, idx
 
 
 def nn_argmin(x: Tensor, y: Tensor, y_valid: Tensor | None = None
               ) -> tuple[Tensor, Tensor]:
     """1-NN of each row of ``x`` [N, 3] in ``y`` [M, 3]: (sq_dist [N],
-    idx [N]). Plain PyTorch on every device; the one-direction streaming
-    kernel (``ops/knn.py`` ``_nn_kernel``) is not ported yet, and the solver
-    path uses :func:`nn_argmin_dual`."""
-    d = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
-    if y_valid is not None:
-        d = torch.where(y_valid[None, :], d, torch.inf)
-    sq, idx = torch.min(d, dim=1)
-    return sq, idx
+    idx [N] int64). Kernel C14 on CUDA tensors at every size (the JAX
+    package's ``_nn_kernel`` from N*M >= 4096^2 on a TPU), its plain
+    version on CPU tensors. ``y_valid`` masks database rows out (True =
+    real point); a query with no valid candidate gets (+inf, 0)."""
+    tensors = [t for t in (x, y, y_valid) if t is not None]
+    if on_cpu(*tensors):
+        return nn_argmin_plain(x, y, y_valid)
+    return nn_argmin_cuda(x, y, y_valid)
 
 
 def nn_argmin_dual_plain(x: Tensor, y: Tensor,

@@ -104,10 +104,11 @@ class SolverConfig:
                           loss_eps=self.loss_eps)
 
 
-def _as_generator(key: int | torch.Generator) -> torch.Generator:
+def _as_generator(key: int | torch.Generator,
+                  device: torch.device | str = "cpu") -> torch.Generator:
     if isinstance(key, torch.Generator):
         return key
-    return torch.Generator().manual_seed(int(key))
+    return torch.Generator(device=device).manual_seed(int(key))
 
 
 def _solve_level(lvl_params: dict, lvl: int, pts: Tensor, pts_valid: Tensor,
@@ -183,10 +184,12 @@ def _solve_level(lvl_params: dict, lvl: int, pts: Tensor, pts_valid: Tensor,
 def _random_subset_idx(gen: torch.Generator, pts: Tensor, valid: Tensor,
                        k: int) -> tuple[Tensor, Tensor, Tensor]:
     """Random k-subset of the valid rows, fixed output shape: rows ranked by
-    a uniform score (drawn on the CPU from ``gen``) with invalid rows last;
-    if fewer than k rows are valid the extras come back masked out. Returns
-    (rows, their validity, their indices into ``pts``)."""
-    score = torch.rand(pts.shape[0], generator=gen).to(pts.device)
+    a uniform score (drawn from ``gen`` on the generator's device, then
+    moved to the points') with invalid rows last; if fewer than k rows are
+    valid the extras come back masked out. Returns (rows, their validity,
+    their indices into ``pts``)."""
+    score = torch.rand(pts.shape[0], generator=gen,
+                       device=gen.device).to(pts.device)
     score = torch.where(valid, score, 2.0)
     idx = torch.topk(-score, k).indices
     return pts[idx], valid[idx], idx

@@ -11,7 +11,8 @@ rows 1e-5, loss 1e-6 relative, counter and done equal, moments 1e-6 of
 their max, params 1e-6 where |g| > 1e-3 max|g|, a held step bit-exact; C6
 bit-equal to index_add_ on the CPU. The fused level repeats bit for bit
 (the glue's scatter has a fixed order).
-C2 and C3 are checked for SE3 + axis_angle, Sim3 + euler, sflow, and SE3 and
+C14 distances 1e-6 relative and indices equal up to near-ties, at ragged
+tiles and with no valid row. C2 and C3 are checked for SE3 + axis_angle, Sim3 + euler, sflow, and SE3 and
 Sim3 with the quaternion and 6D formats. C10 warped points 2e-5; C11
 gradients 1e-4 of each tensor's max |g| against the plain version in float64
 (nine float32 layers deep, two float32 gradients differ by more), bit-equal
@@ -88,6 +89,73 @@ def test_nn_dual_matches_plain(dev):
             dr = ((q[flips] - db[ri[flips]]) ** 2).sum(-1)
             assert ((dg - dr).abs() / dr.clamp_min(1e-30)).max() < 3e-4
     assert yv[got[1]].all() and xv[got[3]].all()
+
+
+@pytest.mark.parametrize("n,m,mask", [(2000, 2000, None),
+                                       (777, 1333, "random"),
+                                       (130, 65, "none valid")])
+def test_nn_argmin_matches_plain(dev, n, m, mask):
+    """C14 against its plain version: 64-point tiles, so 777 / 1333 / 130
+    / 65 leave ragged last tiles; distances 1e-6 relative, indices equal up
+    to near-ties, one launch a call; with no valid row (+inf, 0)."""
+    gen = torch.Generator().manual_seed(n + m)
+    centre = torch.tensor([0.2, -0.1, 1.5])
+    x = (torch.randn(n, 3, generator=gen) * 0.3 + centre).to(dev)
+    y = (torch.randn(m, 3, generator=gen) * 0.3 + centre).to(dev)
+    yv = None
+    if mask == "random":
+        yv = (torch.rand(m, generator=gen) > 0.3).to(dev)
+    elif mask == "none valid":
+        yv = torch.zeros(m, dtype=torch.bool, device=dev)
+    before = tknn.NN_ARGMIN.launches
+    sq, idx = tknn.nn_argmin(x, y, yv)
+    rsq, ridx = tknn.nn_argmin_plain(x, y, yv)
+    torch.cuda.synchronize()
+    assert tknn.NN_ARGMIN.launches == before + 1
+    assert sq.dtype == torch.float32 and idx.dtype == torch.int64
+    if mask == "none valid":
+        assert torch.isinf(sq).all() and (idx == 0).all()
+        return
+    assert ((sq - rsq).abs() <= 1e-6 * rsq).all()
+    flips = idx != ridx
+    if flips.any():
+        dg = ((x[flips] - y[idx[flips]]) ** 2).sum(-1)
+        dr = ((x[flips] - y[ridx[flips]]) ** 2).sum(-1)
+        assert ((dg - dr).abs() / dr.clamp_min(1e-30)).max() < 3e-4
+    if yv is not None:
+        assert yv[idx].all()
+
+
+def test_register_ed_repeats_on_the_card(dev):
+    """The ED solve draws its resamples from a generator on the card and
+    its gathers' backward is sort-based: one seed gives equal iterations
+    and a bit-equal warp; its chamfer runs C1."""
+    from deformationpyramid_tpu_torch.solve import baselines as tsolve
+    gen = torch.Generator().manual_seed(5)
+    src = torch.rand(3000, 3, generator=gen)
+    tgt = src + torch.tensor([0.05, -0.02, 0.03])
+    nodes = src[:40]
+    d = ((nodes[:, None] - nodes[None]) ** 2).sum(-1)
+    d.fill_diagonal_(float("inf"))
+    edges = d.argsort(1)[:, :6]
+    anchors = ((src[:, None] - nodes[None]) ** 2).sum(-1).argsort(1)[:, :4]
+    args = [t.to(dev) for t in (src, tgt, nodes, edges,
+                                torch.full((40, 6), 1 / 6), anchors,
+                                torch.full((3000, 4), 0.25))]
+    cfg = tsolve.EDSolverConfig(iters=60, samples=1000)
+    before = tknn.NN_DUAL.launches
+    a, sa = tsolve.register_ed(7, *args, cfg)
+    b, sb = tsolve.register_ed(7, *args, cfg)
+    torch.cuda.synchronize()
+    assert tknn.NN_DUAL.launches - before >= 2 * int(sa["iters"])
+    assert int(sa["iters"]) == int(sb["iters"]) and torch.equal(a, b)
+    assert torch.isfinite(a).all()
+
+
+def test_nn_argmin_refuses_mixed_devices(dev):
+    x = torch.rand(10, 3, device=dev)
+    with pytest.raises(ValueError):
+        tknn.nn_argmin(x, torch.rand(12, 3))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -118,12 +118,16 @@ def test_solver_from_config_matches_jax(path):
             == (6, 7, 128)
 
 
-def test_unknown_and_unported_models_raise(tmp_path, split):
+def test_unknown_and_unported_models_raise(tmp_path, split, capsys):
     with pytest.raises(KeyError):
         teval.solver_from_config(load_config(
             _yaml(tmp_path, split, deformation_model="Nope")), "cpu")
-    with pytest.raises(NotImplementedError, match="eval_ed"):
-        _run(_yaml(tmp_path, split, deformation_model="ED"), tmp_path / "s")
+    # ED is ported: it hands over to cli/eval_ed.py, which skips the pairs
+    # that carry no depth maps (write_4dmatch_suite writes none)
+    assert _run(_yaml(tmp_path, split, deformation_model="ED"),
+                tmp_path / "s") == {}
+    out = capsys.readouterr().out
+    assert "delegating to cli.eval_ed" in out and "no pairs with depth" in out
     with pytest.raises(NotImplementedError, match="vis.py"):
         _run(_yaml(tmp_path, split), tmp_path / "s", "--visualize")
 

@@ -19,7 +19,7 @@ from deformationpyramid_tpu_torch.ops import chamfer_fused, fused_level
 import bench_torch
 import runpy
 for script in ("parity_torch_vs_ledger", "suite_parity_torch",
-               "check_torch_optin_kernels"):
+               "check_torch_optin_kernels", "check_torch_nn_argmin"):
     runpy.run_path(f"scripts/{script}.py", run_name="not_main")
 from deformationpyramid_tpu_torch.metrics import flow, matching
 from deformationpyramid_tpu_torch.data import (
@@ -145,6 +145,27 @@ with tempfile.TemporaryDirectory() as root:
             ["--config", path, "--splits", "4DMatch-F", "--device", "cpu",
              "--log-dir", f"{root}/snap_{name}"])
         assert len(scores["4DMatch-F"]["scores"]) == 12
+# the ED / N-ICP evaluation on a fabricated depth pair, and the renderer
+from deformationpyramid_tpu_torch.cli import eval_ed
+from deformationpyramid_tpu_torch.data import graph
+from deformationpyramid_tpu_torch.geometry import camera, kabsch
+from deformationpyramid_tpu_torch.ops import render
+sys.path.insert(0, "tests")
+from depth_pairs import write_ed_split
+with tempfile.TemporaryDirectory() as root:
+    write_ed_split(root, "4DMatch-F", n_pairs=1, h=48, w=64, n_eval=300)
+    with open(f"{root}/ed.yaml", "w") as f:
+        f.write(f"deformation_model: ED\\niters: 5\\nsamples: 200\\n"
+                f"data_root: {root}\\nnode_coverage: 0.12\\n")
+    rep = eval_nolearned.main(["--config", f"{root}/ed.yaml", "--splits",
+                               "4DMatch-F", "--device", "cpu"])
+    assert rep["4DMatch-F"]["pairs"] == 1
+x = torch.rand(50, 3) + torch.tensor([0.0, 0.0, 1.0])
+total, _, _ = dp_losses.point_2_plane_distance(x, x + 0.01, x, x)
+depth, sil = render.render_depth_silhouette(
+    x, torch.tensor([[50.0, 0, 32], [0, 50.0, 24], [0, 0, 1]]),
+    render.RenderConfig(48, 64))
+assert torch.isfinite(total) and sil.sum() > 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "deformationpyramid_tpu"
              or m.startswith("deformationpyramid_tpu."))

@@ -19,7 +19,10 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             device time of each, by CUDA events (median of 30 calls): C1
             nn_dual, C2 level_warp_fwd, C6 scatter_rows, C3
             level_warp_bwd, C4 adam_step at the bench shapes (2000 points,
-            width 128, depth 3, SE3 + axis_angle, a mid level); C2 and C3
+            width 128, depth 3, SE3 + axis_angle, a mid level); C6 again at
+            the shape-transfer demo's 6000 x 6000 and with all 2000
+            sources on one row (bit-equal to index_add_ on the CPU and on
+            a repeat, one launch a call); C2 and C3
             again at the shape-transfer shapes (6000 points, Sim3 + euler);
             C5 ldmk_iteration at 2048 landmark rows (2000 valid), one step
             and a held step, and a step at SE3 + quaternion; C2 and C3 at
@@ -29,7 +32,12 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             version in float64) and C4 at the 125 partial rows C11 hands
             it; C7 flash_attention_fwd at L = S = 2048, 4 heads
             of 132, 1500 valid source rows, and at L = 777, S = 1333 with
-            1000 and with 0 valid rows; C12 chamfer_fused at 2000 x 2000
+            1000 and with 0 valid rows; C8 flash_attention_bwd_dkv and C9
+            flash_attention_bwd_dq at 2048 / 1500 and 4096 / 2836 rows
+            (timed, C8 with its share of its 3xTF32 tensor-core bound and of
+            the f32 FMA bound) and at edge cases: head widths 1, 18, 24,
+            132, 144, prefixes of 0, 1 and all rows, NaN in the padded
+            rows; C12 chamfer_fused at 2000 x 2000
             with masks and the truncation at the median (five outputs
             within 2e-5, the gradient within 1e-4 of its max, a repeat
             bit-equal; beside it the time of C1 + glue + C6, the work it
@@ -223,18 +231,22 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-# Published peaks of one H100 SXM: device memory and float32 outside the
-# tensor cores (every kernel here computes in exact float32).
+# Published peaks of one H100 SXM: device memory, float32 outside the
+# tensor cores (every kernel but C8 computes in exact float32 there), and
+# dense TF32 on the tensor cores (C8's 3xTF32 products).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float,
+          flop_per_s: float = F32_FLOP_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move (each input read once, each output written once)
-    over the memory rate and its operations over the float32 rate."""
+    over the memory rate and its operations over the rate of their type
+    (float32 outside the tensor cores unless ``flop_per_s`` says other)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOP_PER_S * 1e3
+    by_ops = flops / flop_per_s * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
@@ -367,26 +379,12 @@ def kernel_phase(dp, dev):
         **bound(2 * 2000 * (12 + 1 + 4 + 8), 8.0 * 2000 * 2000),
         tol="indices equal up to near-ties < 3e-4 rel; distances 1e-5")
 
-    # C6: the glue's y->x scatter, on the sweep's indices, against its
-    # plain version (index_add_ on the CPU: bit-equal); plain_ms is
-    # index_add_ on the card, which adds with atomics.
+    # C6: the glue's y->x scatter, on the sweep's indices
     rarg = got[3]
-    gy = (y - warped[rarg]) * 1e-3
-    gx = (warped - y) * 1e-3
-    out = fi.scatter_add_rows(gx.clone(), rarg, gy)
-    ref_s = fi.scatter_add_rows(gx.cpu(), rarg.cpu(), gy.cpu())
-    torch.cuda.synchronize()
-    check(torch.equal(out.cpu(), ref_s), "C6 scatter_rows differs from "
-          f"index_add_ on the CPU by {float((out.cpu() - ref_s).abs().max())}")
-    buf = gx.clone()
-    index_add_ms = cuda_ms(lambda: buf.index_add_(0, rarg, gy))
-    results["scatter_rows"] = dict(
-        err=float((out.cpu() - ref_s).abs().max()),
-        ms=cuda_ms(lambda: fi.scatter_add_rows(buf, rarg, gy)),
-        plain_ms=index_add_ms, library_ms=index_add_ms,
-        # dst read and written, idx (int64) and src read; one add a value
-        **bound(2000 * (24 + 8 + 12), 3.0 * 2000),
-        tol="bit-equal to index_add_ on the CPU")
+    results["scatter_rows"] = scatter_case(
+        dev, (warped - y) * 1e-3, rarg, (y - warped[rarg]) * 1e-3,
+        "2000 x 2000, the sweep's indices")
+    results["scatter_rows"].update(scatter_extra_cases(dev))
 
     # The chamfer gradient of the main path feeds C3.
     n_len = torch.tensor(2000.0, device=dev)
@@ -449,6 +447,59 @@ def kernel_phase(dp, dev):
     for name, r in results.items():
         print_kernel(name, r)
     return results
+
+
+def scatter_case(dev, dst, idx, src, tag: str) -> dict:
+    """C6 against its plain version, index_add_ on the CPU: bit-equal, the
+    same bits on a second launch, one launch a call. plain_ms and library_ms
+    are index_add_ on the card, which adds with float atomics."""
+    from deformationpyramid_tpu_torch.ops import fused_iteration as fi
+
+    before = fi.SCATTER_ROWS.launches
+    out = fi.scatter_add_rows(dst.clone(), idx, src)
+    again = fi.scatter_add_rows(dst.clone(), idx, src)
+    ref = fi.scatter_add_rows(dst.cpu(), idx.cpu(), src.cpu())
+    torch.cuda.synchronize()
+    check(fi.SCATTER_ROWS.launches == before + 2,
+          f"C6 [{tag}]: not one launch a call")
+    err = float((out.cpu() - ref).abs().max())
+    check(torch.equal(out.cpu(), ref), f"C6 [{tag}]: differs from index_add_ "
+          f"on the CPU by {err}")
+    check(torch.equal(out, again), f"C6 [{tag}]: differs on a second launch")
+    buf = dst.clone()
+    index_add_ms = cuda_ms(lambda: buf.index_add_(0, idx, src))
+    n, m = dst.shape[0], src.shape[0]
+    res = dict(err=err, shape=tag,
+               ms=cuda_ms(lambda: fi.scatter_add_rows(buf, idx, src)),
+               plain_ms=index_add_ms, library_ms=index_add_ms,
+               # dst read and written, idx (int64) and src read; one add a
+               # value
+               **bound(n * 24 + m * (8 + 12), 3.0 * m),
+               tol="bit-equal to index_add_ on the CPU and on a repeat")
+    print_kernel(f"scatter_rows [{tag}]", res)
+    return res
+
+
+def scatter_extra_cases(dev) -> dict:
+    """C6 at the shape-transfer demo's 6000 x 6000 (the sweep's y->x indices
+    of a 6000-point pair) and with all 2000 sources on one row."""
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.ops import knn
+
+    src, tgt, _ = make_pair(n=6000, seed=1, deform=0.12)
+    x = torch.from_numpy(src).to(dev)
+    y = torch.from_numpy(tgt).to(dev)
+    ones = torch.ones(6000, dtype=torch.bool, device=dev)
+    rarg = knn.nn_argmin_dual(x, y, ones, ones)[3]
+    out = {"at_6000": scatter_case(dev, (x - y) * 1e-3, rarg,
+                                   (y - x[rarg]) * 1e-3, "6000 x 6000")}
+    gen = torch.Generator().manual_seed(66)
+    one = torch.full((2000,), 1234, dtype=torch.int64, device=dev)
+    out["one_row"] = scatter_case(
+        dev, (torch.randn(2000, 3, generator=gen) * 1e-3).to(dev), one,
+        (torch.randn(2000, 3, generator=gen) * 1e-3).to(dev),
+        "2000 sources on one row of 2000")
+    return {k: {key: r[key] for key in SHAPE_KEYS} for k, r in out.items()}
 
 
 def print_kernel(name: str, r: dict) -> None:
@@ -1135,11 +1186,17 @@ def flash_bwd_bounds(L: int, S: int, src_len: int, h: int, d: int) -> dict:
     """C8 and C9: the function's five products are 10 L src_len h d flops,
     counted 6 : 4 between the kernel with three and the one with two. C8
     reads q, do (L rows), k, v (the prefix), lse and delta and writes dk, dv
-    (S rows); C9 reads the same and writes dq."""
+    (S rows); C9 reads the same and writes dq. C9 computes in f32 on the FMA
+    units; C8 computes its products as 3xTF32 on the tensor cores, three
+    passes of its share at the TF32 rate (its f32 FMA bound is kept beside
+    it as ``f32_bound_ms``)."""
     rows = 4.0 * h * d
     read = (2 * L + 2 * src_len) * rows + 8.0 * L * h
     ops = L * src_len * h * d
-    return {"flash_attention_bwd_dkv": bound(read + 2 * S * rows, 6.0 * ops),
+    dkv_bytes = read + 2 * S * rows
+    return {"flash_attention_bwd_dkv": dict(
+                bound(dkv_bytes, 3 * 6.0 * ops, TF32_FLOP_PER_S),
+                f32_bound_ms=bound(dkv_bytes, 6.0 * ops)["bound_ms"]),
             "flash_attention_bwd_dq": bound(read + L * rows, 4.0 * ops)}
 
 
@@ -1230,6 +1287,13 @@ def flash_bwd_case(dev, L, S, src_len, h, d, seed, timed: bool,
         res[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          both_ms=both_ms, **bounds[name])
         print_kernel(f"{name} [{tag}]", res[name])
+    c8 = res["flash_attention_bwd_dkv"]
+    phase("kernels", f"flash_attention_bwd_dkv [{tag}]: "
+          f"{100.0 * c8['bound_ms'] / dkv_ms:.1f}% of its 3xTF32 "
+          f"tensor-core bound ({c8['bound_ms']:.5f} ms), "
+          f"{100.0 * c8['f32_bound_ms'] / dkv_ms:.1f}% of the f32 FMA bound "
+          f"({c8['f32_bound_ms']:.5f} ms); the library's whole backward "
+          f"{lib_ms:.4f} ms")
     phase("kernels", f"flash_attention_bwd [{tag}]: C8 + C9 + delta as the "
           f"backward runs them {both_ms:.4f} ms; the plain version and the "
           "library call compute dq, dk and dv together")
@@ -1239,7 +1303,9 @@ def flash_bwd_case(dev, L, S, src_len, h, d, seed, timed: bool,
 FLASH_EDGE_CASES = (dict(L=777, S=1333, src_len=1000, h=4, d=132),
                     dict(L=777, S=1333, src_len=0, h=4, d=132),
                     dict(L=300, S=200, src_len=130, h=4, d=24),
-                    dict(L=130, S=70, src_len=70, h=8, d=144))
+                    dict(L=130, S=70, src_len=70, h=8, d=144),
+                    dict(L=77, S=45, src_len=1, h=2, d=1),
+                    dict(L=333, S=97, src_len=97, h=3, d=18))
 
 
 def flash_kernel_phase(dev):
@@ -1252,7 +1318,8 @@ def flash_kernel_phase(dev):
                                                 **big)}
     at_big.update(flash_bwd_case(dev, seed=13, timed=True, **big))
     for name, r in at_big.items():
-        res[name]["at_4096_2836"] = {k: r[k] for k in SHAPE_KEYS}
+        res[name]["at_4096_2836"] = {k: r[k] for k in SHAPE_KEYS
+                                     + ("f32_bound_ms",) if k in r}
     for i, shape in enumerate(FLASH_EDGE_CASES):
         flash_case(dev, seed=12 + i, timed=False, **shape)
         flash_bwd_case(dev, seed=12 + i, timed=False, **shape)
@@ -2900,6 +2967,11 @@ def main() -> None:
             row["masked"] = c14["masked"]
             row.update({f"at_{n}": c14[f"at_{n}"] for n in C14_SHAPES})
             row["point_2_plane"] = c14["point_2_plane"]
+        if "f32_bound_ms" in measured[k.name]:
+            row["f32_bound_ms"] = measured[k.name]["f32_bound_ms"]
+        if k.name == "scatter_rows":
+            row.update({key: measured[k.name][key]
+                        for key in ("at_6000", "one_row")})
         if "at_4096_2836" in measured[k.name]:
             row["at_4096_2836"] = measured[k.name]["at_4096_2836"]
         if k.name == "flash_attention_fwd":

@@ -29,14 +29,14 @@
 //     other cloud through shared memory in tiles every thread reads as a
 //     broadcast; strict '<' in index order keeps the first index;
 //   launch 2 (chamfer_finish_kernel) scatters the column terms onto their
-//     winning rows as C6 does: one thread a row walks every column in
+//     winning rows: one thread a row walks every column in
 //     increasing j and adds the columns it won, one after another (the
 //     order of a sequential index_add_), then writes cgrad; one extra block
 //     sums the row and column terms in a fixed order (strided partial sums
 //     a thread, then a tree in shared memory).
 // No atomics: the outputs repeat bit for bit. What bounds it: the N x M
 // distance evaluations (8 flops each) and the N x M index compares of the
-// walk, issue and latency at the solver's 2000 x 2000, as C1 and C6; the
+// walk, issue and latency at the solver's 2000 x 2000, as C1; the
 // inputs (48 KB) stay in L1 / L2.
 #include "common.cuh"
 
@@ -133,6 +133,10 @@ __device__ __forceinline__ float cf_root(float d, float trunc) {
   return d < trunc ? sqrtf(fmaxf(d, CF_FLOOR)) : 0.f;
 }
 
+// Its row blocks walk every column in order: N x M compares on a few
+// blocks. C6's bucket pass (scatter_rows.cu: each block streams the column
+// indices once and walks only its own rows' entries, in order) keeps the
+// same sums and can replace that walk when this kernel is reworked.
 __global__ void chamfer_finish_kernel(const float* __restrict__ w,
                                       const float* __restrict__ y, int n,
                                       int m, float trunc,

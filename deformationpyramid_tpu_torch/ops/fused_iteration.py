@@ -339,7 +339,9 @@ def scatter_add_rows(dst: Tensor, idx: Tensor, src: Tensor) -> Tensor:
     if dst.shape != (n, 3) or src.shape != (m, 3) or idx.shape != (m,):
         raise ValueError("scatter_rows: expected dst [N, 3], src [M, 3] and "
                          "idx [M]")
-    SCATTER_ROWS.launch(dst.data_ptr(), n, idx.data_ptr(), src.data_ptr(), m)
+    if n and m:
+        SCATTER_ROWS.launch(dst.data_ptr(), n, idx.data_ptr(), src.data_ptr(),
+                            m)
     return dst
 
 

@@ -9,7 +9,9 @@ distances 1e-5; C2 warped points 1e-5; C3 gradients 1e-4 of each tensor's
 max |g|; C4 moments 1e-6 of their max and ``hold`` bit-exact; C5 warped
 rows 1e-5, loss 1e-6 relative, counter and done equal, moments 1e-6 of
 their max, params 1e-6 where |g| > 1e-3 max|g|, a held step bit-exact; C6
-bit-equal to index_add_ on the CPU. The fused level repeats bit for bit
+bit-equal to index_add_ on the CPU, on a repeat, at the solver's and the
+shape-transfer demo's sizes and with every source on one row. The fused
+level repeats bit for bit
 (the glue's scatter has a fixed order).
 C14 distances 1e-6 relative and indices equal up to near-ties, at ragged
 tiles and with no valid row. C2 and C3 are checked for SE3 + axis_angle, Sim3 + euler, sflow, and SE3 and
@@ -22,8 +24,13 @@ plain version 2e-5 max abs (outputs are convex combinations of N(0, 1)
 values; the two sum S terms in different orders), at the matcher's shape,
 at an awkward one, with an empty source prefix, and inside a layer. C8 and
 C9 against ``flash_attention_bwd_plain`` 2e-5 max abs on the same inputs
-and a unit-scale upstream gradient, bit-equal on a second launch, zero
-beyond the prefix, and through autograd inside a layer against the einsum
+and a unit-scale upstream gradient (C8 computes its products as 3xTF32 on
+the tensor cores, ~1e-6 off f32), bit-equal on a second launch, zero
+beyond the prefix, at head widths 1, 18, 24, 132 and 144 and prefixes of
+0, 1 and S rows, NaN in the padded rows or not (one valid source row
+takes all the probability, so dv sums all L upstream rows and its size,
+with the plain version's own float32 rounding, grows with L: those cases
+keep L small), and through autograd inside a layer against the einsum
 route (1e-4 of each gradient's max). C12 against its plain version: sums
 and cgrad 2e-5 of their max, rmin 2e-5, rarg equal up to near-ties, the
 query gradient 1e-4 of its max, bit-equal on a second launch; C13
@@ -358,17 +365,26 @@ def test_ldmk_iteration_halted_is_a_no_op(dev):
     assert int(stop.it) == 0
 
 
-def test_scatter_rows_matches_cpu_index_add(dev):
+@pytest.mark.parametrize("n,m,rows", [(50, 20000, 40), (2000, 2000, 2000),
+                                      (6000, 6000, 6000), (2000, 2000, 1),
+                                      (777, 0, 777), (1, 333, 1),
+                                      (5000, 4100, 3)])
+def test_scatter_rows_matches_cpu_index_add(dev, n, m, rows):
     """C6 against its plain version, index_add_ on the CPU: bit-equal, and
-    the same on a second run."""
+    the same on a second run, one launch a call (none when there is nothing
+    to add). ``rows``: the indices fall on the first ``rows`` rows, 1 puts
+    every source on one row; at 5000 x 4100 the index list spans two of
+    the kernel's 2048-source chunks."""
     gen = torch.Generator().manual_seed(6)
-    idx = torch.randint(0, 40, (20000,), generator=gen)
-    src = torch.randn(20000, 3, generator=gen) * 1e-3
-    dst = torch.randn(50, 3, generator=gen) * 1e-3
+    idx = torch.randint(0, rows, (m,), generator=gen)
+    src = torch.randn(m, 3, generator=gen) * 1e-3
+    dst = torch.randn(n, 3, generator=gen) * 1e-3
     ref = tfi.scatter_add_rows(dst.clone(), idx, src)
+    before = tfi.SCATTER_ROWS.launches
     runs = [tfi.scatter_add_rows(dst.to(dev), idx.to(dev), src.to(dev))
             for _ in range(2)]
     torch.cuda.synchronize()
+    assert tfi.SCATTER_ROWS.launches == before + (2 if m else 0)
     assert torch.equal(runs[0], runs[1])
     assert torch.equal(runs[0].cpu(), ref)
 
@@ -450,7 +466,12 @@ def test_flash_attention_raises_instead_of_falling_back(dev):
                                              (777, 1333, 0, 4, 132),
                                              (300, 200, 130, 4, 24),
                                              (130, 70, 70, 8, 18),
-                                             (1, 1, 1, 1, 144)])
+                                             (1, 1, 1, 1, 144),
+                                             (77, 45, 1, 2, 1),
+                                             (333, 97, 97, 3, 1),
+                                             (33, 45, 1, 2, 132),
+                                             (61, 45, 45, 2, 144),
+                                             (95, 1000, 999, 2, 18)])
 @pytest.mark.parametrize("nan_pad", [False, True])
 def test_flash_attention_backward_matches_plain(dev, L, S, src_len, h, d,
                                                 nan_pad):

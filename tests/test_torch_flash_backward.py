@@ -192,3 +192,62 @@ def test_attention_layer_flash_route_gradients_match_jax():
         scale = max(float(np.abs(b).max()), 1e-30)
         assert np.abs(a - b).max() <= 1e-4 * scale, \
             jax.tree_util.keystr(path[0])
+
+
+def _tf32(x):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: the low 13
+    mantissa bits rounded away, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, passes):
+    """An einsum with TF32 operands: one pass (a and b rounded), or kernel
+    C8's three (a = a_hi + a_lo, the same for b: a_lo b_hi + a_hi b_lo +
+    a_hi b_hi, each part rounded to TF32), summed in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _emulated_dkv(q, k, v, do, s_len, scale, passes):
+    """C8's dk, dv with its four products (S, dP, dV, dK) on TF32 operands;
+    lse and delta from the plain forward, as the kernel reads them."""
+    q, k, v, do = map(_t, (q, k, v, do))
+    o, lse = tatt.flash_attention_plain(q, k, v, torch.tensor(s_len), scale,
+                                        return_lse=True)
+    delta = (do * o).sum(-1)
+    valid = (torch.arange(k.shape[0]) < s_len)[:, None, None]
+    km, vm = torch.where(valid, k, 0.0), torch.where(valid, v, 0.0)
+    s = _tf32_product("lhd,shd->lsh", q, km, passes) * scale
+    p = torch.where(valid[None, :, :, 0], torch.exp(s - lse[:, None]), 0.0)
+    dp = _tf32_product("lhd,shd->lsh", do, vm, passes)
+    ds = p * (dp - delta[:, None])
+    dv = _tf32_product("lsh,lhd->shd", p, do, passes)
+    dk = _tf32_product("lsh,lhd->shd", ds, q, passes) * scale
+    return dk, dv
+
+
+@pytest.mark.parametrize("L,S,s_len,d", [(200, 150, 120, 132),
+                                         (96, 64, 64, 18),
+                                         (60, 70, 1, 144)])
+def test_three_pass_tf32_keeps_c8_within_its_tolerance(L, S, s_len, d):
+    """The error budget of C8's tensor-core route, on the CPU: its 3xTF32
+    products keep dk, dv within chip_smoke.py's FLASH_BWD_TOL (2e-5 max
+    abs) of ``flash_attention_bwd_plain`` on unit-scale inputs; one TF32
+    pass (about three decimal digits) does not. With one valid source row
+    dv is the sum of all L upstream rows and dk a cancellation to 0, so
+    their size, with the plain version's own float32 rounding, grows with
+    L: that case keeps L small."""
+    q, k, v, do = _inputs(6, L, S, d)
+    scale = 1.0 / math.sqrt(d)
+    _, _, ref = _plain_bwd(q, k, v, do, torch.tensor(s_len), scale)
+    errs = {}
+    for passes in (1, 3):
+        got = _emulated_dkv(q, k, v, do, s_len, scale, passes)
+        errs[passes] = max(float((a - r).abs().max())
+                           for a, r in zip(got, ref[1:]))
+    assert errs[3] <= 2e-5 < errs[1], errs

@@ -476,6 +476,30 @@ def test_scatter_rows_order_matches_index_add():
         ref, torch.from_numpy(dst).index_add_(0, _t(idx), _t(src)).numpy())
 
 
+@pytest.mark.parametrize("n,m,rows", [(30, 0, 30), (50, 3000, 4),
+                                      (1, 500, 1), (400, 700, 1)])
+def test_scatter_rows_plain_edge_cases(n, m, rows):
+    """C6's plain version on the kernel's edge cases: no source at all,
+    many repeats on a few rows, a single destination row, and every source
+    on one row of many. Bit-equal to adding each row's sources in
+    increasing index (C6's order), and within 1e-6 of its max of the JAX
+    glue's ``.at[].add``, which XLA may sum in another order."""
+    rng = np.random.default_rng(60 + m)
+    idx = rng.integers(0, rows, m)
+    src = rng.standard_normal((m, 3)).astype(np.float32)
+    dst = rng.standard_normal((n, 3)).astype(np.float32)
+    got = tfi.scatter_add_rows(_t(dst), _t(idx), _t(src)).numpy()
+    ref = dst.copy()
+    for j, i in enumerate(idx):
+        ref[i] = ref[i] + src[j]
+    assert np.array_equal(got, ref)
+    jax_ref = np.asarray(jnp.asarray(dst).at[jnp.asarray(idx)].add(
+        jnp.asarray(src)))
+    assert np.abs(got - jax_ref).max() <= 1e-6 * np.abs(jax_ref).max()
+    if m == 0:
+        assert np.array_equal(got, dst)
+
+
 def _ldmk_setup(jcfg, n=150, n_pad=256, seed=7):
     """Landmark rows, their targets and mask, and one level's weights."""
     pts, _, lvl = _setup(n=n, seed=seed, jcfg=jcfg)

@@ -1138,15 +1138,21 @@ SHAPE_KEYS = ("shape", "err", "ms", "plain_ms", "library_ms", "bound_ms",
 
 def flash_bound(L: int, src_len: int, h: int, d: int) -> dict:
     """C7: two products of 2 L src_len h d flops each; q read and o written
-    (L rows), k and v read up to the valid prefix."""
-    return bound(4.0 * (2 * L + 2 * src_len) * h * d,
-                 4.0 * L * src_len * h * d)
+    (L rows), k and v read up to the valid prefix. It computes them as
+    3xTF32 on the tensor cores: three passes at the TF32 rate (the f32 FMA
+    bound is kept beside it as ``f32_bound_ms``)."""
+    nbytes = 4.0 * (2 * L + 2 * src_len) * h * d
+    ops = 4.0 * L * src_len * h * d
+    return dict(bound(nbytes, 3 * ops, TF32_FLOP_PER_S),
+                f32_bound_ms=bound(nbytes, ops)["bound_ms"])
 
 
 def flash_case(dev, L, S, src_len, h, d, seed, timed: bool):
-    """C7 against its plain version on one shape; with ``timed`` also the
-    device times of the kernel, the plain version and
-    scaled_dot_product_attention with a boolean mask on the same tensors."""
+    """C7 against its plain version on one shape, launched twice with
+    bit-equal results; with ``timed`` also the device times of the kernel,
+    the plain version and scaled_dot_product_attention with a boolean mask
+    on the same tensors, and where C7 splits the source rows on this card,
+    its time unsplit (``unsplit_ms``)."""
     from deformationpyramid_tpu_torch.match import attention as att
 
     gen = torch.Generator().manual_seed(seed)
@@ -1155,15 +1161,18 @@ def flash_case(dev, L, S, src_len, h, d, seed, timed: bool):
     n_valid = torch.tensor(src_len, dtype=torch.int32, device=dev)
     scale = d ** -0.5
     got = att.flash_attention(q, k, v, n_valid, scale)
+    again = att.flash_attention(q, k, v, n_valid, scale)
     ref = att.flash_attention_plain(q, k, v, n_valid, scale)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     tag = f"L {L}, S {S}, src_len {src_len}, {h} heads of {d}"
     check(bool(torch.isfinite(got).all()), f"C7 [{tag}]: non-finite output")
     check(err <= 2e-5, f"C7 [{tag}]: max abs err {err} > 2e-5")
+    check(torch.equal(got, again), f"C7 [{tag}]: differs on a second launch")
     if src_len == 0:
         check(not bool(got.any()), f"C7 [{tag}]: an empty prefix must give 0")
-    res = dict(err=err, tol="max abs 2e-5", shape=tag)
+    res = dict(err=err, tol="max abs 2e-5; bit-equal on a second launch",
+               shape=tag)
     if timed:
         mask = (torch.arange(S, device=dev) < src_len)[None, None, None, :]
         qs, ks, vs = (t.transpose(0, 1)[None] for t in (q, k, v))
@@ -1176,28 +1185,89 @@ def flash_case(dev, L, S, src_len, h, d, seed, timed: bool):
                                             scale=scale)),
             **flash_bound(L, src_len, h, d))
         print_kernel(f"flash_attention_fwd [{tag}]", res)
+        extra = ""
+        # a tree measured beside this one by scripts/ab_kernels.sh may
+        # predate the source chunks
+        if hasattr(att, "flash_fwd_splits"):
+            splits = att.flash_fwd_splits(L, S, h, att._sm_count(dev))
+            res["splits"] = splits
+            extra = f"; {splits} source chunk(s)"
+            if splits > 1:
+                res["unsplit_ms"] = cuda_ms(
+                    lambda: att._flash_attention_launch(
+                        q, k, v, n_valid, scale, False, 1))
+                extra += f", unsplit {res['unsplit_ms']:.4f} ms"
+        phase("kernels", f"flash_attention_fwd [{tag}]: "
+              f"{100.0 * res['bound_ms'] / res['ms']:.1f}% of its 3xTF32 "
+              f"tensor-core bound ({res['bound_ms']:.5f} ms), "
+              f"{100.0 * res['f32_bound_ms'] / res['ms']:.1f}% of the f32 "
+              f"FMA bound ({res['f32_bound_ms']:.5f} ms){extra}")
     else:
         phase("kernels", f"flash_attention_fwd [{tag}]: max_abs_err "
               f"{err:.3e} ({res['tol']})")
     return res
 
 
+def flash_split_cases(dev) -> None:
+    """C7's source chunks forced where the card would not choose them: a
+    prefix that ends inside the first chunk and an empty one (chunks at or
+    beyond the prefix exit at once), each against the plain version, o and
+    lse, bit-equal on a second launch; and the chunked o bit-equal with and
+    without the lse output."""
+    from deformationpyramid_tpu_torch.match import attention as att
+
+    gen = torch.Generator().manual_seed(21)
+    L, S, h, d = 200, 1000, 4, 132
+    q, k0, v0 = (torch.randn(n, h, d, generator=gen).to(dev)
+                 for n in (L, S, S))
+    scale = d ** -0.5
+    for src_len, splits in ((100, 4), (0, 4), (1000, 3), (640, 8)):
+        n_valid = torch.tensor(src_len, dtype=torch.int32, device=dev)
+        k, v = k0.clone(), v0.clone()
+        k[src_len:], v[src_len:] = float("nan"), float("inf")
+        runs = [att._flash_attention_launch(q, k, v, n_valid, scale, True,
+                                            splits) for _ in range(2)]
+        plain = att._flash_attention_launch(q, k, v, n_valid, scale, False,
+                                            splits)
+        o_ref, lse_ref = att.flash_attention_plain(q, k, v, n_valid, scale,
+                                                   return_lse=True)
+        torch.cuda.synchronize()
+        (o, lse), (o2, lse2) = runs
+        tag = f"C7 in {splits} chunks [src_len {src_len} of {S}]"
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"{tag}: differs on a second launch")
+        check(torch.equal(o, plain), f"{tag}: o differs without lse")
+        check(bool(torch.isfinite(o).all()), f"{tag}: non-finite output")
+        err = float((o - o_ref).abs().max())
+        finite = torch.isfinite(lse_ref)
+        check(torch.equal(torch.isfinite(lse), finite), f"{tag}: lse's -inf")
+        lse_err = float((lse - lse_ref)[finite].abs().max()) \
+            if finite.any() else 0.0
+        check(err <= 2e-5 and lse_err <= 2e-5,
+              f"{tag}: max abs err o {err}, lse {lse_err} > 2e-5")
+        if src_len == 0:
+            check(not bool(o.any()), f"{tag}: an empty prefix must give 0")
+        phase("kernels", f"{tag}: max_abs_err o {err:.3e}, lse {lse_err:.3e}"
+              " (max abs 2e-5; bit-equal on a second launch)")
+
+
 def flash_bwd_bounds(L: int, S: int, src_len: int, h: int, d: int) -> dict:
     """C8 and C9: the function's five products are 10 L src_len h d flops,
     counted 6 : 4 between the kernel with three and the one with two. C8
     reads q, do (L rows), k, v (the prefix), lse and delta and writes dk, dv
-    (S rows); C9 reads the same and writes dq. C9 computes in f32 on the FMA
-    units; C8 computes its products as 3xTF32 on the tensor cores, three
-    passes of its share at the TF32 rate (its f32 FMA bound is kept beside
-    it as ``f32_bound_ms``)."""
+    (S rows); C9 reads the same and writes dq. Both compute their products
+    as 3xTF32 on the tensor cores: three passes of their share at the TF32
+    rate (the f32 FMA bound is kept beside it as ``f32_bound_ms``)."""
     rows = 4.0 * h * d
     read = (2 * L + 2 * src_len) * rows + 8.0 * L * h
     ops = L * src_len * h * d
-    dkv_bytes = read + 2 * S * rows
-    return {"flash_attention_bwd_dkv": dict(
-                bound(dkv_bytes, 3 * 6.0 * ops, TF32_FLOP_PER_S),
-                f32_bound_ms=bound(dkv_bytes, 6.0 * ops)["bound_ms"]),
-            "flash_attention_bwd_dq": bound(read + L * rows, 4.0 * ops)}
+    out = {}
+    for name, nbytes, share in (
+            ("flash_attention_bwd_dkv", read + 2 * S * rows, 6.0),
+            ("flash_attention_bwd_dq", read + L * rows, 4.0)):
+        out[name] = dict(bound(nbytes, 3 * share * ops, TF32_FLOP_PER_S),
+                         f32_bound_ms=bound(nbytes, share * ops)["bound_ms"])
+    return out
 
 
 FLASH_BWD_TOL = 2e-5
@@ -1287,13 +1357,15 @@ def flash_bwd_case(dev, L, S, src_len, h, d, seed, timed: bool,
         res[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          both_ms=both_ms, **bounds[name])
         print_kernel(f"{name} [{tag}]", res[name])
-    c8 = res["flash_attention_bwd_dkv"]
-    phase("kernels", f"flash_attention_bwd_dkv [{tag}]: "
-          f"{100.0 * c8['bound_ms'] / dkv_ms:.1f}% of its 3xTF32 "
-          f"tensor-core bound ({c8['bound_ms']:.5f} ms), "
-          f"{100.0 * c8['f32_bound_ms'] / dkv_ms:.1f}% of the f32 FMA bound "
-          f"({c8['f32_bound_ms']:.5f} ms); the library's whole backward "
-          f"{lib_ms:.4f} ms")
+    for name, ms in (("flash_attention_bwd_dkv", dkv_ms),
+                     ("flash_attention_bwd_dq", dq_ms)):
+        r = res[name]
+        phase("kernels", f"{name} [{tag}]: "
+              f"{100.0 * r['bound_ms'] / ms:.1f}% of its 3xTF32 "
+              f"tensor-core bound ({r['bound_ms']:.5f} ms), "
+              f"{100.0 * r['f32_bound_ms'] / ms:.1f}% of the f32 FMA bound "
+              f"({r['f32_bound_ms']:.5f} ms); the library's whole backward "
+              f"{lib_ms:.4f} ms")
     phase("kernels", f"flash_attention_bwd [{tag}]: C8 + C9 + delta as the "
           f"backward runs them {both_ms:.4f} ms; the plain version and the "
           "library call compute dq, dk and dv together")
@@ -1312,19 +1384,26 @@ def flash_kernel_phase(dev):
     res = {"flash_attention_fwd": flash_case(dev, seed=11, timed=True,
                                              **FLASH_SHAPE)}
     res.update(flash_bwd_case(dev, seed=11, timed=True, **FLASH_SHAPE))
-    # the caps and the coarse count of an 8000-point pair (the lndp path)
-    big = dict(L=4096, S=4096, src_len=2836, h=4, d=132)
-    at_big = {"flash_attention_fwd": flash_case(dev, seed=13, timed=True,
-                                                **big)}
-    at_big.update(flash_bwd_case(dev, seed=13, timed=True, **big))
-    for name, r in at_big.items():
-        res[name]["at_4096_2836"] = {k: r[k] for k in SHAPE_KEYS
-                                     + ("f32_bound_ms",) if k in r}
+    # the caps and the coarse count of an 8000-point pair (the lndp path),
+    # and of a pair with ~900 coarse points
+    for key, shape, seed in (
+            ("at_4096_2836", dict(L=4096, S=4096, src_len=2836, h=4, d=132),
+             13),
+            ("at_1024_900", dict(L=1024, S=1024, src_len=900, h=4, d=132),
+             14)):
+        at = {"flash_attention_fwd": flash_case(dev, seed=seed, timed=True,
+                                                **shape)}
+        at.update(flash_bwd_case(dev, seed=seed, timed=True, **shape))
+        for name, r in at.items():
+            res[name][key] = {k: r[k] for k in SHAPE_KEYS
+                              + ("f32_bound_ms", "splits", "unsplit_ms")
+                              if k in r}
     for i, shape in enumerate(FLASH_EDGE_CASES):
         flash_case(dev, seed=12 + i, timed=False, **shape)
         flash_bwd_case(dev, seed=12 + i, timed=False, **shape)
     flash_bwd_case(dev, seed=20, timed=False, nan_pad=True,
                    **FLASH_EDGE_CASES[0])
+    flash_split_cases(dev)
     return res
 
 
@@ -2972,8 +3051,9 @@ def main() -> None:
         if k.name == "scatter_rows":
             row.update({key: measured[k.name][key]
                         for key in ("at_6000", "one_row")})
-        if "at_4096_2836" in measured[k.name]:
-            row["at_4096_2836"] = measured[k.name]["at_4096_2836"]
+        for key in ("at_4096_2836", "at_1024_900"):
+            if key in measured[k.name]:
+                row[key] = measured[k.name][key]
         if k.name == "flash_attention_fwd":
             row["at_path_shape"] = lndp["flash_at_path_shape"]
             row["at_train_shape"] = train["at_path_shape"][k.name]

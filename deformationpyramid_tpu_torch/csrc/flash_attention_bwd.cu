@@ -30,128 +30,43 @@
 // What bounds them: 10 * L * src_len * H * d operations (the function's five
 // products; the logits and dp are recomputed in both kernels, counted 6 : 4);
 // all operands together are ~35 MB at L = S = 4096, H = 4, d = 132 and stay
-// in L2, so bytes do not bind.
+// in L2, so bytes do not bind. Both compute their products on the tensor
+// cores as 3xTF32 (tf32_mma.cuh: mma.sync m16n8k8, each k-step's three
+// passes summed from zero and added on the FMA units; ~1e-6 off f32 on
+// unit-scale inputs). The head width is padded with zeros to whole k-steps
+// of 8 in shared memory (d = 132 -> 136), rows of ld = 8 (mod 16) floats.
+// What bounds them on this card is not the tensor cores' rate but the
+// instructions around each product (the splits, the fragment loads, the
+// sums on the FMA units) and their latency.
 //
-// C9: exact f32 on the FMA units. One block of 256
-// threads, a 16 x 16 thread grid with 4 x 4 register tiles of the 64 x 64
-// logits and of dp, computed in one sweep over d from transposed tiles in
-// shared memory (16-byte loads); then dq summed over the tile's source rows,
-// each thread keeping 4 rows x 9 column slots. It keeps its own Q and dO
-// transposed and streams K and V transposed, then loads K again row-major
-// into the same buffer. 161 KB of shared memory at d = 132: one block an SM.
+// C8: a block owns 32 source rows and takes 114 KB of shared memory at d =
+// 132, so two blocks of 8 warps share an SM and 264 run at once (356 have
+// work at 4096 / 2836 rows; with 64 rows and one block an SM, 180 blocks
+// left the second wave 36% full). The next query tile's Q, dO, lse and
+// delta arrive by cp.async (a two-stage ring) while the current one's
+// products run.
 //
-// C8: its products on the tensor cores, as 3xTF32 (mma.sync m16n8k8):
-// each operand x = hi + lo, both rounded to TF32, and a b = a_lo b_hi +
-// a_hi b_lo + a_hi b_hi, ~1e-6 off f32 on unit-scale inputs (one TF32 pass
-// keeps about three decimal digits, beyond the 2e-5 the tests hold).
-// The tensor cores' own f32 accumulation truncates, and over a long product
-// its bias reaches 2e-5; so every k-step's three passes start from zero and
-// are added to the running sum on the FMA units, which round to nearest. A
-// block owns 32 source rows and takes 114 KB of shared memory at d = 132,
-// so two blocks of 8 warps share an SM and 264 run at once (356 have work
-// at 4096 / 2836 rows; with 64 rows and one block an SM, 180 blocks left
-// the second wave 36% full). The next query tile's Q, dO, lse and delta
-// arrive by cp.async (a two-stage ring) while the current one's products
-// run. The head width is padded with zeros to whole k-steps of 8 in shared
-// memory (d = 132 -> 136). What bounds it is not the tensor cores' rate
-// but the instructions around each product (the splits, the fragment
-// loads, the sums on the FMA units: ~7 an mma) and their latency.
+// C9: a block owns 64 query rows of one head, whose Q and dO stay in
+// shared memory, and streams K and V in tiles of 64 source rows through a
+// two-stage cp.async ring; each tile is loaded once, and its row-major K
+// serves both S = Q K^T and dq += dS K. Warp w owns query rows 16 (w & 3)
+// .. +15 and source rows 16 (w >> 2) .. +15 of every tile (two n-tiles):
+// it computes its 16 x 16 slices of S and dP over d, then ds, and adds dS
+// K over its own 16 source rows to a partial dq of all d columns, with
+// ds's accumulator fragments as the A operands (tc_split_acc). The four
+// warps of a query row tile sum their partials once, in order, at the
+// end. 204 KB of shared memory at d = 132: one block of 16 warps an SM,
+// 256 blocks at 4096 rows and 128 at 2048 (the 64-row SIMT design before
+// it took 161 KB with 8 warps). Q and dO are split on every use, K and V
+// too, with tc_split_rz.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define FB_BT 64        // rows per tile, both operands
-#define FB_LD 68        // padded row of the transposed tiles (16-byte aligned)
-#define FB_THREADS 256
-#define FB_DMAX 144     // 9 output columns per thread x 16 threads
-#define FB_OC 9
+#include "tf32_mma.cuh"
 
-// dst[c][r] = x[row0 + r, head, c] for the tile's 64 rows; rows at or beyond
-// ``limit`` give zeros and are not read.
-__device__ __forceinline__ void fb_load_transposed(
-    float* __restrict__ dst, const float* __restrict__ x, int row0, int limit,
-    size_t stride, int head, int d) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < FB_BT; r += FB_THREADS / 32) {
-    const int row = row0 + r;
-    const float* src = x + (size_t)row * stride + (size_t)head * d;
-    for (int c = lane; c < d; c += 32)
-      dst[c * FB_LD + r] = row < limit ? src[c] : 0.f;
-  }
-}
+#define FB_DMAX 144     // 18 n-tiles of 8 output columns
 
-// dst[r][c] = x[row0 + r, head, c] with rows of ``ld`` >= d floats; rows at
-// or beyond ``limit`` and columns d .. ld - 1 zero.
-__device__ __forceinline__ void fb_load_rows(
-    float* __restrict__ dst, const float* __restrict__ x, int row0, int limit,
-    size_t stride, int head, int d, int ld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < FB_BT; r += FB_THREADS / 32) {
-    const int row = row0 + r;
-    const float* src = x + (size_t)row * stride + (size_t)head * d;
-    for (int c = lane; c < ld; c += 32)
-      dst[r * ld + c] = row < limit && c < d ? src[c] : 0.f;
-  }
-}
-
-// From the raw products s = q k^T (in ``p``) and dp = do v^T (in ``ds``) of
-// query rows ty*4 + i of the tile at l0 and source rows tx*4 + j of the tile
-// at s0: p = exp(s * scale - lse) and ds = p * (dp - delta). Query rows at
-// or beyond L and source rows at or beyond src_len give p = ds = 0.
-__device__ __forceinline__ void fb_p_ds(
-    const float* __restrict__ lse, const float* __restrict__ delta, int l0,
-    int s0, int L, int src_len, int H, int head, float sm_scale,
-    float (&p)[4][4], float (&ds)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = l0 + ty * 4 + i;
-    const bool in = row < L;
-    const float lse_r = in ? lse[(size_t)row * H + head] : 0.f;
-    const float delta_r = in ? delta[(size_t)row * H + head] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool valid = in && s0 + tx * 4 + j < src_len;
-      const float pr = valid ? expf(p[i][j] * sm_scale - lse_r) : 0.f;
-      p[i][j] = pr;
-      ds[i][j] = valid ? pr * (ds[i][j] - delta_r) : 0.f;
-    }
-  }
-}
-
-// Both products in one sweep over d, all four tiles transposed ([d][FB_LD]).
-__device__ __forceinline__ void fb_products_tt(
-    const float* __restrict__ Qt, const float* __restrict__ Kt,
-    const float* __restrict__ Gt, const float* __restrict__ Vt, int d,
-    float (&p)[4][4], float (&ds)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      p[i][j] = 0.f;
-      ds[i][j] = 0.f;
-    }
-#pragma unroll 2
-  for (int c = 0; c < d; ++c) {
-    const float4 a = *reinterpret_cast<const float4*>(Qt + c * FB_LD + ty * 4);
-    const float4 b = *reinterpret_cast<const float4*>(Kt + c * FB_LD + tx * 4);
-    const float4 e = *reinterpret_cast<const float4*>(Gt + c * FB_LD + ty * 4);
-    const float4 f = *reinterpret_cast<const float4*>(Vt + c * FB_LD + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-    const float ev[4] = {e.x, e.y, e.z, e.w};
-    const float fv[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = fmaf(av[i], bv[j], p[i][j]);
-        ds[i][j] = fmaf(ev[i], fv[j], ds[i][j]);
-      }
-  }
-}
-
-// ---- C8: 3xTF32 tensor-core products, its own code (C9 above stays SIMT) ----
+// ---- C8 ----
 
 #define DKV_BS 32        // source rows a block owns
 #define DKV_BL 32        // query rows a streamed tile holds
@@ -161,106 +76,21 @@ __device__ __forceinline__ void fb_products_tt(
 #define DKV_NT1 (DKV_BL / 8 / DKV_WC)       // query n-tiles a warp, first
 #define DKV_NT ((18 + DKV_WC - 1) / DKV_WC) // output n-tiles a warp (d <= 144)
 
-__device__ __forceinline__ unsigned dkv_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo with hi = x rounded to tf32 (ties away) and lo the rest,
-// rounded again: hi*b_hi + hi*b_lo + lo*b_hi carries ~21 bits of x*b.
-__device__ __forceinline__ void dkv_split(float x, unsigned& hi,
-                                          unsigned& lo) {
-  hi = dkv_tf32(x);
-  lo = dkv_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void dkv_mma(float (&c)[4], const unsigned (&a)[4],
-                                        const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b for one k-step, in three tensor-core passes (the small terms
-// first) summed from zero, then added to c on the FMA units. The tensor
-// cores' own f32 accumulation truncates; summing a long product there let
-// the bias grow with the product's length (2e-5 off f32 at 333 rows), so
-// each k-step's eight terms start from zero and the running sum rounds to
-// nearest.
-__device__ __forceinline__ void dkv_mma3(float (&c)[4], const unsigned (&ah)[4],
-                                         const unsigned (&al)[4],
-                                         const unsigned (&bh)[2],
-                                         const unsigned (&bl)[2]) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  dkv_mma(t, al, bh);
-  dkv_mma(t, ah, bl);
-  dkv_mma(t, ah, bh);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], t[e]);
-}
-
-__device__ __forceinline__ void dkv_cp16(float* smem, const float* gmem,
-                                         bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void dkv_cp4(float* smem, const float* gmem,
-                                        bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
-               "l"(gmem), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void dkv_commit() {
-  asm volatile("cp.async.commit_group;" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void dkv_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
-}
-
-// Starts the copy dst[r][c] = x[row0 + r, head, c] for ``nrows`` rows and
-// c < dpad; rows at or beyond ``limit`` and columns d .. dpad - 1 are
-// zero-filled without reading global memory. ``vec``: 16-byte copies (d a
-// multiple of 4 and every base 16-byte aligned), else 4-byte ones.
-__device__ __forceinline__ void dkv_stage(float* __restrict__ dst,
-                                          const float* __restrict__ x,
-                                          int row0, int limit, int nrows,
-                                          size_t stride, int head, int d,
-                                          int dpad, int ld, bool vec) {
-  const int step = vec ? 4 : 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < nrows; r += DKV_THREADS / 32) {
-    const bool row_ok = row0 + r < limit;
-    const float* xr = x + (size_t)(row0 + r) * stride + (size_t)head * d;
-    for (int c = lane * step; c < dpad; c += 32 * step) {
-      const bool ok = row_ok && c < d;
-      if (vec)
-        dkv_cp16(dst + r * ld + c, ok ? xr + c : x, ok);
-      else
-        dkv_cp4(dst + r * ld + c, ok ? xr + c : x, ok);
-    }
-  }
-}
+static_assert(DKV_THREADS == TC_THREADS, "tc_stage strides by TC_THREADS");
 
 // The query tile at l0: Q and dO rows, and lse and delta of those rows.
 __device__ __forceinline__ void dkv_stage_tile(
     float* Qb, float* Gb, float* Lb, float* Db, const float* q,
     const float* dout, const float* lse, const float* delta, int l0, int L,
     int H, int head, size_t stride, int d, int dpad, int ld, bool vec) {
-  dkv_stage(Qb, q, l0, L, DKV_BL, stride, head, d, dpad, ld, vec);
-  dkv_stage(Gb, dout, l0, L, DKV_BL, stride, head, d, dpad, ld, vec);
+  tc_stage(Qb, q, l0, L, DKV_BL, stride, head, d, dpad, ld, vec);
+  tc_stage(Gb, dout, l0, L, DKV_BL, stride, head, d, dpad, ld, vec);
   const int t = threadIdx.x;
   if (t < 2 * DKV_BL) {
     const int r = t & (DKV_BL - 1);
     const bool ok = l0 + r < L;
     const float* src = t < DKV_BL ? lse : delta;
-    dkv_cp4((t < DKV_BL ? Lb : Db) + r,
+    tc_cp4((t < DKV_BL ? Lb : Db) + r,
             ok ? src + (size_t)(l0 + r) * H + head : src, ok);
   }
 }
@@ -328,11 +158,11 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
     }
 
   if (s0 < src_len && L > 0) {
-    dkv_stage(Ks, k, s0, src_len, DKV_BS, stride, head, d, dpad, ld, v16);
-    dkv_stage(Vs, v, s0, src_len, DKV_BS, stride, head, d, dpad, ld, v16);
+    tc_stage(Ks, k, s0, src_len, DKV_BS, stride, head, d, dpad, ld, v16);
+    tc_stage(Vs, v, s0, src_len, DKV_BS, stride, head, d, dpad, ld, v16);
     dkv_stage_tile(Qs, Gs, Ls, Ds, q, dout, lse, delta, 0, L, H, head, stride,
                    d, dpad, ld, v16);
-    dkv_commit();
+    tc_commit();
     const int ntiles = (L + DKV_BL - 1) / DKV_BL;
     for (int it = 0; it < ntiles; ++it) {
       const int buf = it & 1, l0 = it * DKV_BL;
@@ -342,10 +172,10 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
                        Ls + nb * DKV_BL, Ds + nb * DKV_BL, q, dout, lse,
                        delta, l0 + DKV_BL, L, H, head, stride, d, dpad, ld,
                        v16);
-        dkv_commit();
-        dkv_wait<1>();
+        tc_commit();
+        tc_wait<1>();
       } else {
-        dkv_wait<0>();
+        tc_wait<0>();
       }
       __syncthreads();
       const float* Qb = Qs + buf * DKV_BL * ld;
@@ -371,18 +201,18 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
               Ks + (wm + g) * ld + c0);
           const float2 b = *reinterpret_cast<const float2*>(
               Ks + (wm + g + 8) * ld + c0);
-          dkv_split(a.x, kh[0], kl[0]);
-          dkv_split(b.x, kh[1], kl[1]);
-          dkv_split(a.y, kh[2], kl[2]);
-          dkv_split(b.y, kh[3], kl[3]);
+          tc_split(a.x, kh[0], kl[0]);
+          tc_split(b.x, kh[1], kl[1]);
+          tc_split(a.y, kh[2], kl[2]);
+          tc_split(b.y, kh[3], kl[3]);
           const float2 e = *reinterpret_cast<const float2*>(
               Vs + (wm + g) * ld + c0);
           const float2 f = *reinterpret_cast<const float2*>(
               Vs + (wm + g + 8) * ld + c0);
-          dkv_split(e.x, vh[0], vl[0]);
-          dkv_split(f.x, vh[1], vl[1]);
-          dkv_split(e.y, vh[2], vl[2]);
-          dkv_split(f.y, vh[3], vl[3]);
+          tc_split(e.x, vh[0], vl[0]);
+          tc_split(f.x, vh[1], vl[1]);
+          tc_split(e.y, vh[2], vl[2]);
+          tc_split(f.y, vh[3], vl[3]);
         }
 #pragma unroll
         for (int nt = 0; nt < DKV_NT1; ++nt) {
@@ -390,12 +220,12 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
           const float2 a = *reinterpret_cast<const float2*>(Qb + row);
           const float2 b = *reinterpret_cast<const float2*>(Gb + row);
           unsigned qh[2], ql[2], gh[2], gl[2];
-          dkv_split(a.x, qh[0], ql[0]);
-          dkv_split(a.y, qh[1], ql[1]);
-          dkv_split(b.x, gh[0], gl[0]);
-          dkv_split(b.y, gh[1], gl[1]);
-          dkv_mma3(sacc[nt], kh, kl, qh, ql);
-          dkv_mma3(pacc[nt], vh, vl, gh, gl);
+          tc_split(a.x, qh[0], ql[0]);
+          tc_split(a.y, qh[1], ql[1]);
+          tc_split(b.x, gh[0], gl[0]);
+          tc_split(b.y, gh[1], gl[1]);
+          tc_mma3(sacc[nt], kh, kl, qh, ql);
+          tc_mma3(pacc[nt], vh, vl, gh, gl);
         }
       }
 
@@ -431,14 +261,14 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
         const int r0 = (wm + g) * DKV_LDP + kk * 8 + t;
         const int r1 = r0 + 8 * DKV_LDP;
         unsigned ph[4], pl[4], sh[4], sl[4];
-        dkv_split(Pt[r0], ph[0], pl[0]);
-        dkv_split(Pt[r1], ph[1], pl[1]);
-        dkv_split(Pt[r0 + 4], ph[2], pl[2]);
-        dkv_split(Pt[r1 + 4], ph[3], pl[3]);
-        dkv_split(St[r0], sh[0], sl[0]);
-        dkv_split(St[r1], sh[1], sl[1]);
-        dkv_split(St[r0 + 4], sh[2], sl[2]);
-        dkv_split(St[r1 + 4], sh[3], sl[3]);
+        tc_split(Pt[r0], ph[0], pl[0]);
+        tc_split(Pt[r1], ph[1], pl[1]);
+        tc_split(Pt[r0 + 4], ph[2], pl[2]);
+        tc_split(Pt[r1 + 4], ph[3], pl[3]);
+        tc_split(St[r0], sh[0], sl[0]);
+        tc_split(St[r1], sh[1], sl[1]);
+        tc_split(St[r0 + 4], sh[2], sl[2]);
+        tc_split(St[r1 + 4], sh[3], sl[3]);
         const float* g0 = Gb + (kk * 8 + t) * ld + g;
         const float* q0 = Qb + (kk * 8 + t) * ld + g;
 #pragma unroll
@@ -446,12 +276,12 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
           if (j < ncnt) {
             const int c = (nbase + j) * 8;
             unsigned gh[2], gl[2], qh[2], ql[2];
-            dkv_split(g0[c], gh[0], gl[0]);
-            dkv_split(g0[c + 4 * ld], gh[1], gl[1]);
-            dkv_split(q0[c], qh[0], ql[0]);
-            dkv_split(q0[c + 4 * ld], qh[1], ql[1]);
-            dkv_mma3(dv_acc[j], ph, pl, gh, gl);
-            dkv_mma3(dk_acc[j], sh, sl, qh, ql);
+            tc_split(g0[c], gh[0], gl[0]);
+            tc_split(g0[c + 4 * ld], gh[1], gl[1]);
+            tc_split(q0[c], qh[0], ql[0]);
+            tc_split(q0[c + 4 * ld], qh[1], ql[1]);
+            tc_mma3(dv_acc[j], ph, pl, gh, gl);
+            tc_mma3(dk_acc[j], sh, sl, qh, ql);
           }
         }
       }
@@ -477,7 +307,41 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
   }
 }
 
-__global__ void __launch_bounds__(FB_THREADS, 1)
+// ---- C9 ----
+
+#define DQ_BL 64        // query rows a block owns
+#define DQ_BS 64        // source rows a streamed tile holds
+#define DQ_THREADS 512  // warps: 4 (16 query rows) x 4 (16 source rows)
+#define DQ_NT (FB_DMAX / 8)  // output n-tiles (d <= 144)
+
+// Shared memory of C9 for rows of ld floats: Q and dO, and the two-stage
+// ring of K and V tiles.
+static size_t dq_smem_bytes(int ld) {
+  return (size_t)(2 * DQ_BL + 4 * DQ_BS) * ld * sizeof(float);
+}
+
+// The K and V tile of source rows row0 .. row0 + DQ_BS - 1 (those at or
+// beyond ``limit`` zero).
+__device__ __forceinline__ void dq_stage_kv(float* Kd, float* Vd,
+                                            const float* k, const float* v,
+                                            int row0, int limit,
+                                            size_t stride, int head, int d,
+                                            int dpad, int ld, bool vec) {
+  if (vec) {
+    const size_t off = (size_t)row0 * stride + (size_t)head * d;
+    tc_stage16<DQ_THREADS, DQ_BS>(Kd, k + off, limit - row0, stride, d, dpad,
+                                  ld);
+    tc_stage16<DQ_THREADS, DQ_BS>(Vd, v + off, limit - row0, stride, d, dpad,
+                                  ld);
+  } else {
+    tc_stage<DQ_THREADS>(Kd, k, row0, limit, DQ_BS, stride, head, d, dpad, ld,
+                         false);
+    tc_stage<DQ_THREADS>(Vd, v, row0, limit, DQ_BS, stride, head, d, dpad, ld,
+                         false);
+  }
+}
+
+__global__ void __launch_bounds__(DQ_THREADS, 1)
 flash_attention_bwd_dq_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
@@ -485,87 +349,189 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ q,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               const int* __restrict__ src_len_p, int L, int S,
-                              int H, int d, float sm_scale,
+                              int H, int d, int ld, float sm_scale, int vec,
                               float* __restrict__ dq) {
-  extern __shared__ __align__(16) float fb_smem[];
-  float* Qt = fb_smem;               // [d][FB_LD], the block's query rows
-  float* Gt = Qt + d * FB_LD;        // dO^T [d][FB_LD]
-  float* Kb = Gt + d * FB_LD;        // K^T [d][FB_LD], then K [FB_BT][d]
-  float* Vt = Kb + d * FB_LD;        // [d][FB_LD]
-  float* St = Vt + d * FB_LD;        // [FB_BT][FB_LD]: St[n][r] = ds[r][n]
+  extern __shared__ __align__(16) float dq_smem[];
+  const int dpad = tc_dpad(d);
+  const int nk = dpad >> 3;
+  float* Qs = dq_smem;                 // [DQ_BL][ld]
+  float* Gs = Qs + DQ_BL * ld;         // dO [DQ_BL][ld]
+  float* Ks = Gs + DQ_BL * ld;         // [2][DQ_BS][ld]
+  float* Vs = Ks + 2 * DQ_BS * ld;     // [2][DQ_BS][ld]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp & 3) * 16;      // the warp's query rows
+  const int wn = (warp >> 2) * 16;     // its source rows of every tile
   const int head = blockIdx.y;
-  const int l0 = blockIdx.x * FB_BT;
+  const int l0 = blockIdx.x * DQ_BL;
   const size_t stride = (size_t)H * d;
-  const int slots = (d + 15) >> 4;
+  const bool v16 = vec != 0;
 
   int src_len = *src_len_p;
   src_len = src_len < 0 ? 0 : (src_len > S ? S : src_len);
 
-  float acc[4][FB_OC];
+  float acc[DQ_NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DQ_NT; ++n)
 #pragma unroll
-    for (int jj = 0; jj < FB_OC; ++jj) acc[i][jj] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  fb_load_transposed(Qt, q, l0, L, stride, head, d);
-  fb_load_transposed(Gt, dout, l0, L, stride, head, d);
-
-  for (int s0 = 0; s0 < src_len; s0 += FB_BT) {
-    __syncthreads();  // the previous tile's accumulation is done
-    fb_load_transposed(Kb, k, s0, src_len, stride, head, d);
-    fb_load_transposed(Vt, v, s0, src_len, stride, head, d);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    fb_products_tt(Qt, Kb, Gt, Vt, d, p, ds);
-    fb_p_ds(lse, delta, l0, s0, L, src_len, H, head, sm_scale, p, ds);
-    __syncthreads();  // every thread is done with K^T
-
+  if (src_len > 0) {
+    tc_stage<DQ_THREADS>(Qs, q, l0, L, DQ_BL, stride, head, d, dpad, ld, v16);
+    tc_stage<DQ_THREADS>(Gs, dout, l0, L, DQ_BL, stride, head, d, dpad, ld,
+                         v16);
+    dq_stage_kv(Ks, Vs, k, v, 0, src_len, stride, head, d, dpad, ld, v16);
+    tc_commit();
+    // lse (in log2 units) and delta of the thread's query rows g, g + 8
+    bool row_ok[2];
+    float lse2[2], delta_r[2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(St + (tx * 4 + j) * FB_LD + ty * 4) =
-          make_float4(ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
-    fb_load_rows(Kb, k, s0, src_len, stride, head, d, d);
-    __syncthreads();
+    for (int h = 0; h < 2; ++h) {
+      const int row = l0 + wm + g + 8 * h;
+      row_ok[h] = row < L;
+      lse2[h] = row_ok[h] ? lse[(size_t)row * H + head] * TC_LOG2E : 0.f;
+      delta_r[h] = row_ok[h] ? delta[(size_t)row * H + head] : 0.f;
+    }
+    const float scale2 = sm_scale * TC_LOG2E;
+    const int ra = wn + tc_perm(g);          // S's and dP's B rows, + 8 u
+    const int rb0 = wn + tc_perm(2 * t);     // dq's B rows, + 8 u
+    const int rb1 = wn + tc_perm(2 * t + 1);
+    const int ntiles = (src_len + DQ_BS - 1) / DQ_BS;
+    for (int it = 0; it < ntiles; ++it) {
+      const int buf = it & 1, s0 = it * DQ_BS;
+      if (it + 1 < ntiles) {
+        const int nb = buf ^ 1;
+        dq_stage_kv(Ks + nb * DQ_BS * ld, Vs + nb * DQ_BS * ld, k, v,
+                    s0 + DQ_BS, src_len, stride, head, d, dpad, ld, v16);
+        tc_commit();
+        tc_wait<1>();
+      } else {
+        tc_wait<0>();
+      }
+      __syncthreads();
+      const float* Kb = Ks + buf * DQ_BS * ld;
+      const float* Vb = Vs + buf * DQ_BS * ld;
 
-    // query rows ty*4 + i, columns tx + 16 jj: dq += ds[.][n] k[n][.]
-#pragma unroll 2
-    for (int n = 0; n < FB_BT; ++n) {
-      const float4 ss =
-          *reinterpret_cast<const float4*>(St + n * FB_LD + ty * 4);
-      const float* kr = Kb + n * d + tx;
+      // S and dP for the warp's 16 query rows x 2 x 8 source rows, summed
+      // over d; the summed index read as 2t, 2t + 1 for the fragment's t,
+      // t + 4 in both operands (8-byte loads)
+      float sacc[2][4], pacc[2][4];
 #pragma unroll
-      for (int jj = 0; jj < FB_OC; ++jj) {
-        if (jj < slots) {
-          const float kk = kr[16 * jj];
-          acc[0][jj] = fmaf(ss.x, kk, acc[0][jj]);
-          acc[1][jj] = fmaf(ss.y, kk, acc[1][jj]);
-          acc[2][jj] = fmaf(ss.z, kk, acc[2][jj]);
-          acc[3][jj] = fmaf(ss.w, kk, acc[3][jj]);
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[u][e] = pacc[u][e] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < nk; ++kk) {
+        const int c0 = kk * 8 + 2 * t;
+        unsigned qh[4], ql[4], gh[4], gl[4];
+        {
+          const float2 a = *reinterpret_cast<const float2*>(
+              Qs + (wm + g) * ld + c0);
+          const float2 b = *reinterpret_cast<const float2*>(
+              Qs + (wm + g + 8) * ld + c0);
+          tc_split_rz(a.x, qh[0], ql[0]);
+          tc_split_rz(b.x, qh[1], ql[1]);
+          tc_split_rz(a.y, qh[2], ql[2]);
+          tc_split_rz(b.y, qh[3], ql[3]);
+          const float2 e = *reinterpret_cast<const float2*>(
+              Gs + (wm + g) * ld + c0);
+          const float2 f = *reinterpret_cast<const float2*>(
+              Gs + (wm + g + 8) * ld + c0);
+          tc_split_rz(e.x, gh[0], gl[0]);
+          tc_split_rz(f.x, gh[1], gl[1]);
+          tc_split_rz(e.y, gh[2], gl[2]);
+          tc_split_rz(f.y, gh[3], gl[3]);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          unsigned kh[2], kl[2], vh[2], vl[2];
+          const float2 kv = *reinterpret_cast<const float2*>(
+              Kb + (ra + 8 * u) * ld + c0);
+          const float2 vv = *reinterpret_cast<const float2*>(
+              Vb + (ra + 8 * u) * ld + c0);
+          tc_split_rz(kv.x, kh[0], kl[0]);
+          tc_split_rz(kv.y, kh[1], kl[1]);
+          tc_split_rz(vv.x, vh[0], vl[0]);
+          tc_split_rz(vv.y, vh[1], vl[1]);
+          tc_mma3(sacc[u], qh, ql, kh, kl);
+          tc_mma3(pacc[u], gh, gl, vh, vl);
         }
       }
+
+      // p = exp(s * scale - lse), ds = p (dp - delta); column c of n-tile
+      // u is source row s0 + wn + 8 u + tc_perm(c); zero outside the valid
+      // prefix and beyond L. ds's fragments are the A operands of dS K.
+      unsigned dh[2][4], dl[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const bool valid = row_ok[h] &&
+                             s0 + wn + 8 * u + tc_perm(2 * t + (e & 1)) <
+                                 src_len;
+          const float pr =
+              valid ? exp2f(fmaf(sacc[u][e], scale2, -lse2[h])) : 0.f;
+          ds[e] = valid ? pr * (pacc[u][e] - delta_r[h]) : 0.f;
+        }
+        tc_split_acc(ds, dh[u], dl[u]);
+      }
+      // dq += dS K over the warp's 16 source rows
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float* k0 = Kb + (rb0 + 8 * u) * ld + g;
+        const float* k1 = Kb + (rb1 + 8 * u) * ld + g;
+#pragma unroll
+        for (int n = 0; n < DQ_NT; ++n) {
+          if (n < nk) {
+            unsigned bh[2], bl[2];
+            tc_split_rz(k0[8 * n], bh[0], bl[0]);
+            tc_split_rz(k1[8 * n], bh[1], bl[1]);
+            tc_mma3(acc[n], dh[u], dl[u], bh, bl);
+          }
+        }
+      }
+      __syncthreads();  // the tile's buffers are free again
     }
   }
 
+  // The four source slices' partials of a query row, summed in slice order
+  // in the ring's space: red[w][r][c] for warp w's row r.
+  float* red = Ks;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = l0 + ty * 4 + i;
+  for (int n = 0; n < DQ_NT; ++n) {
+    if (n < nk) {
+      const int c = 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(red + (warp * 16 + g) * ld + c) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(red + (warp * 16 + g + 8) * ld + c) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+  __syncthreads();
+  const int rj = DQ_BL * ld;           // from slice j to j + 1: four warps
+  for (int i = threadIdx.x; i < DQ_BL * d; i += DQ_THREADS) {
+    const int r = i / d, c = i - r * d;
+    const int row = l0 + r;
     if (row < L) {
-      float* dst = dq + (size_t)row * stride + (size_t)head * d;
-#pragma unroll
-      for (int jj = 0; jj < FB_OC; ++jj) {
-        const int c = tx + 16 * jj;
-        if (c < d) dst[c] = acc[i][jj] * sm_scale;
-      }
+      const float* p = red + r * ld + c;
+      const float sum = ((p[0] + p[rj]) + p[2 * rj]) + p[3 * rj];
+      dq[(size_t)row * stride + (size_t)head * d + c] = sum * sm_scale;
     }
   }
 }
 
 static bool fb_bad_shape(int L, int S, int H, int d) {
   return d < 1 || d > FB_DMAX || L < 0 || S < 0 || H < 0;
+}
+
+// 16-byte copies need whole float4 rows and aligned bases
+static int fb_vec(int d, const void* q, const void* k, const void* v,
+                  const void* dout) {
+  const size_t bases = (size_t)q | (size_t)k | (size_t)v | (size_t)dout;
+  return d % 4 == 0 && bases % 16 == 0;
 }
 
 extern "C" int dp_flash_attention_bwd_dkv(const void* q, const void* k,
@@ -576,8 +542,7 @@ extern "C" int dp_flash_attention_bwd_dkv(const void* q, const void* k,
                                           void* dk, void* dv, void* stream) {
   if (fb_bad_shape(L, S, H, d)) return (int)cudaErrorInvalidValue;
   if (S > 0 && H > 0) {
-    const int dpad = (d + 7) & ~7;
-    const int ld = (dpad & 15) ? dpad : dpad + 8;
+    const int ld = tc_ld(d);
     const size_t smem = (size_t)(2 * DKV_BS * ld + 4 * DKV_BL * ld +
                                  2 * DKV_BS * DKV_LDP + 4 * DKV_BL) *
                         sizeof(float);
@@ -589,15 +554,12 @@ extern "C" int dp_flash_attention_bwd_dkv(const void* q, const void* k,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    // 16-byte copies need whole float4 rows and aligned bases
-    const size_t bases = (size_t)q | (size_t)k | (size_t)v | (size_t)dout;
-    const int vec = d % 4 == 0 && bases % 16 == 0;
     const dim3 grid((S + DKV_BS - 1) / DKV_BS, H);
     flash_attention_bwd_dkv_kernel<<<grid, DKV_THREADS, smem,
                                      (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
         (const float*)lse, (const float*)delta, (const int*)src_len, L, S, H,
-        d, sm_scale, vec, (float*)dk, (float*)dv);
+        d, sm_scale, fb_vec(d, q, k, v, dout), (float*)dk, (float*)dv);
   }
   return (int)cudaGetLastError();
 }
@@ -610,18 +572,24 @@ extern "C" int dp_flash_attention_bwd_dq(const void* q, const void* k,
                                          void* dq, void* stream) {
   if (fb_bad_shape(L, S, H, d)) return (int)cudaErrorInvalidValue;
   if (L > 0 && H > 0) {
-    const size_t smem =
-        (size_t)(4 * d * FB_LD + FB_BT * FB_LD) * sizeof(float);
+    // rows of 8 (mod 16) floats where they fit (d <= 136), else unpadded
+    int ld = tc_ld(d);
+    if (dq_smem_bytes(ld) > 232448) ld = tc_dpad(d);
+    const size_t smem = dq_smem_bytes(ld);
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_bwd_dq_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((L + FB_BT - 1) / FB_BT, H);
-    flash_attention_bwd_dq_kernel<<<grid, FB_THREADS, smem,
+    const dim3 grid((L + DQ_BL - 1) / DQ_BL, H);
+    flash_attention_bwd_dq_kernel<<<grid, DQ_THREADS, smem,
                                     (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
         (const float*)lse, (const float*)delta, (const int*)src_len, L, S, H,
-        d, sm_scale, (float*)dq);
+        d, ld, sm_scale, fb_vec(d, q, k, v, dout), (float*)dq);
   }
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,7 @@ from .position_encoding import embed_rotary
 Tensor = torch.Tensor
 
 FLASH_ATTENTION = Kernel("flash_attention_fwd", "dp_flash_attention_fwd",
-                         [P, P, P, P, I, I, I, I, F, P, P])
+                         [P, P, P, P, I, I, I, I, F, I, P, P, P])
 FLASH_ATTENTION_BWD_DKV = Kernel(
     "flash_attention_bwd_dkv", "dp_flash_attention_bwd_dkv",
     [P, P, P, P, P, P, P, I, I, I, I, F, P, P])
@@ -44,6 +44,7 @@ FLASH_ATTENTION_BWD_DQ = Kernel(
     "flash_attention_bwd_dq", "dp_flash_attention_bwd_dq",
     [P, P, P, P, P, P, P, I, I, I, I, F, P])
 FLASH_MAX_HEAD_DIM = 144
+FLASH_MAX_SPLITS = 8       # source chunks of C7 (``FA_MAX_SPLITS``)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,23 +190,50 @@ def _device_source_length(name: str, src_len_or_mask: Tensor | None, s: int,
     return src_len
 
 
+def flash_fwd_splits(l: int, s: int, h: int, sms: int) -> int:
+    """How many chunks C7 cuts the source rows into: its (64-row query
+    tile, head) blocks run one to an SM, and where they leave SMs idle the
+    source prefix is split so that the chunks fill them, at least 128
+    source rows (two tiles) a chunk. Chosen from S, not from the valid
+    prefix (which lies on the device): chunks beyond it exit at once."""
+    blocks = -(-l // 64) * h
+    return max(1, min(sms // max(blocks, 1), s // 128, FLASH_MAX_SPLITS))
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor,
                          src_len_or_mask: Tensor | None,
                          sm_scale: float, return_lse: bool = False):
     """Kernel C7 (``csrc/flash_attention.cu``) on CUDA tensors. With
     ``return_lse`` the kernel also writes the rows' log-sum-exp [L, h],
     which the backward kernels need: (o, lse)."""
+    return _flash_attention_launch(q, k, v, src_len_or_mask, sm_scale,
+                                   return_lse, None)
+
+
+def _flash_attention_launch(q: Tensor, k: Tensor, v: Tensor,
+                            src_len_or_mask: Tensor | None, sm_scale: float,
+                            return_lse: bool, splits: int | None):
+    """C7 with its source chunks given (``splits``; None: as
+    ``flash_fwd_splits`` chooses them for this card)."""
     _check_flash_shapes("flash_attention", q, k, v)
     l, h, d = q.shape
     s = k.shape[0]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     check_cuda("flash_attention", q, k, v)
     src_len = _device_source_length("flash_attention", src_len_or_mask, s, q)
+    if splits is None:
+        splits = flash_fwd_splits(l, s, h, _sm_count(q.device))
     out = torch.empty_like(q)
     lse = q.new_empty((l, h)) if return_lse else None
+    part = q.new_empty((splits, l, h, d + 2)) if splits > 1 else None
     FLASH_ATTENTION.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            src_len.data_ptr(), l, s, h, d, float(sm_scale),
-                           out.data_ptr(),
+                           splits, part.data_ptr() if part is not None
+                           else None, out.data_ptr(),
                            lse.data_ptr() if return_lse else None)
     return (out, lse) if return_lse else out
 

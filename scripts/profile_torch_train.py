@@ -30,7 +30,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 
-GROUPS = (("C7 flash_attention_fwd", ("flash_attention_kernel",)),
+GROUPS = (("C7 flash_attention_fwd", ("flash_attention_kernel",
+                                     "flash_attention_merge")),
           ("C8 flash_attention_bwd_dkv", ("flash_attention_bwd_dkv",)),
           ("C9 flash_attention_bwd_dq", ("flash_attention_bwd_dq",)),
           ("GEMM", ("gemm", "cutlass", "cublas", "xmma")),

@@ -21,11 +21,14 @@ gradients 1e-4 of each tensor's max |g| against the plain version in float64
 on a second launch, at a ragged last tile and at width 32; the fused NSFP
 loop against the CPU's plain loop. C7 against its
 plain version 2e-5 max abs (outputs are convex combinations of N(0, 1)
-values; the two sum S terms in different orders), at the matcher's shape,
-at an awkward one, with an empty source prefix, and inside a layer. C8 and
+values; C7 computes its products as 3xTF32 on the tensor cores, ~1e-6 off
+f32), bit-equal on a second launch, at the matcher's shapes (caps 1024 and
+2048), at an awkward one, with an empty source prefix, with its source
+rows cut into chunks (a prefix that ends inside the first chunk, an empty
+one), and inside a layer. C8 and
 C9 against ``flash_attention_bwd_plain`` 2e-5 max abs on the same inputs
-and a unit-scale upstream gradient (C8 computes its products as 3xTF32 on
-the tensor cores, ~1e-6 off f32), bit-equal on a second launch, zero
+and a unit-scale upstream gradient (both compute their products as 3xTF32
+on the tensor cores, ~1e-6 off f32), bit-equal on a second launch, zero
 beyond the prefix, at head widths 1, 18, 24, 132 and 144 and prefixes of
 0, 1 and S rows, NaN in the padded rows or not (one valid source row
 takes all the probability, so dv sums all L upstream rows and its size,
@@ -408,6 +411,7 @@ def test_fused_level_repeats_exactly(dev):
 
 
 @pytest.mark.parametrize("L,S,src_len,h,d", [(2048, 2048, 1500, 4, 132),
+                                             (1024, 1024, 900, 4, 132),
                                              (777, 1333, 1000, 4, 132),
                                              (777, 1333, 0, 4, 132),
                                              (130, 70, 70, 8, 18),
@@ -426,12 +430,57 @@ def test_flash_attention_matches_plain(dev, L, S, src_len, h, d):
     assert tatt.FLASH_ATTENTION.launches == before + 1
     assert got.shape == q.shape and torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 2e-5
+    assert torch.equal(tatt.flash_attention(q, k, v, n, scale), got)
     if src_len == 0:
         assert not got.any()
     mask = torch.arange(S, device=dev) < src_len
     assert torch.equal(tatt.flash_attention(q, k, v, mask, scale), got)
     if src_len == S:
         assert torch.equal(tatt.flash_attention(q, k, v, None, scale), got)
+
+
+@pytest.mark.parametrize("src_len,splits", [(100, 4), (0, 4), (1000, 3),
+                                            (640, 8), (900, 2)])
+def test_flash_attention_source_chunks_match_plain(dev, src_len, splits):
+    """C7 with the source rows cut into chunks (one launch of the wrapper,
+    counted once): a prefix that ends inside the first chunk, an empty one,
+    the whole source, against the plain version's o and lse, bit-equal on
+    a second launch and with or without the lse output; NaN beyond the
+    prefix does not leak."""
+    gen = torch.Generator().manual_seed(12)
+    q, k, v = (torch.randn(n, 4, 132, generator=gen).to(dev)
+               for n in (200, 1000, 1000))
+    k[src_len:], v[src_len:] = torch.nan, torch.inf
+    n = torch.tensor(src_len, dtype=torch.int32, device=dev)
+    scale = 132 ** -0.5
+    before = tatt.FLASH_ATTENTION.launches
+    o, lse = tatt._flash_attention_launch(q, k, v, n, scale, True, splits)
+    o2, lse2 = tatt._flash_attention_launch(q, k, v, n, scale, True, splits)
+    alone = tatt._flash_attention_launch(q, k, v, n, scale, False, splits)
+    o_ref, lse_ref = tatt.flash_attention_plain(q, k, v, n, scale,
+                                                return_lse=True)
+    torch.cuda.synchronize()
+    assert tatt.FLASH_ATTENTION.launches == before + 3
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o, alone)
+    assert torch.isfinite(o).all() and (o - o_ref).abs().max() <= 2e-5
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(lse_ref))
+    if src_len:
+        assert (lse - lse_ref).abs().max() <= 2e-5
+    else:
+        assert not o.any()
+
+
+def test_flash_attention_splits_at_small_caps(dev):
+    """On a card of 132 SMs, C7's 64 blocks (64 query rows, a head, one
+    an SM) at 1024 query rows and 4 heads would leave half the SMs idle:
+    the wrapper cuts the source in two; at 2048 and 4096 rows it does
+    not."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    got = [tatt.flash_fwd_splits(n, n, 4, sms) for n in (1024, 2048, 4096)]
+    if sms == 132:
+        assert got == [2, 1, 1]
+    assert got[0] > 1
 
 
 def test_flash_attention_ignores_rows_beyond_the_prefix(dev):
@@ -462,6 +511,7 @@ def test_flash_attention_raises_instead_of_falling_back(dev):
 
 
 @pytest.mark.parametrize("L,S,src_len,h,d", [(2048, 2048, 1500, 4, 132),
+                                             (1024, 1024, 900, 4, 132),
                                              (777, 1333, 1000, 4, 132),
                                              (777, 1333, 0, 4, 132),
                                              (300, 200, 130, 4, 24),

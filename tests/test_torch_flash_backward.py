@@ -201,14 +201,24 @@ def _tf32(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _tf32_product(eq, a, b, passes):
-    """An einsum with TF32 operands: one pass (a and b rounded), or kernel
-    C8's three (a = a_hi + a_lo, the same for b: a_lo b_hi + a_hi b_lo +
-    a_hi b_hi, each part rounded to TF32), summed in float32."""
-    ah, bh = _tf32(a), _tf32(b)
+def _tf32_rz(x):
+    """Round float32 to TF32 toward zero: the low 13 mantissa bits cleared,
+    as kernels C7 and C9 split (``tc_split_rz``) and as the tensor cores
+    read the low part they are handed."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, passes, rz=False):
+    """An einsum with TF32 operands: one pass (a and b rounded), or the
+    three of kernels C7-C9 (a = a_hi + a_lo, the same for b: a_lo b_hi +
+    a_hi b_lo + a_hi b_hi, each part rounded to TF32: to nearest as C8's
+    cvt.rna, or toward zero with ``rz``, as C7's and C9's), summed in
+    float32."""
+    tf32 = _tf32_rz if rz else _tf32
+    ah, bh = tf32(a), tf32(b)
     if passes == 1:
         return torch.einsum(eq, ah, bh)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
+    al, bl = tf32(a - ah), tf32(b - bh)
     return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
             + torch.einsum(eq, ah, bh))
 
@@ -251,3 +261,120 @@ def test_three_pass_tf32_keeps_c8_within_its_tolerance(L, S, s_len, d):
         errs[passes] = max(float((a - r).abs().max())
                            for a, r in zip(got, ref[1:]))
     assert errs[3] <= 2e-5 < errs[1], errs
+
+
+def _emulated_dq(q, k, v, do, s_len, scale, passes):
+    """C9's dq with its three products (S, dP, dQ) on TF32 operands split
+    toward zero, as the kernel splits them; lse and delta from the plain
+    forward, as the kernel reads them."""
+    q, k, v, do = map(_t, (q, k, v, do))
+    o, lse = tatt.flash_attention_plain(q, k, v, torch.tensor(s_len), scale,
+                                        return_lse=True)
+    delta = (do * o).sum(-1)
+    valid = (torch.arange(k.shape[0]) < s_len)[:, None, None]
+    km, vm = torch.where(valid, k, 0.0), torch.where(valid, v, 0.0)
+    s = _tf32_product("lhd,shd->lsh", q, km, passes, rz=True) * scale
+    p = torch.where(valid[None, :, :, 0], torch.exp(s - lse[:, None]), 0.0)
+    dp = _tf32_product("lhd,shd->lsh", do, vm, passes, rz=True)
+    ds = p * (dp - delta[:, None])
+    return _tf32_product("lsh,shd->lhd", ds, km, passes, rz=True) * scale
+
+
+def _emulated_fwd(q, k, v, s_len, scale, passes, chunks=1):
+    """C7's o and lse with its two products (the logits, P V) on TF32
+    operands split toward zero, as the kernel splits them. With ``chunks``
+    > 1 the source rows are cut as the kernel cuts them (chunks of whole
+    64-row tiles): each live chunk's max, sum and unnormalised output,
+    merged in chunk order with weights exp(m - M)."""
+    q, k, v = map(_t, (q, k, v))
+    n_src = k.shape[0]
+    chunk = n_src if chunks == 1 else -(-(-(-n_src // chunks)) // 64) * 64
+    parts = []
+    for lo in range(0, n_src, chunk):
+        hi = min(s_len, lo + chunk)
+        if hi <= lo:                       # at or beyond the prefix
+            break
+        s = _tf32_product("lhd,shd->lsh", q, k[lo:hi], passes,
+                          rz=True) * scale
+        m = s.amax(1)
+        p = torch.exp(s - m[:, None])
+        parts.append((m, p.sum(1),
+                      _tf32_product("lsh,shd->lhd", p, v[lo:hi], passes,
+                                    rz=True)))
+    if not parts:
+        return torch.zeros_like(q), q.new_full(q.shape[:2], -torch.inf)
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - big) for m, _, _ in parts]
+    lsum = sum(l * wz for (_, l, _), wz in zip(parts, w))
+    o = sum(oz * wz[..., None] for (_, _, oz), wz in zip(parts, w))
+    return o / lsum[..., None], big + torch.log(lsum)
+
+
+@pytest.mark.parametrize("L,S,s_len,d", [(200, 150, 120, 132),
+                                         (96, 64, 64, 18),
+                                         (60, 70, 1, 144),
+                                         (40, 300, 290, 144)])
+def test_three_pass_tf32_keeps_c9_within_its_tolerance(L, S, s_len, d):
+    """The error budget of C9's tensor-core route, on the CPU: its 3xTF32
+    products keep dq within FLASH_BWD_TOL (2e-5 max abs) of
+    ``flash_attention_bwd_plain`` on unit-scale inputs; one TF32 pass does
+    not. With one valid source row ds is a cancellation to 0, which one
+    pass leaves at ~1e-3 of dp."""
+    q, k, v, do = _inputs(7, L, S, d)
+    scale = 1.0 / math.sqrt(d)
+    _, _, ref = _plain_bwd(q, k, v, do, torch.tensor(s_len), scale)
+    errs = {passes: float((_emulated_dq(q, k, v, do, s_len, scale, passes)
+                           - ref[0]).abs().max()) for passes in (1, 3)}
+    assert errs[3] <= 2e-5 < errs[1], errs
+
+
+@pytest.mark.parametrize("L,S,s_len,d,chunks", [(200, 150, 120, 132, 1),
+                                                (96, 64, 64, 18, 1),
+                                                (60, 70, 1, 144, 1),
+                                                (64, 1000, 900, 132, 2),
+                                                (40, 1000, 100, 144, 4),
+                                                (50, 300, 290, 24, 3)])
+def test_three_pass_tf32_keeps_c7_within_its_tolerance(L, S, s_len, d,
+                                                       chunks):
+    """The error budget of C7's tensor-core route, on the CPU: its 3xTF32
+    products keep o and lse within 2e-5 max abs of
+    ``flash_attention_plain`` on unit-scale inputs, with the source prefix
+    in one chunk or merged from several (a prefix that ends inside the
+    first of 4 chunks included); one TF32 pass does not. With one valid
+    source row o is that row of v, which one pass rounds to TF32."""
+    q, k, v, _ = _inputs(8, L, S, d)
+    scale = 1.0 / math.sqrt(d)
+    ref = tatt.flash_attention_plain(_t(q), _t(k), _t(v),
+                                     torch.tensor(s_len), scale,
+                                     return_lse=True)
+    errs = {}
+    for passes in (1, 3):
+        got = _emulated_fwd(q, k, v, s_len, scale, passes, chunks)
+        errs[passes] = max(float((a - r).abs().max())
+                           for a, r in zip(got, ref))
+    assert errs[3] <= 2e-5 < errs[1], errs
+
+
+def test_c7_chunks_of_an_empty_prefix_give_zeros():
+    """No live chunk: o is 0 and lse -inf, as the plain version."""
+    q, k, v, _ = _inputs(9, 20, 300, 16)
+    o, lse = _emulated_fwd(q, k, v, 0, 0.25, 3, chunks=4)
+    ref = tatt.flash_attention_plain(_t(q), _t(k), _t(v), torch.tensor(0),
+                                     0.25, return_lse=True)
+    assert torch.equal(o, ref[0]) and torch.equal(lse, ref[1])
+
+
+@pytest.mark.parametrize("l,s,h,sms,want", [(1024, 1024, 4, 132, 2),
+                                            (2048, 2048, 4, 132, 1),
+                                            (4096, 4096, 4, 132, 1),
+                                            (512, 512, 4, 132, 4),
+                                            (32, 4096, 1, 132, 8),
+                                            (300, 200, 4, 132, 1),
+                                            (1024, 0, 4, 132, 1),
+                                            (0, 1024, 4, 132, 8)])
+def test_c7_splits_the_source_where_blocks_leave_the_card_idle(l, s, h, sms,
+                                                               want):
+    """C7's blocks (64 query rows, a head) run one to an SM; the source
+    prefix is cut into chunks of at least 128 rows, at most
+    FLASH_MAX_SPLITS, only where they leave SMs idle."""
+    assert tatt.flash_fwd_splits(l, s, h, sms) == want

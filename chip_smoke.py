@@ -13,12 +13,15 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             at "highest" precision and no TF32 anywhere;
 2. build    nvcc compiles deformationpyramid_tpu_torch/csrc/*.cu for sm_90a,
             one process per source, all at once, into build/torch_kernels/
-            (the time is printed);
+            (the time is printed), and ptxas's registers and spill bytes of
+            C3's 18 instantiations;
 3. kernels  each kernel at its path's shapes against its plain PyTorch
             version on the same inputs, with the tolerance stated, and the
             device time of each, by CUDA events (median of 30 calls): C1
             nn_dual, C2 level_warp_fwd, C6 scatter_rows, C3
-            level_warp_bwd, C4 adam_step at the bench shapes (2000 points,
+            level_warp_bwd (its width x width products as 3xTF32 on the
+            tensor cores: timed against that bound and the f32 one), C4
+            adam_step at the bench shapes (2000 points,
             width 128, depth 3, SE3 + axis_angle, a mid level); C6 again at
             the shape-transfer demo's 6000 x 6000 and with all 2000
             sources on one row (bit-equal to index_add_ on the CPU and on
@@ -41,9 +44,11 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             with masks and the truncation at the median (five outputs
             within 2e-5, the gradient within 1e-4 of its max, a repeat
             bit-equal; beside it the time of C1 + glue + C6, the work it
-            replaces); C13 sum_partials on C3's 63 partial rows of 34,694
-            and of 34,823 (with the nonrigidity head): bit-equal to a sum in
-            block order and on a repeat, within 1e-6 of a float64 sum; C2 /
+            replaces); C13 sum_partials on C3's 125 partial rows of
+            34,694 and of 34,823 (with the nonrigidity head): bit-equal to
+            a sum in block order and on a repeat, within 1e-6 of a float64
+            sum; C3's checks give zero cotangents to the points at a ReLU's
+            kink (off_kinks); C2 /
             C3 with the nonrigidity head at levels 0 and 1 (at level 0 nr
             is all ones and its head's gradient exactly 0). Beside each
             kernel the one PyTorch
@@ -232,8 +237,8 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 
 
 # Published peaks of one H100 SXM: device memory, float32 outside the
-# tensor cores (every kernel but C8 computes in exact float32 there), and
-# dense TF32 on the tensor cores (C8's 3xTF32 products).
+# tensor cores (the kernels' other arithmetic, in exact float32), and
+# dense TF32 on the tensor cores (the 3xTF32 products of C3 and C7-C9).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -276,7 +281,9 @@ def level_bounds(n: int, cfg, n_params: int, rows: int) -> dict:
     the points and the upstream gradient and writes one gradient. Adam on a
     summed gradient reads p, m, v, g and writes p, m, v. The landmark
     iteration is all three in one launch: the same 3x (its forward is not
-    run twice) plus Adam's arithmetic. The ``rows`` partial gradient rows
+    run twice) plus Adam's arithmetic. C3's bound counts its width x width
+    share as three TF32 passes on the tensor cores (``f32_bound_ms``: all
+    of it in f32). The ``rows`` partial gradient rows
     that C3 hands to C4 are the design's own traffic: C4's
     ``design_bound_ms`` counts them, no ``bound_ms`` does (operations bind
     C3 with or without them).
@@ -287,9 +294,21 @@ def level_bounds(n: int, cfg, n_params: int, rows: int) -> dict:
     fwd = level_mlp_flops(n, cfg, heads)
     p4 = 4.0 * n_params
     adam_design = bound(6.0 * p4 + rows * p4, (rows + 12.0) * n_params)
+    # C3 computes its width x width products (the hidden layers forward,
+    # their weight gradients and cotangents) as 3xTF32 on the tensor
+    # cores: three passes of that share at the TF32 rate, the rest (input
+    # layer, heads) at the f32 one; the all-f32 bound stays beside it.
+    bwd_bytes = 2.0 * p4 + 36.0 * n
+    wide = 6.0 * n * (cfg.depth - 1) * cfg.width ** 2
+    tc_ms = (3.0 * wide / TF32_FLOP_PER_S
+             + (3.0 * fwd - wide) / F32_FLOP_PER_S) * 1e3
+    bytes_ms = bwd_bytes / HBM_BYTES_PER_S * 1e3
     return {
         "level_warp_fwd": bound(p4 + 24.0 * n, fwd),
-        "level_warp_bwd": bound(2.0 * p4 + 36.0 * n, 3.0 * fwd),
+        "level_warp_bwd": dict(
+            bound_ms=max(bytes_ms, tc_ms),
+            bound_by="bytes" if bytes_ms >= tc_ms else "operations",
+            f32_bound_ms=bound(bwd_bytes, 3.0 * fwd)["bound_ms"]),
         "adam_step": dict(bound(7.0 * p4, 12.0 * n_params),
                           design_bound_ms=adam_design["bound_ms"]),
         "ldmk_iteration": bound(6.0 * p4 + 40.0 * n,
@@ -390,6 +409,7 @@ def kernel_phase(dp, dev):
     n_len = torch.tensor(2000.0, device=dev)
     _, g = fi._chamfer_glue(warped, got[1], got[3], y, xv, xv, n_len, n_len,
                             1e9)
+    g = g * off_kinks(flat, x, MID_LEVEL, cfg)[:, None]
 
     # C3: the parameter VJP, partials summed
     partials = fi.level_warp_bwd(flat, x, g, MID_LEVEL, cfg)
@@ -402,7 +422,7 @@ def kernel_phase(dp, dev):
         ms=cuda_ms(lambda: fi.level_warp_bwd(flat, x, g, MID_LEVEL, cfg)),
         plain_ms=cuda_ms(lambda: fi.level_warp_bwd_plain(flat, x, g,
                                                          MID_LEVEL, cfg)),
-        library_ms=None,
+        library_ms=None, rows=partials.shape[0],
         tol=f"1e-4 of each tensor's max|g| (worst {worst:.2e})")
 
     # C4: one Adam step from zero moments, then a held step
@@ -585,6 +605,25 @@ def rel_grad_err(got, ref, shapes, what, tol=1e-4):
     return worst
 
 
+def off_kinks(flat, x, level, cfg, tol=1e-6):
+    """The points away from the level MLP's ReLU kinks: False where a
+    pre-activation lies within ``tol`` of 0 in a float64 forward. The
+    warp's gradient jumps there, and two float32 computations of the trunk
+    (C3's 3xTF32 products, the plain version's) may take either side: at
+    the bench shapes, SE3 + 6D, one point with z = -1.2e-8 moves hidden.b
+    by 1.0e-4 of its max. C3's checks give those points zero cotangents."""
+    from deformationpyramid_tpu_torch.models import pyramid
+
+    p = pyramid.unravel(flat.double(), pyramid.level_shapes(cfg))
+    z = pyramid.posenc(x.double(), level, cfg.k0) @ p["input"]["w"] \
+        + p["input"]["b"]
+    near = (z.abs() < tol).any(-1)
+    for i in range(p["hidden"]["w"].shape[0]):
+        z = torch.relu(z) @ p["hidden"]["w"][i] + p["hidden"]["b"][i]
+        near |= (z.abs() < tol).any(-1)
+    return ~near
+
+
 def sim3_kernel_phase(dp, dev):
     """C2 and C3 at the shape-transfer shapes: 6000 points, Sim3 + euler."""
     from deformationpyramid_tpu_torch.cli.shape_transfer import DEMO_CFG
@@ -601,6 +640,7 @@ def sim3_kernel_phase(dp, dev):
     check(flat.numel() == fi.level_param_count(cfg),
           f"Sim3 flat level has {flat.numel()} values")
     g = (torch.from_numpy(flow) * 1e-3).to(dev).contiguous()
+    g = g * off_kinks(flat, x, MID_LEVEL, cfg)[:, None]
     out = fi.level_warp_fwd(flat, x, MID_LEVEL, cfg)
     ref = fi._plain_warp(flat, x, MID_LEVEL, cfg)
     part = fi.level_warp_bwd(flat, x, g, MID_LEVEL, cfg).sum(0)
@@ -651,7 +691,7 @@ def format_kernel_phase(dp, dev):
 
     src, _, flow = make_pair(n=2000, seed=0, deform=0.12)
     x = torch.from_numpy(src - src.mean(0)).to(dev)
-    g = (torch.from_numpy(flow) * 1e-3).to(dev).contiguous()
+    g_flow = (torch.from_numpy(flow) * 1e-3).to(dev).contiguous()
     out = {}
     for i, (motion, fmt) in enumerate(NEW_FORMATS):
         cfg = pyramid.NDPConfig(**dict(BENCH_PYRAMID, motion=motion,
@@ -663,6 +703,7 @@ def format_kernel_phase(dp, dev):
             numpy_level_params(shapes, seed=10 + i), device=dev)).contiguous()
         check(flat.numel() == fi.level_param_count(cfg),
               f"{tag}: flat level has {flat.numel()} values")
+        g = g_flow * off_kinks(flat, x, MID_LEVEL, cfg)[:, None]
         warped = fi.level_warp_fwd(flat, x, MID_LEVEL, cfg)
         ref = fi._plain_warp(flat, x, MID_LEVEL, cfg)
         part = fi.level_warp_bwd(flat, x, g, MID_LEVEL, cfg)
@@ -2262,7 +2303,10 @@ def optin_kernel_phase(dp, dev):
     # C2 / C3 with the nonrigidity head, levels 0 (ungated, nr = 1, its
     # parameters get exactly zero gradient) and 1 (gated)
     nr_res = {}
+    g_all, g_nr_all = g, g_nr
     for level in (0, 1):
+        keep = off_kinks(flat_nr, x, level, cfg_nr)
+        g, g_nr = g_all * keep[:, None], g_nr_all * keep
         w_, nr_ = fi.level_warp_fwd_nr(flat_nr, x, level, cfg_nr)
         rw, rnr = fi._plain_warp_nr(flat_nr, x, level, cfg_nr)
         part = fi.level_warp_bwd(flat_nr, x, g, level, cfg_nr, g_nr).sum(0)
@@ -2295,8 +2339,10 @@ def optin_kernel_phase(dp, dev):
                                                      cfg_nr, g_nr)),
                 plain_ms=cuda_ms(lambda: fi.level_warp_bwd_plain(
                     flat_nr, x, g, 1, cfg_nr, g_nr)), library_ms=None)
+            rows = fi.level_warp_bwd(flat_nr, x, g, 1, cfg_nr,
+                                     g_nr).shape[0]
             for name, b in level_bounds(n, cfg_nr, flat_nr.numel(),
-                                        -(-n // fi.BWD_TILE)).items():
+                                        rows).items():
                 if name in r:
                     r[name].update(b)
             for name in r:
@@ -2819,6 +2865,99 @@ def ed_phase(dp, dev, kernels):
     return out
 
 
+MOTION_NAMES = {0: "SE3", 1: "Sim3", 2: "sflow"}
+FORMAT_NAMES = {0: "axis_angle", 1: "euler", 2: "quaternion", 3: "6D"}
+
+
+def c3_ptxas() -> list[dict]:
+    """Registers and spill bytes of every C3 instantiation (nine (motion,
+    format) pairs, with and without the nonrigidity head), from the ptxas
+    report of this build (``cuda_lib.ptxas_log``)."""
+    import re
+
+    from deformationpyramid_tpu_torch.ops import cuda_lib
+
+    out, cur, spill = [], None, (0, 0)
+    for line in cuda_lib.ptxas_log().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = re.search(r"level_warp_bwd_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                            m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            motion = MOTION_NAMES[int(cur.group(1))]
+            fmt = FORMAT_NAMES[int(cur.group(2))]
+            out.append(dict(layout=motion if motion == "sflow"
+                            else f"{motion}+{fmt}",
+                            nonrigid=cur.group(3) == "1",
+                            registers=int(m.group(1)),
+                            spill_stores=spill[0], spill_loads=spill[1]))
+            cur, spill = None, (0, 0)
+    return out
+
+
+def c2_c5_digests(dev) -> dict:
+    """sha256 of C2's and C5's outputs on fixed inputs made with numpy (C2
+    at the bench shapes for SE3 + axis_angle, at 6000 points for Sim3 +
+    euler, with the nonrigidity head at level 1; C5 one step at 2048
+    landmark rows): kernels whose code did not change give the same bits
+    from one tree to another (``scripts/check_torch_level_warp.py``,
+    ``tests/test_torch_cuda_kernels.py``)."""
+    import hashlib
+
+    from deformationpyramid_tpu_torch.models import pyramid
+    from deformationpyramid_tpu_torch.ops import fused_iteration as fi
+    from deformationpyramid_tpu_torch.solve.loop import LoopConfig
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    rng = np.random.default_rng(2024)
+    out = {}
+    for tag, kw, n, level in (
+            ("C2 SE3+axis_angle 2000", {}, 2000, MID_LEVEL),
+            ("C2 Sim3+euler 6000", dict(motion="Sim3",
+                                        rotation_format="euler"), 6000,
+             MID_LEVEL),
+            ("C2 nonrigid level 1", dict(nonrigidity_est=True), 2000, 1)):
+        cfg = pyramid.NDPConfig(**dict(BENCH_PYRAMID, **kw))
+        flat = pyramid.ravel(pyramid.params_from_numpy(
+            numpy_level_params(pyramid.level_shapes(cfg), seed=7),
+            device=dev)).contiguous()
+        x = torch.from_numpy(rng.normal(0.0, 0.3, (n, 3)).astype(
+            np.float32)).to(dev)
+        if cfg.nonrigidity_est:
+            out[tag] = digest(*fi.level_warp_fwd_nr(flat, x, level, cfg))
+        else:
+            out[tag] = digest(fi.level_warp_fwd(flat, x, level, cfg))
+    cfg = pyramid.NDPConfig(**LNDP_PYRAMID)
+    x = torch.from_numpy(rng.normal(0.0, 0.3, (LDMK_ROWS, 3)).astype(
+        np.float32)).to(dev)
+    tgt = x + torch.from_numpy(rng.normal(0.0, 0.01, (LDMK_ROWS, 3)).astype(
+        np.float32)).to(dev)
+    mask = (torch.arange(LDMK_ROWS, device=dev) < N_LDMK).float()
+    flat = pyramid.ravel(pyramid.params_from_numpy(
+        numpy_level_params(pyramid.level_shapes(cfg), seed=8),
+        device=dev)).contiguous()
+    stop = fi.EarlyStop(LoopConfig(iters=500), dev)
+    p, m, v, aux = (flat.clone(), torch.zeros_like(flat),
+                    torch.zeros_like(flat), x.clone())
+    fi.ldmk_iteration(p, m, v, x, tgt, mask, mask.sum(), stop, aux,
+                      MID_LEVEL, cfg, 0.01)
+    out["C5 one step"] = digest(p, m, v, aux, stop.loss)
+    return out
+
+
 def machine_line() -> str:
     """The card, its driver, power limit and compute capability, the CUDA
     of PyTorch and of nvcc: what ties a failing run to its machine."""
@@ -2867,6 +3006,13 @@ def main() -> None:
     path, secs = cuda_lib.build()
     cuda_lib.load()
     phase("build", f"nvcc {secs:.1f} s -> {path.relative_to(REPO)}")
+    c3_regs = c3_ptxas()
+    check(len(c3_regs) == 18, f"ptxas reported {len(c3_regs)} C3 "
+          "instantiations, not 18")
+    phase("build", "C3 ptxas (registers / spill stores / spill loads): "
+          + ", ".join(f"{r['layout']}{' nr' if r['nonrigid'] else ''} "
+                      f"{r['registers']}/{r['spill_stores']}/"
+                      f"{r['spill_loads']}" for r in c3_regs))
 
     kernels = [knn.NN_DUAL, fused_iteration.LEVEL_WARP_FWD,
                fused_iteration.SCATTER_ROWS, fused_iteration.LEVEL_WARP_BWD,
@@ -3021,6 +3167,9 @@ def main() -> None:
                                     for r in also[k.name]]
         if k.name in ("level_warp_fwd", "level_warp_bwd"):
             row["nonrigid_level_1"] = optin_k["nonrigid"][1][k.name]
+        if k.name == "level_warp_bwd":
+            row["ptxas"] = c3_regs
+            row["rows"] = measured[k.name]["rows"]
         if k.name == "chamfer_fused":
             row["c1_glue_c6_ms"] = measured[k.name]["c1_glue_c6_ms"]
         if k.name == "sum_partials":

@@ -1,6 +1,8 @@
 // One pyramid level's forward and VJP over a tile of TP points, for the
-// kernels that warp points: C2 level_warp_fwd, C3 level_warp_bwd
-// (level_warp.cu) and C5 ldmk_iteration (ldmk_iteration.cu).
+// kernels that warp points: C2 level_warp_fwd (level_warp.cu) and C5
+// ldmk_iteration (ldmk_iteration.cu). C3 level_warp_bwd runs its own tile
+// on the tensor cores (level_tile_tc.cuh), from the row loaders, posenc
+// and head layout here.
 //
 // Layout: one thread per hidden unit, the tile's points, features, head
 // outputs and activations in shared memory (each weight read from L2 once
@@ -11,32 +13,29 @@
 
 #include "common.cuh"
 
-// Shared memory of the backward tile, in floats: xs, fea, head, gs, with
-// the nonrigidity head gnr (its cotangent), gh (hs head outputs a point: 3
-// for sflow up to 11 for Sim3 + 6D with the nonrigidity head) and the
+// Shared memory of the backward tile, in floats: xs, fea, head, gs, gh
+// (hs head outputs a point: 3 for sflow up to 10 for Sim3 + 6D) and the
 // activations of every layer plus two gradient buffers.
-__host__ inline size_t bwd_tile_floats(int tp, int width, int depth, int hs,
-                                       bool nonrigid = false) {
-  return (size_t)tp * (3 + 6 + hs + 3 + (nonrigid ? 1 : 0) + hs) +
-         (size_t)(depth + 2) * tp * width;
+__host__ inline size_t bwd_tile_floats(int tp, int width, int depth, int hs) {
+  return (size_t)tp * (3 + 6 + hs + 3 + hs) + (size_t)(depth + 2) * tp * width;
 }
 
 __host__ inline int threads_for(int width) { return ((width + 31) / 32) * 32; }
 
-template <int TP>
+// dst [rows * 3] = src rows base .. base + rows - 1 of [n, 3], zero past n.
 __device__ __forceinline__ void load_rows(const float* __restrict__ src,
-                                          int n, int base, float* dst) {
-  for (int i = threadIdx.x; i < TP * 3; i += blockDim.x) {
+                                          int n, int base, int rows,
+                                          float* dst) {
+  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x) {
     dst[i] = (base + i / 3 < n) ? src[base * 3 + i] : 0.f;
   }
 }
 
 // posenc at one frequency: sin/cos of x*freq, feature order
 // [sin x, cos x, sin y, cos y, sin z, cos z].
-template <int TP>
-__device__ __forceinline__ void posenc_tile(const float* xs, float* fea,
-                                            float freq) {
-  for (int i = threadIdx.x; i < TP * 3; i += blockDim.x) {
+__device__ __forceinline__ void posenc_rows(const float* xs, float* fea,
+                                            int rows, float freq) {
+  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x) {
     const int p = i / 3, c = i % 3;
     const float a = xs[i] * freq;
     fea[p * 6 + 2 * c] = sinf(a);
@@ -112,7 +111,7 @@ __device__ __forceinline__ const float* forward_tile(const float* __restrict__ p
                                      const LevelLayout L, float freq,
                                      float scale, const float* xs, float* fea,
                                      float* head, float* acts, bool keep_all) {
-  posenc_tile<TP>(xs, fea, freq);
+  posenc_rows(xs, fea, TP, freq);
   __syncthreads();
   const float* h = trunk_tile<TP>(prm, L, fea, acts, keep_all);
   heads_tile<TP, HeadCount<MOTION, FMT, NR>::value>(prm, L, h, head, scale);
@@ -142,45 +141,22 @@ __device__ __forceinline__ float point_warp(const float* head, const float* x,
 // VJP of the tile's warp for the cotangents gs [TP*3] (zero on rows past
 // the end), after forward_tile(keep_all = true); writes every entry of
 // the parameter-gradient row `part` [L.total]. gh [TP*HS], dA and dB
-// [TP*W] are scratch. With NR, gnr [TP] is the cotangent of the returned
-// nonrigidity and `gate` the level > 0 gate of point_warp; at level 0 the
-// nonrigidity head gets exactly zero gradient.
-template <int TP, int MOTION, int FMT, bool NR = false>
+// [TP*W] are scratch.
+template <int TP, int MOTION, int FMT>
 __device__ __forceinline__ void backward_tile(const float* __restrict__ prm,
                               const LevelLayout L, float scale,
                               const float* xs, const float* fea,
                               const float* head, const float* gs, float* gh,
                               const float* acts, float* dA, float* dB,
-                              float* __restrict__ part,
-                              const float* gnr = nullptr, bool gate = false) {
-  constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
+                              float* __restrict__ part) {
+  constexpr int HS = HeadCount<MOTION, FMT>::value;
   const int W = L.w;
   const float* hL = acts + (L.depth - 1) * TP * W;
 
   // Motion VJP: cotangents of the heads' pre-activations.
   for (int p = threadIdx.x; p < TP; p += blockDim.x) {
     float ghp[HS];
-    const float* hp = head + p * HS;
-    const float* xp = xs + p * 3;
-    const float* gp = gs + p * 3;
-    if constexpr (NR) {
-      if (gate) {
-        // out = x + nr (m - x): m gets nr g, nr gets g.(m - x) + gnr
-        const float nr = sigmoid_f(hp[HS - 1]);
-        float m[3];
-        motion_fwd<MOTION, FMT>(hp, xp, m);
-        const float gm[3] = {nr * gp[0], nr * gp[1], nr * gp[2]};
-        motion_vjp<MOTION, FMT>(hp, xp, gm, ghp);
-        const float gn = gp[0] * (m[0] - xp[0]) + gp[1] * (m[1] - xp[1]) +
-                         gp[2] * (m[2] - xp[2]) + gnr[p];
-        ghp[HS - 1] = gn * (nr * (1.f - nr));
-      } else {
-        motion_vjp<MOTION, FMT>(hp, xp, gp, ghp);
-        ghp[HS - 1] = 0.f;
-      }
-    } else {
-      motion_vjp<MOTION, FMT>(hp, xp, gp, ghp);
-    }
+    motion_vjp<MOTION, FMT>(head + p * HS, xs + p * 3, gs + p * 3, ghp);
 #pragma unroll
     for (int o = 0; o < HS; ++o) gh[p * HS + o] = scale * ghp[o];
   }

@@ -23,14 +23,15 @@
 // with the nonrigidity head, nr = sigmoid(mlp_scale (h w_nr + b_nr)) and
 // at level > 0 out = x + nr (out - x) (level_tile.cuh point_warp); C2
 // writes nr beside the points and C3 takes its cotangent.
-// Full-precision sinf/cosf/sqrtf and plain
-// f32 FMAs: the axis-angle VJP divides by theta ~ 1e-3, so the build uses
-// no fast-math.
+// Full-precision sinf/cosf/sqrtf and f32 FMAs (outside C3's width x width
+// products): the axis-angle VJP divides by theta ~ 1e-3, so the build
+// uses no fast-math.
 //
 // What bounds them: ~2 * 34k flops per point and direction at width 128,
 // depth 3 (0.14 GFLOP forward, ~0.3 GFLOP backward for 2000 points), far
-// below the card's f32 rate; the launch, the serial layer chain and
-// shared-memory traffic set the time. Design: level_tile.cuh.
+// below the card's rates; the launch, the serial layer chain and
+// shared-memory traffic set the time. Design: level_tile.cuh (C2),
+// level_tile_tc.cuh (C3).
 //
 // C3 recomputes the forward for its tile (as the TPU kernel did, rather
 // than storing activations between launches), backpropagates through the
@@ -38,14 +39,16 @@
 // its own partial gradient vector into row blockIdx.x of an
 // [n_blocks, P] buffer. The TPU kernel accumulated across its sequential
 // grid; blocks on Hopper run in parallel, so the sum over blocks happens
-// in a fixed order in C4 (adam.cu) and no atomics are needed. All depth
-// layers of TP x width activations plus two gradient buffers exceed the
-// 48 KB static limit (84 KB at width 128, depth 3), so C3 raises the
-// kernel's dynamic shared-memory limit before its launch.
-#include "level_tile.cuh"
+// in a fixed order in C4 (adam.cu) and no atomics are needed. Its width x
+// width products run as 3xTF32 on the tensor cores; a block of 16 warps
+// takes a tile of whole 16-point m-tiles that the host sizes so that the
+// grid fills the card once (2000 points: 125 blocks of 16). Every layer's
+// activations plus two gradient buffers exceed the 48 KB static limit at
+// larger tiles, so C3 raises the kernel's dynamic shared-memory limit
+// before its launch.
+#include "level_tile_tc.cuh"
 
 #define FWD_TP 32
-#define BWD_TP 32
 
 // Each kernel is instantiated for every (motion, format) pair
 // (common.cuh dispatch_layout: nine of them) and for NR in {false, true},
@@ -67,7 +70,7 @@ __global__ void level_warp_fwd_kernel(const float* __restrict__ prm,
   float* acts = head + TP * HS;
   const int base = blockIdx.x * TP;
 
-  load_rows<TP>(x, n, base, xs);
+  load_rows(x, n, base, TP, xs);
   __syncthreads();
   forward_tile<TP, MOTION, FMT, NR>(prm, L, freq, scale, xs, fea, head,
                                     acts, false);
@@ -82,43 +85,42 @@ __global__ void level_warp_fwd_kernel(const float* __restrict__ prm,
   }
 }
 
-// The bound (up to 256 threads, two blocks an SM) lets the compiler keep
-// 96 registers a thread; left to itself it took 64 and ran 17% slower on
-// an H100 (0.157 against 0.134 ms at 2000 points, width 128, depth 3).
-template <int TP, int MOTION, int FMT, bool NR>
-__global__ void __launch_bounds__(DP_MAX_WIDTH, 2)
+// One block of C3_THREADS threads a tile of `tp` points (a multiple of
+// C3_MT). One block an SM: at n = 2000 the grid has one block for each SM
+// anyway.
+template <int MOTION, int FMT, bool NR>
+__global__ void __launch_bounds__(C3_THREADS, 1)
     level_warp_bwd_kernel(const float* __restrict__ prm,
                           const float* __restrict__ x,
                           const float* __restrict__ g,
                           const float* __restrict__ g_nr, int n,
-                          const LevelLayout L, float freq, float scale,
-                          bool gate, float* __restrict__ partial) {
+                          const LevelLayout L, int tp, float freq,
+                          float scale, bool gate,
+                          float* __restrict__ partial) {
   constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
+  const int ld = c3_ld(L.w);
   extern __shared__ float sm[];
-  float* xs = sm;
-  float* fea = xs + TP * 3;
-  float* head = fea + TP * 6;
-  float* gs = head + TP * HS;
-  float* gnr = gs + TP * 3;
-  float* gh = gnr + (NR ? TP : 0);
-  float* acts = gh + TP * HS;
-  float* dA = acts + L.depth * TP * L.w;
-  float* dB = dA + TP * L.w;
-  const int base = blockIdx.x * TP;
+  float* acts = sm;
+  float* dA = acts + L.depth * tp * ld;
+  float* dB = dA + tp * ld;
+  float* xs = dB + tp * ld;
+  float* gs = xs + tp * 3;
+  float* fea = gs + tp * 3;
+  float* head = fea + tp * 6;
+  float* gh = head + tp * HS;
+  float* gnr = gh + tp * HS;
+  const int base = blockIdx.x * tp;
 
-  load_rows<TP>(x, n, base, xs);
-  load_rows<TP>(g, n, base, gs);
+  load_rows(x, n, base, tp, xs);
+  load_rows(g, n, base, tp, gs);
   if constexpr (NR) {
-    for (int p = threadIdx.x; p < TP; p += blockDim.x)
+    for (int p = threadIdx.x; p < tp; p += blockDim.x)
       gnr[p] = base + p < n ? g_nr[base + p] : 0.f;
   }
   __syncthreads();
-  forward_tile<TP, MOTION, FMT, NR>(prm, L, freq, scale, xs, fea, head,
-                                    acts, true);
-  backward_tile<TP, MOTION, FMT, NR>(prm, L, scale, xs, fea, head, gs, gh,
-                                     acts, dA, dB,
-                                     partial + (size_t)blockIdx.x * L.total,
-                                     gnr, gate);
+  c3_tile<MOTION, FMT, NR>(prm, L, tp, freq, scale, gate, xs, gs, gnr, fea,
+                           head, gh, acts, dA, dB,
+                           partial + (size_t)blockIdx.x * L.total);
 }
 
 template <bool NR>
@@ -147,20 +149,20 @@ cudaError_t launch_level_warp_bwd(const void* prm, const void* x,
                                   const void* g, const void* g_nr, int n,
                                   int width, int depth, int motion, int fmt,
                                   bool gate, float freq, float scale,
-                                  void* partial, void* stream) {
-  const int blocks = (n + BWD_TP - 1) / BWD_TP;
+                                  void* partial, int tile, void* stream) {
+  const int blocks = (n + tile - 1) / tile;
   const LevelLayout L = level_layout(width, depth, motion, fmt, NR);
   const size_t smem =
-      sizeof(float) * bwd_tile_floats(BWD_TP, width, depth, L.hs, NR);
+      sizeof(float) * c3_smem_floats(tile, width, depth, L.hs, NR);
   return dispatch_layout(motion, fmt, [&](auto m, auto r) {
-    auto kernel = level_warp_bwd_kernel<BWD_TP, decltype(m)::value,
+    auto kernel = level_warp_bwd_kernel<decltype(m)::value,
                                         decltype(r)::value, NR>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<blocks, threads_for(width), smem, (cudaStream_t)stream>>>(
+    kernel<<<blocks, C3_THREADS, smem, (cudaStream_t)stream>>>(
         (const float*)prm, (const float*)x, (const float*)g,
-        (const float*)g_nr, n, L, freq, scale, gate, (float*)partial);
+        (const float*)g_nr, n, L, tile, freq, scale, gate, (float*)partial);
     return cudaGetLastError();
   });
 }
@@ -175,5 +177,5 @@ cudaError_t launch_level_warp_bwd_nr(const void* prm, const void* x,
                                      const void* g, const void* g_nr, int n,
                                      int width, int depth, int motion,
                                      int fmt, bool gate, float freq,
-                                     float scale, void* partial,
+                                     float scale, void* partial, int tile,
                                      void* stream);

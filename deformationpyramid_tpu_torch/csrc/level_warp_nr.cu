@@ -18,8 +18,9 @@ cudaError_t launch_level_warp_bwd_nr(const void* prm, const void* x,
                                      const void* g, const void* g_nr, int n,
                                      int width, int depth, int motion,
                                      int fmt, bool gate, float freq,
-                                     float scale, void* partial,
+                                     float scale, void* partial, int tile,
                                      void* stream) {
   return launch_level_warp_bwd<true>(prm, x, g, g_nr, n, width, depth, motion,
-                                     fmt, gate, freq, scale, partial, stream);
+                                     fmt, gate, freq, scale, partial, tile,
+                                     stream);
 }

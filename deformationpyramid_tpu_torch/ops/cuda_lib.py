@@ -60,13 +60,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdp_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def ptxas_log() -> str:
+    """What ``ptxas -v`` said of every kernel of this source state (each
+    kernel's registers, shared memory and spill bytes), written beside the
+    library when it was built; empty if it was not."""
+    path = library_path().with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels unless this source state is built already.
 
     Returns (library path, seconds spent compiling; 0 when it was built).
     The objects and the library are written in a temporary directory and
     the library renamed into place, so a concurrent process never loads a
-    half-written file.
+    half-written file. ptxas's report goes beside it (:func:`ptxas_log`).
     """
     out = library_path()
     if out.exists():
@@ -78,8 +86,9 @@ def build() -> tuple[Path, float]:
     t0 = time.perf_counter()
     try:
         objs = [work / f"{src.stem}.o" for src in cu]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
-                                   str(src), "-o", str(obj)],
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                                   str(CSRC), "-c", str(src), "-o",
+                                   str(obj)],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(cu, objs)]
@@ -89,6 +98,7 @@ def build() -> tuple[Path, float]:
                   if proc.returncode != 0]
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        out.with_suffix(".ptxas.txt").write_text("\n".join(logs))
         tmp = work / "lib.so"
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                                *map(str, objs)],

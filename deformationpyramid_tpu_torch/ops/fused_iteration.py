@@ -13,7 +13,9 @@ iteration of the chamfer-mode level loop is:
   scatter, kernel **C6** ``scatter_rows``, whose summation order is
   fixed), plus the masked landmark term in landmark + chamfer mode;
 * **C3** ``level_warp_bwd``: the VJP of the recomputed warp for that
-  gradient, one partial parameter gradient per block of points;
+  gradient, one partial parameter gradient per block of points (its
+  width x width products as 3xTF32 on the tensor cores, a tile of
+  :func:`bwd_tile` points a block);
 * **C4** ``adam_step`` (``csrc/adam.cu``): the partials summed in a fixed
   order and one optax-exact Adam step, in place, held by the device-side
   early-stop flag.
@@ -60,7 +62,9 @@ Tensor = torch.Tensor
 SYNC_EVERY = 8          # iterations between host reads of the stop flag
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MAX_WIDTH = 256         # DP_MAX_WIDTH in csrc/common.cuh
-BWD_TILE = 32           # BWD_TP in csrc/level_warp.cu: points per C3 block
+BWD_TILE = 16           # C3_MT in csrc/level_tile_tc.cuh: a C3 block takes
+                        # a multiple of these points (bwd_tile)
+C3_MAX_BLOCKS = 132     # C3 grids of at most one block for each SM of an H100
 LDMK_TILE = 32          # LDMK_TP in csrc/ldmk_iteration.cu: rows per C5 block
 SMEM_LIMIT = 232448     # shared memory a Hopper block may opt in to
 _FLOOR = 1e-16          # sqrt floor, as ops/chamfer._gathered_sum
@@ -73,7 +77,7 @@ NSFP_TILE = 16          # NSFP_TP in csrc/nsfp.cu: points per C10 / C11 block
 LEVEL_WARP_FWD = Kernel("level_warp_fwd", "dp_level_warp_fwd",
                         [P, P, I, I, I, I, I, I, I, F, F, P, P])
 LEVEL_WARP_BWD = Kernel("level_warp_bwd", "dp_level_warp_bwd",
-                        [P, P, P, P, I, I, I, I, I, I, I, F, F, P, I])
+                        [P, P, P, P, I, I, I, I, I, I, I, F, F, P, I, I])
 ADAM_STEP = Kernel("adam_step", "dp_adam_step",
                    [P, P, P, P, I, I, P, P, F, F, F, F, F, F])
 SUM_PARTIALS = Kernel("sum_partials", "dp_sum_partials", [P, I, I, P])
@@ -96,19 +100,45 @@ def _head_slots(pcfg: pyramid.NDPConfig) -> int:
 
 
 def bwd_smem(pcfg: pyramid.NDPConfig) -> int:
-    """Shared memory of one C3 / C5 block in bytes (csrc/level_tile.cuh
+    """Shared memory of one C5 block in bytes (csrc/level_tile.cuh
     ``bwd_tile_floats``): every layer's activations of its 32 points plus
-    the gradient buffers."""
+    the gradient buffers, counted with the nonrigidity head's cotangent.
+    C3's smallest tile (:func:`c3_smem` at 16 points) needs less, so this
+    limit covers both."""
     hs = _head_slots(pcfg)
-    return 4 * BWD_TILE * (12 + bool(pcfg.nonrigidity_est) + 2 * hs
-                           + (pcfg.depth + 2) * pcfg.width)
+    return 4 * LDMK_TILE * (12 + bool(pcfg.nonrigidity_est) + 2 * hs
+                            + (pcfg.depth + 2) * pcfg.width)
+
+
+def c3_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
+    """Shared memory of one C3 block of ``tile`` points in bytes
+    (csrc/level_tile_tc.cuh ``c3_smem_floats``): every layer's activations
+    and two gradient buffers as rows of the width rounded up to 16 and then
+    to 8 (mod 32) floats, and the points' inputs, features and heads."""
+    wp = -(-pcfg.width // 16) * 16
+    ld = wp + (40 - wp % 32) % 32
+    return 4 * tile * ((pcfg.depth + 2) * ld + 12 + 2 * _head_slots(pcfg)
+                       + bool(pcfg.nonrigidity_est))
+
+
+def bwd_tile(n: int, pcfg: pyramid.NDPConfig) -> int:
+    """Points per C3 block for n points: whole m-tiles of ``BWD_TILE``,
+    as few a block as keep the grid within ``C3_MAX_BLOCKS`` (one block an
+    SM; 2000 points: 125 blocks of 16, 6000: 125 of 48), fewer where a
+    block's shared memory would not fit. C3 writes ``-(-n // tile)``
+    partial rows."""
+    m_tiles = max(-(-n // BWD_TILE), 1)
+    tile = BWD_TILE * -(-m_tiles // C3_MAX_BLOCKS)
+    while tile > BWD_TILE and c3_smem(pcfg, tile) > SMEM_LIMIT:
+        tile -= BWD_TILE
+    return tile
 
 
 def _supports_warp(pcfg: pyramid.NDPConfig) -> bool:
     """What C2 / C3 cover: every motion and rotation format, with or
     without the nonrigidity head, at least one hidden layer (the JAX
-    kernels take depth >= 1), width <= 256, and C3's activations of every
-    layer within one block's shared memory."""
+    kernels take depth >= 1), width <= 256, and every layer's activations
+    of a 32-row tile within one block's shared memory (:func:`bwd_smem`)."""
     return (pcfg.motion in MOTIONS
             and pcfg.rotation_format in ROTATION_FORMATS
             and pcfg.depth >= 2 and pcfg.width <= MAX_WIDTH
@@ -122,8 +152,9 @@ def supports_fused_iteration(pcfg: pyramid.NDPConfig, w_reg: float,
     quaternion, 6D), the nonrigidity head and its BCE term (``w_reg > 0``
     needs ``nonrigidity_est``, which ``solver_from_config`` sets from
     ``w_reg``), no landmarks; and, the port's own limits, at least one
-    hidden layer, width <= 256 and C3's activations of every layer within
-    one block's shared memory (at width 256, depth <= 5 for SE3)."""
+    hidden layer, width <= 256 and every layer's activations of a 32-row
+    tile within one block's shared memory (at width 256, depth <= 5 for
+    SE3)."""
     return (_supports_warp(pcfg) and n_ldmk == 0
             and (w_reg == 0 or pcfg.nonrigidity_est))
 
@@ -244,8 +275,8 @@ def level_warp_bwd(flat: Tensor, x: Tensor, g: Tensor, level: int,
     """Parameter gradient of one level's warp for the cotangent g [N, 3]
     (and, with the nonrigidity head, g_nr [N] of its output; zero when
     None), as partial rows [n_blocks, P] whose sum is the gradient: kernel
-    C3 on CUDA tensors (one row per block of points), the plain VJP on CPU
-    tensors (one row)."""
+    C3 on CUDA tensors (one row per block of :func:`bwd_tile` points), the
+    plain VJP on CPU tensors (one row)."""
     if on_cpu(flat, x, g):
         return level_warp_bwd_plain(flat, x, g, level, pcfg, g_nr)
     _check_level("level_warp_bwd", flat, x, pcfg, g)
@@ -256,14 +287,15 @@ def level_warp_bwd(flat: Tensor, x: Tensor, g: Tensor, level: int,
         check_cuda("level_warp_bwd", g_nr)
         if g_nr.shape != (x.shape[0],):
             raise ValueError("level_warp_bwd: g_nr must be [N]")
-    n_blocks = -(-x.shape[0] // BWD_TILE)
+    tile = bwd_tile(x.shape[0], pcfg)
+    n_blocks = -(-x.shape[0] // tile)
     partial = torch.empty((n_blocks, flat.shape[0]), dtype=torch.float32,
                           device=flat.device)
     LEVEL_WARP_BWD.launch(flat.data_ptr(), x.data_ptr(), g.data_ptr(),
                           g_nr.data_ptr() if nonrigid else 0, x.shape[0],
                           *_layout_args(pcfg), int(nonrigid), int(level > 0),
                           _freq(level, pcfg.k0), float(pcfg.mlp_scale),
-                          partial.data_ptr(), n_blocks)
+                          partial.data_ptr(), n_blocks, tile)
     return partial
 
 

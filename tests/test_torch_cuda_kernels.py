@@ -40,10 +40,18 @@ query gradient 1e-4 of its max, bit-equal on a second launch; C13
 bit-equal to the block-order sum, 1e-6 of the float64 sum's max; C2 / C3
 with the nonrigidity head at levels 0 and 1 as C2 / C3; the opt-in routes'
 small solves on the card against the CPU: equal iterations, warp 1e-3.
+C3 on the tensor cores (3xTF32) at width 128 for every (motion, format)
+pair with and without the nonrigidity head, at 1, 31, 33, 2000 and 6000
+points: its rows, a second launch bit-equal, the gradient within 1e-4 of
+each tensor's max (smooth cotangents, none at a ReLU's kink), the head's
+gradient exactly 0 at level 0, every tile alike, C13 bit-equal to the
+block-order sum of its rows; C2's and C5's outputs bit-equal (sha256) to
+what they gave before C3's redesign.
 """
 import pytest
 import torch
 
+import chip_smoke
 from deformationpyramid_tpu_torch.match import attention as tatt
 from deformationpyramid_tpu_torch.models import pyramid as tpyr
 from deformationpyramid_tpu_torch.ops import fused_iteration as tfi
@@ -748,3 +756,125 @@ def test_optin_routes_match_cpu(dev, opts):
         outs.append((w.cpu(), st["iters"].cpu()))
     assert torch.equal(outs[0][1], outs[1][1])
     assert (outs[0][0] - outs[1][0]).abs().max() < 1e-3
+
+
+# -- C3 on the tensor cores (3xTF32): every layout, ragged tiles, repeats
+
+C3_LAYOUTS = ([("SE3", f) for f in ("axis_angle", "euler", "quaternion",
+                                    "6D")]
+              + [("Sim3", f) for f in ("axis_angle", "euler", "quaternion",
+                                       "6D")]
+              + [("sflow", "axis_angle")])
+
+
+def _smooth_field(x, seed, cols=3):
+    """A smooth field over the points, 0.1 tanh(x A) with A from a seed,
+    as the solver's chamfer gradient is: random cotangents cancel in the
+    sums over points (at 31 points Sim3's scale.b gradient is 7.7e-6 for
+    terms ~1e-4), where float32 itself is 3e-5 of the max from float64."""
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(3, cols, generator=gen).to(x.device)
+    return 0.1 * torch.tanh(x @ a)
+
+
+def _grad_close(got, ref, cfg, tol=1e-4):
+    """Each parameter tensor's gradient within ``tol`` of its max |g|."""
+    shapes = tpyr.level_shapes(cfg)
+    got_t, ref_t = tpyr.unravel(got, shapes), tpyr.unravel(ref, shapes)
+    for k in ref_t:
+        for kk in ref_t[k]:
+            scale = ref_t[k][kk].abs().max().clamp_min(1e-30)
+            err = (got_t[k][kk] - ref_t[k][kk]).abs().max() / scale
+            assert err < tol, (k, kk, float(err))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 2000, 6000])
+@pytest.mark.parametrize("nonrigid", [False, True])
+@pytest.mark.parametrize("motion,fmt", C3_LAYOUTS)
+def test_c3_every_layout_matches_vjp_and_repeats(dev, motion, fmt, nonrigid,
+                                                 n):
+    """C3 at width 128 / depth 3 for the nine (motion, format) pairs with
+    and without the nonrigidity head (gated, level 2), at 1 to 6000 points
+    (ragged last tiles; 6000 points take tiles of 48): one partial row per
+    tile of ``bwd_tile`` points, a second launch bit-equal, each tensor's
+    gradient within 1e-4 of its max |g| of the plain VJP, for smooth
+    cotangents (``_smooth_field``) away from the ReLUs' kinks
+    (``chip_smoke.off_kinks``)."""
+    cfg = tpyr.NDPConfig(m=4, k0=-6, depth=3, width=128, motion=motion,
+                         rotation_format=fmt, nonrigidity_est=nonrigid)
+    flat, x, _ = _level(dev, seed=n, n=n, cfg=cfg)
+    keep = chip_smoke.off_kinks(flat, x, 2, cfg)
+    g = _smooth_field(x, n) * keep[:, None]
+    g_nr = (_smooth_field(x, n + 1, 1)[:, 0] * keep) if nonrigid else None
+    part = tfi.level_warp_bwd(flat, x, g, 2, cfg, g_nr)
+    again = tfi.level_warp_bwd(flat, x, g, 2, cfg, g_nr)
+    ref = tfi.level_warp_bwd_plain(flat, x, g, 2, cfg, g_nr)[0]
+    assert part.shape == (-(-n // tfi.bwd_tile(n, cfg)), flat.numel())
+    assert torch.equal(part, again)
+    _grad_close(part.sum(0), ref, cfg)
+
+
+@pytest.mark.parametrize("motion,fmt", C3_LAYOUTS)
+def test_c3_nonrigid_level0_head_gets_exactly_zero(dev, motion, fmt):
+    """At level 0 the warp is ungated: C3 gives the nonrigidity head's
+    weights and bias exactly zero gradient, whatever g_nr is."""
+    cfg = tpyr.NDPConfig(m=4, k0=-6, depth=3, width=128, motion=motion,
+                         rotation_format=fmt, nonrigidity_est=True)
+    flat, x, g = _level(dev, n=2000, cfg=cfg)
+    g_nr = torch.ones(2000, device=dev)
+    got = tpyr.unravel(tfi.level_warp_bwd(flat, x, g, 0, cfg, g_nr).sum(0),
+                       tpyr.level_shapes(cfg))
+    assert not got["nr"]["w"].any() and not got["nr"]["b"].any()
+    assert got["trn"]["w"].any()
+
+
+@pytest.mark.parametrize("n", [2000, 6000])
+def test_sum_partials_on_c3_rows_is_the_block_order_sum(dev, n):
+    """C13 on C3's rows at the bench's and the shape-transfer demo's point
+    counts (125 rows of 16 and of 48 points): bit-equal to a sum in block
+    order and on a second launch."""
+    cfg = tpyr.NDPConfig(m=4, k0=-6, depth=3, width=128)
+    flat, x, g = _level(dev, n=n, cfg=cfg)
+    partials = tfi.level_warp_bwd(flat, x, g, 2, cfg)
+    assert partials.shape[0] == 125
+    order = partials[0].clone()
+    for b in range(1, partials.shape[0]):
+        order = order + partials[b]
+    got = tfi.sum_partials(partials)
+    assert torch.equal(got, order)
+    assert torch.equal(got, tfi.sum_partials(partials))
+
+
+@pytest.mark.parametrize("tile", [16, 32, 48, 64])
+def test_c3_tiles_agree(dev, monkeypatch, tile):
+    """Any tile of whole m-tiles gives the same gradient within 1e-4 of
+    each tensor's max |g| (the rows differ, their sum does not)."""
+    cfg = tpyr.NDPConfig(m=4, k0=-6, depth=3, width=128)
+    flat, x, g = _level(dev, n=777, cfg=cfg)
+    g = g * chip_smoke.off_kinks(flat, x, 2, cfg)[:, None]
+    monkeypatch.setattr(tfi, "bwd_tile", lambda n, pcfg: tile)
+    part = tfi.level_warp_bwd(flat, x, g, 2, cfg)
+    assert part.shape[0] == -(-777 // tile)
+    _grad_close(part.sum(0), tfi.level_warp_bwd_plain(flat, x, g, 2, cfg)[0],
+                cfg)
+
+
+# sha256 of C2's and C5's outputs on chip_smoke.c2_c5_digests' inputs, as
+# the kernels of the tree before C3's tensor-core redesign gave them on an
+# H100 80GB HBM3 (scripts/check_torch_level_warp.py through
+# scripts/ab_kernels.sh): C2 and C5 did not change.
+C2_C5_DIGESTS = {
+    "C2 SE3+axis_angle 2000":
+        "0428717a00f560393a51a9dce24cd7738b08f1c521c95a17cc50f693506d4cdf",
+    "C2 Sim3+euler 6000":
+        "ebd6833f2078a3abaf313d1b19d5543d9e8c408b1f2b86f2c742f8900424d1a8",
+    "C2 nonrigid level 1":
+        "4c33cf0bdaeb6ad7359e8d475ea1b68bc9d00aa795b6dff170c513be6af96386",
+    "C5 one step":
+        "399bb501de05ad332c0a56dd13069fbb95dcd1b02d238df4e3d822b66c912d1c",
+}
+
+
+def test_c2_c5_bits_unchanged(dev):
+    """C2 and C5 give the bits they gave before C3 moved to its own tile."""
+    assert chip_smoke.c2_c5_digests(dev) == C2_C5_DIGESTS

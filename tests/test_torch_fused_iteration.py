@@ -174,6 +174,24 @@ def _param_count_matches(jcfg, tcfg):
     assert tpyr.ravel(tpyr.params_from_numpy(one)).shape == flat.shape
 
 
+def test_c3_tile_fills_one_wave():
+    """C3's tile (``bwd_tile``): whole 16-point m-tiles, as few a block as
+    keep the grid within one wave of 132 SMs (2000 points: 125 blocks of
+    16; 6000: 125 of 48), fewer where a block's shared memory would not
+    fit (csrc/level_tile_tc.cuh c3_smem_floats: rows of 136 floats at width
+    128)."""
+    bench = tpyr.NDPConfig(m=9, k0=-8, depth=3, width=128)
+    assert tfi.c3_smem(bench, 16) == 4 * 16 * (5 * 136 + 12 + 2 * 6)
+    for n, tile in ((1, 16), (31, 16), (2000, 16), (2112, 16), (2113, 32),
+                    (6000, 48)):
+        assert tfi.bwd_tile(n, bench) == tile, n
+        assert -(-n // tile) <= tfi.C3_MAX_BLOCKS
+    wide = tpyr.NDPConfig(m=9, k0=-8, depth=5, width=256)
+    tile = tfi.bwd_tile(100_000, wide)
+    assert tile % 16 == 0 and tfi.c3_smem(wide, tile) <= tfi.SMEM_LIMIT
+    assert tfi.c3_smem(wide, tile + 16) > tfi.SMEM_LIMIT
+
+
 def test_kernel_argtypes_match_c_entry_points():
     """Each wrapper's ctypes argtypes name the C entry point's parameters
     in order, the stream last excluded (the binding appends it): a pointer

@@ -273,6 +273,26 @@ def _prep_sample(pts: np.ndarray, mean: np.ndarray, k: int,
     return out
 
 
+def fast_inputs(pair, pid: int, seed: int, samples: int
+                ) -> tuple[np.ndarray, np.ndarray, int, np.ndarray]:
+    """One pair's host-side inputs to the fast path, from its id ``pid``
+    and ``--seed``: the [2, samples, 4] sample block of ``solve_fixed``, the
+    [bucket, 7] block of ``warp_metrics`` (see :func:`make_fast_solver`),
+    the source's row count, and the target's mean less the source's."""
+    rng = np.random.default_rng([seed, pid])
+    ns = len(pair.src)
+    src_mean = pair.src.mean(0)
+    tgt_mean = pair.tgt.mean(0)
+    st_packed = np.stack([_prep_sample(pair.src, src_mean, samples, rng),
+                          _prep_sample(pair.tgt, tgt_mean, samples, rng)])
+    packed = np.full((_bucket_size(ns), 7), -1.0, np.float32)
+    packed[:, :6] = 0.0
+    packed[:ns, :3] = pair.src - src_mean
+    packed[:ns, 3:6] = pair.flow_gt
+    packed[:ns, 6] = pair.overlap.astype(np.float32)
+    return st_packed, packed, ns, (tgt_mean - src_mean).astype(np.float32)
+
+
 def pair_id(name: str) -> int:
     """A pair's stable id, the CRC of its file name: a resumed sweep (the
     entry list filtered) samples and seeds each pair as the first run did."""
@@ -520,19 +540,8 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
                 def prep(i):
                     pair = ds[i]
                     pid = pair_id(pair.name)
-                    rng = np.random.default_rng([args.seed, pid])
-                    ns = len(pair.src)
-                    src_mean = pair.src.mean(0)
-                    tgt_mean = pair.tgt.mean(0)
-                    st_packed = np.stack([
-                        _prep_sample(pair.src, src_mean, scfg.samples, rng),
-                        _prep_sample(pair.tgt, tgt_mean, scfg.samples, rng)])
-                    packed = np.full((_bucket_size(ns), 7), -1.0, np.float32)
-                    packed[:, :6] = 0.0
-                    packed[:ns, :3] = pair.src - src_mean
-                    packed[:ns, 3:6] = pair.flow_gt
-                    packed[:ns, 6] = pair.overlap.astype(np.float32)
-                    delta = (tgt_mean - src_mean).astype(np.float32)
+                    st_packed, packed, ns, delta = fast_inputs(
+                        pair, pid, args.seed, scfg.samples)
                     st_dev = torch.from_numpy(st_packed).to(device)
                     if host_metrics:   # the big block never goes to the device
                         return pair.name, pid, st_dev, packed, ns, delta

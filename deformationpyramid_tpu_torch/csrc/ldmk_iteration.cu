@@ -92,8 +92,7 @@ __global__ void __launch_bounds__(DP_MAX_WIDTH, 2)
 
   load_rows(x, n, base, TP, xs);
   __syncthreads();
-  forward_tile<TP, MOTION, FMT>(prm, L, freq, scale, xs, fea, head, acts,
-                                true);
+  forward_tile<TP, MOTION, FMT>(prm, L, freq, scale, xs, fea, head, acts);
 
   // Warp, residual and cotangent: thread p < TP takes row p (warp 0).
   if (threadIdx.x < 32) {

@@ -1,14 +1,12 @@
-// One pyramid level's forward and VJP over a tile of TP points, for the
-// kernels that warp points: C2 level_warp_fwd (level_warp.cu) and C5
-// ldmk_iteration (ldmk_iteration.cu). C3 level_warp_bwd runs its own tile
-// on the tensor cores (level_tile_tc.cuh), from the row loaders, posenc
-// and head layout here.
+// C5 ldmk_iteration's tile (ldmk_iteration.cu): one pyramid level's
+// forward and VJP over a tile of TP points; and the row loader and posenc
+// that C2 / C3's tensor-core tile (level_tile_tc.cuh) takes from here.
 //
 // Layout: one thread per hidden unit, the tile's points, features, head
-// outputs and activations in shared memory (each weight read from L2 once
-// per block, each activation read by all threads as a broadcast), width
-// given at run time up to 256. The motion and the rotation format come
-// from the LevelLayout (common.cuh).
+// outputs and every layer's activations in shared memory (each weight
+// read from L2 once per block, each activation read by all threads as a
+// broadcast), width given at run time up to 256. The motion and the
+// rotation format come from the LevelLayout (common.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -44,12 +42,12 @@ __device__ __forceinline__ void posenc_rows(const float* xs, float* fea,
 }
 
 // Input layer and hidden layers. Layer l's activations go to
-// acts + l*TP*W (keep_all) or to one of two ping-pong buffers; returns the
-// last layer's activations. Ends with __syncthreads().
+// acts + l*TP*W; returns the last layer's activations. Ends with
+// __syncthreads().
 template <int TP>
 __device__ __forceinline__ const float* trunk_tile(const float* __restrict__ prm,
                                    const LevelLayout L, const float* fea,
-                                   float* acts, bool keep_all) {
+                                   float* acts) {
   const int W = L.w;
   float* cur = acts;
   for (int j = threadIdx.x; j < W; j += blockDim.x) {
@@ -68,7 +66,7 @@ __device__ __forceinline__ const float* trunk_tile(const float* __restrict__ prm
   __syncthreads();
   for (int l = 1; l < L.depth; ++l) {
     const float* prev = cur;
-    cur = acts + (keep_all ? l : (l & 1)) * TP * W;
+    cur = acts + l * TP * W;
     const float* Wl = prm + L.hw + (l - 1) * W * W;
     for (int j = threadIdx.x; j < W; j += blockDim.x) {
       float acc[TP];
@@ -105,41 +103,22 @@ __device__ __forceinline__ void heads_tile(const float* __restrict__ prm,
 }
 
 // Forward of the tile up to the heads: xs [TP*3] must be loaded and
-// synchronised. Returns the last layer's activations.
-template <int TP, int MOTION, int FMT, bool NR = false>
+// synchronised; every layer's activations stay in acts for backward_tile.
+// Returns the last layer's activations.
+template <int TP, int MOTION, int FMT>
 __device__ __forceinline__ const float* forward_tile(const float* __restrict__ prm,
                                      const LevelLayout L, float freq,
                                      float scale, const float* xs, float* fea,
-                                     float* head, float* acts, bool keep_all) {
+                                     float* head, float* acts) {
   posenc_rows(xs, fea, TP, freq);
   __syncthreads();
-  const float* h = trunk_tile<TP>(prm, L, fea, acts, keep_all);
-  heads_tile<TP, HeadCount<MOTION, FMT, NR>::value>(prm, L, h, head, scale);
+  const float* h = trunk_tile<TP>(prm, L, fea, acts);
+  heads_tile<TP, HeadCount<MOTION, FMT>::value>(prm, L, h, head, scale);
   return h;
 }
 
-// One point's warp from its head outputs `head` (HeadCount<.., NR> of
-// them): out = s R x + t, and with the nonrigidity head (models/pyramid.py
-// level_warp, JAX ops/fused_level.py _forward_math_t `finish`) gated at
-// level > 0: out = x + nr (out - x), nr = sigmoid(head[HS - 1]); at level 0
-// the warp is ungated and the returned nonrigidity is 1.
-template <int MOTION, int FMT, bool NR>
-__device__ __forceinline__ float point_warp(const float* head, const float* x,
-                                            bool gate, float* out) {
-  motion_fwd<MOTION, FMT>(head, x, out);
-  if constexpr (NR) {
-    constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
-    if (!gate) return 1.f;
-    const float nr = sigmoid_f(head[HS - 1]);
-    for (int k = 0; k < 3; ++k) out[k] = x[k] + nr * (out[k] - x[k]);
-    return nr;
-  } else {
-    return 1.f;
-  }
-}
-
 // VJP of the tile's warp for the cotangents gs [TP*3] (zero on rows past
-// the end), after forward_tile(keep_all = true); writes every entry of
+// the end), after forward_tile; writes every entry of
 // the parameter-gradient row `part` [L.total]. gh [TP*HS], dA and dB
 // [TP*W] are scratch.
 template <int TP, int MOTION, int FMT>

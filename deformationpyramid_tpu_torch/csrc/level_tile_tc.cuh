@@ -1,24 +1,27 @@
-// C3 level_warp_bwd's tile (level_warp.cuh): one pyramid level's
-// parameter VJP, with the forward recomputed, over a tile of `tp` points,
-// its width x width products as 3xTF32 on the tensor cores (tf32_mma.cuh).
+// C2 level_warp_fwd's and C3 level_warp_bwd's tile (level_warp.cuh): one
+// pyramid level's forward over a tile of `tp` points (c3_forward; C2 warps
+// the points with it) and its parameter VJP with that forward recomputed
+// (c3_tile), the width x width products as 3xTF32 on the tensor cores
+// (tf32_mma.cuh).
 //
-// The products: the recomputed hidden layers h_l = relu(h_{l-1} W_l + b_l),
+// The products: the hidden layers h_l = relu(h_{l-1} W_l + b_l),
 // the weight gradients h_{l-1}^T dz_l and the cotangents dz_l W_l^T, as
 // mma.sync m16n8k8 with each operand split toward zero into hi + lo
 // (tc_split_rz) and every k-step's three passes summed from zero and added
 // on the FMA units (tc_mma3): the tensor cores' own accumulation truncates.
-// ~1e-6 off f32. The TPU kernel computed these as bf16x3 on its MXU
+// ~1e-6 off f32. The TPU kernels computed these as bf16x3 on their MXU
 // (ops/fused_level.py _dot_wide). Everything else stays f32 on the FMA
 // units with full-precision sinf/cosf: the posenc input layer (K = 6),
-// the heads (3-11 outputs at mlp_scale 1e-3), the motion VJP (the
+// the heads (3-11 outputs at mlp_scale 1e-3), the motion and its VJP (the
 // axis-angle VJP divides by theta ~ 1e-3) and the nonrigidity gate, as the
-// TPU kernel kept its [3, x] dots at HIGHEST.
+// TPU kernels kept their [3, x] dots at HIGHEST.
 //
 // Layout: a block of C3_THREADS threads (16 warps) takes tp points, a
 // multiple of the 16 rows of an m-tile, chosen by the host
-// (ops/fused_iteration.py bwd_tile) so that the grid fills the card's SMs
-// once. Every layer's activations and two gradient buffers sit in shared
-// memory as [tp][ld] rows, ld = the width rounded up to 16 and then to
+// (ops/fused_iteration.py fwd_tile, bwd_tile) so that the grid fills the
+// card's SMs once. The activations (every layer's for C3, two ping-pong
+// buffers for C2) and C3's two gradient buffers sit in shared memory as
+// [tp][ld] rows, ld = the width rounded up to 16 and then to
 // 8 (mod 32) floats: the fragment loads of a warp fall on 32 distinct
 // banks, both the row-major ones (two floats a load, the summed index t
 // read as column 2t and t + 4 as 2t + 1, a permutation of the sum that the
@@ -31,7 +34,8 @@
 // weight gradients go straight from the accumulators to the block's
 // partial row. The heads' forward takes a warp a point (its lanes split
 // the width, a fixed shuffle tree sums), their VJP and the input layer's
-// spread over every thread.
+// spread over every thread. Every output of a point depends on that
+// point's row alone, so C2's warp does not depend on the tile.
 #pragma once
 
 #include "level_tile.cuh"
@@ -53,13 +57,39 @@ __host__ __device__ __forceinline__ int c3_ld(int width) {
   return wp + ((40 - (wp & 31)) & 31);
 }
 
-// Shared memory of one block in floats: every layer's activations and two
+// Shared memory of one C3 block in floats: every layer's activations and two
 // gradient buffers ([tp][ld] each), then xs, gs, fea, head, gh and, with
 // the nonrigidity head, gnr.
 __host__ inline size_t c3_smem_floats(int tp, int width, int depth, int hs,
                                       bool nonrigid) {
   return (size_t)(depth + 2) * tp * c3_ld(width) +
          (size_t)tp * (3 + 3 + 6 + 2 * hs + (nonrigid ? 1 : 0));
+}
+
+// Shared memory of one C2 block in floats: two activation buffers
+// ([tp][ld] each), then xs, fea and head.
+__host__ inline size_t c2_smem_floats(int tp, int width, int hs) {
+  return (size_t)2 * tp * c3_ld(width) + (size_t)tp * (3 + 6 + hs);
+}
+
+// One point's warp from its head outputs `head` (HeadCount<.., NR> of
+// them): out = s R x + t, and with the nonrigidity head (models/pyramid.py
+// level_warp, JAX ops/fused_level.py _forward_math_t `finish`) gated at
+// level > 0: out = x + nr (out - x), nr = sigmoid(head[HS - 1]); at level 0
+// the warp is ungated and the returned nonrigidity is 1.
+template <int MOTION, int FMT, bool NR>
+__device__ __forceinline__ float point_warp(const float* head, const float* x,
+                                            bool gate, float* out) {
+  motion_fwd<MOTION, FMT>(head, x, out);
+  if constexpr (NR) {
+    constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
+    if (!gate) return 1.f;
+    const float nr = sigmoid_f(head[HS - 1]);
+    for (int k = 0; k < 3; ++k) out[k] = x[k] + nr * (out[k] - x[k]);
+    return nr;
+  } else {
+    return 1.f;
+  }
 }
 
 // The cotangents of one point's head outputs (before mlp_scale) for the
@@ -215,27 +245,22 @@ __device__ __forceinline__ void c3_wgrad(const float* h, const float* dz,
   }
 }
 
-// The block's VJP: the forward of its tp points (xs, gs and, with NR, gnr
-// loaded and synchronised; zero cotangents on rows past the end), then
-// every entry of the partial row `part` [L.total].
-template <int MOTION, int FMT, bool NR>
-__device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
-                                        const LevelLayout L, int tp,
-                                        float freq, float scale, bool gate,
-                                        const float* xs, const float* gs,
-                                        const float* gnr, float* fea,
-                                        float* head, float* gh, float* acts,
-                                        float* dA, float* dB,
-                                        float* __restrict__ part) {
+// The level's forward over a tile of tp points (xs loaded and
+// synchronised, zero on rows past the end): posenc into fea, the input
+// layer, the hidden layers on the tensor cores and the heads, scaled by
+// mlp_scale, into head [tp][HS]. Layer l's activations go to
+// acts + l * tp * ld where KEEP (C3, whose VJP reads every layer), else to
+// one of two ping-pong buffers (C2). Returns the last layer's activations;
+// ends with __syncthreads(). C2 and C3 run this same code, so C2's warp is
+// bit for bit the forward whose VJP C3 computes.
+template <int MOTION, int FMT, bool NR, bool KEEP>
+__device__ __forceinline__ const float* c3_forward(
+    const float* __restrict__ prm, const LevelLayout L, int tp, float freq,
+    float scale, const float* xs, float* fea, float* head, float* acts) {
   constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
   const int W = L.w, wp = c3_wpad(W), ld = c3_ld(W);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  // head o's weight from hidden unit k
-  auto head_w = [&](int k, int o) {
-    const HeadSlot sl = head_slot(L, o);
-    return __ldg(prm + sl.w + k * sl.ncol);
-  };
+  auto layer = [&](int l) { return acts + (KEEP ? l : (l & 1)) * tp * ld; };
 
   posenc_rows(xs, fea, tp, freq);
   __syncthreads();
@@ -243,6 +268,7 @@ __device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
   // Input layer (K = 6, FMA): thread column j keeps its weights in
   // registers; zero in the padded columns.
   {
+    float* h0 = layer(0);
     const int groups = blockDim.x / wp, j = threadIdx.x % wp;
     if ((int)threadIdx.x < groups * wp) {
       float wi[6], b = 0.f;
@@ -256,18 +282,17 @@ __device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
           for (int k = 0; k < 6; ++k) acc = fmaf(fea[p * 6 + k], wi[k], acc);
           v = fmaxf(acc + b, 0.f);
         }
-        acts[p * ld + j] = v;
+        h0[p * ld + j] = v;
       }
     }
   }
   __syncthreads();
   for (int l = 1; l < L.depth; ++l) {
-    c3_layer_fwd(acts + (l - 1) * tp * ld, acts + l * tp * ld,
-                 prm + L.hw + (l - 1) * W * W, prm + L.hb + (l - 1) * W, tp,
-                 W, ld);
+    c3_layer_fwd(layer(l - 1), layer(l), prm + L.hw + (l - 1) * W * W,
+                 prm + L.hb + (l - 1) * W, tp, W, ld);
     __syncthreads();
   }
-  const float* hL = acts + (L.depth - 1) * tp * ld;
+  const float* hL = layer(L.depth - 1);
 
   // Heads, scaled by mlp_scale (FMA): a warp a point, its lanes over the
   // width, summed by a fixed shuffle tree.
@@ -278,7 +303,10 @@ __device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
     for (int k = lane; k < W; k += 32) {
       const float h = hL[p * ld + k];
 #pragma unroll
-      for (int o = 0; o < HS; ++o) acc[o] = fmaf(h, head_w(k, o), acc[o]);
+      for (int o = 0; o < HS; ++o) {
+        const HeadSlot sl = head_slot(L, o);
+        acc[o] = fmaf(h, __ldg(prm + sl.w + k * sl.ncol), acc[o]);
+      }
     }
 #pragma unroll
     for (int o = 0; o < HS; ++o) {
@@ -293,6 +321,33 @@ __device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
     }
   }
   __syncthreads();
+  return hL;
+}
+
+// The block's VJP: the forward of its tp points (xs, gs and, with NR, gnr
+// loaded and synchronised; zero cotangents on rows past the end), then
+// every entry of the partial row `part` [L.total].
+template <int MOTION, int FMT, bool NR>
+__device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
+                                        const LevelLayout L, int tp,
+                                        float freq, float scale, bool gate,
+                                        const float* xs, const float* gs,
+                                        const float* gnr, float* fea,
+                                        float* head, float* gh, float* acts,
+                                        float* dA, float* dB,
+                                        float* __restrict__ part) {
+  constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
+  const int W = L.w, wp = c3_wpad(W), ld = c3_ld(W);
+
+  // head o's weight from hidden unit k
+  auto head_w = [&](int k, int o) {
+    const HeadSlot sl = head_slot(L, o);
+    return __ldg(prm + sl.w + k * sl.ncol);
+  };
+
+  const float* hL = c3_forward<MOTION, FMT, NR, true>(prm, L, tp, freq,
+                                                      scale, xs, fea, head,
+                                                      acts);
 
   // Motion VJP: the cotangents of the heads' pre-activations.
   for (int p = threadIdx.x; p < tp; p += blockDim.x) {

@@ -6,16 +6,22 @@ extern "C" int dp_level_warp_fwd(const void* prm, const void* x, int n,
                                  int width, int depth, int motion, int fmt,
                                  int nonrigid, int gate, float freq,
                                  float scale, void* out, void* nr_out,
-                                 void* stream) {
+                                 int tile, void* stream) {
   if (!layout_supported(width, depth, motion, fmt)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
+  // The caller picks the tile: whole m-tiles whose shared memory fits a
+  // block (ops/fused_iteration.py fwd_tile).
+  const LevelLayout L = level_layout(width, depth, motion, fmt, nonrigid != 0);
+  if (tile < C3_MT || tile % C3_MT != 0 ||
+      sizeof(float) * c2_smem_floats(tile, width, L.hs) > C3_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
   if (nonrigid)
     return (int)launch_level_warp_fwd_nr(prm, x, n, width, depth, motion, fmt,
                                          gate != 0, freq, scale, out, nr_out,
-                                         stream);
+                                         tile, stream);
   return (int)launch_level_warp_fwd<false>(prm, x, n, width, depth, motion,
                                            fmt, false, freq, scale, out,
-                                           nullptr, stream);
+                                           nullptr, tile, stream);
 }
 
 extern "C" int dp_level_warp_bwd(const void* prm, const void* x, const void* g,

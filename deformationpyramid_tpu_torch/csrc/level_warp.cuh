@@ -21,61 +21,65 @@
 // heads scaled by mlp_scale, then out = s R x + t (common.cuh motion_fwd;
 // SE3: s = 1; Sim3: s = head + 1; sflow: out = x + t, no rotation head);
 // with the nonrigidity head, nr = sigmoid(mlp_scale (h w_nr + b_nr)) and
-// at level > 0 out = x + nr (out - x) (level_tile.cuh point_warp); C2
+// at level > 0 out = x + nr (out - x) (level_tile_tc.cuh point_warp); C2
 // writes nr beside the points and C3 takes its cotangent.
-// Full-precision sinf/cosf/sqrtf and f32 FMAs (outside C3's width x width
-// products): the axis-angle VJP divides by theta ~ 1e-3, so the build
-// uses no fast-math.
+//
+// Both run one tile code, level_tile_tc.cuh: the width x width products
+// as 3xTF32 on the tensor cores, everything else full-precision
+// sinf/cosf/sqrtf and f32 FMAs (the axis-angle VJP divides by theta ~ 1e-3,
+// so the build uses no fast-math). C2 is its forward (c3_forward), so C2's
+// warp is bit for bit the function whose VJP C3 computes.
 //
 // What bounds them: ~2 * 34k flops per point and direction at width 128,
 // depth 3 (0.14 GFLOP forward, ~0.3 GFLOP backward for 2000 points), far
-// below the card's rates; the launch, the serial layer chain and
-// shared-memory traffic set the time. Design: level_tile.cuh (C2),
-// level_tile_tc.cuh (C3).
+// below the card's rates; the launch and the serial layer chain (each
+// product a chain of k-steps of three dependent mma.sync) set the time.
+// A block of 16 warps takes a tile of whole 16-point m-tiles that the host
+// sizes so that the grid fills the card once (2000 points: 125 blocks of
+// 16; 6000: 125 of 48).
 //
-// C3 recomputes the forward for its tile (as the TPU kernel did, rather
-// than storing activations between launches), backpropagates through the
-// motion, the heads, the hidden layers and the input layer, and writes
-// its own partial gradient vector into row blockIdx.x of an
-// [n_blocks, P] buffer. The TPU kernel accumulated across its sequential
-// grid; blocks on Hopper run in parallel, so the sum over blocks happens
-// in a fixed order in C4 (adam.cu) and no atomics are needed. Its width x
-// width products run as 3xTF32 on the tensor cores; a block of 16 warps
-// takes a tile of whole 16-point m-tiles that the host sizes so that the
-// grid fills the card once (2000 points: 125 blocks of 16). Every layer's
-// activations plus two gradient buffers exceed the 48 KB static limit at
-// larger tiles, so C3 raises the kernel's dynamic shared-memory limit
-// before its launch.
+// C2 keeps two ping-pong activation buffers; C3 recomputes the forward for
+// its tile (as the TPU kernel did, rather than storing activations between
+// launches), keeping every layer's activations, backpropagates through the
+// motion, the heads, the hidden layers and the input layer, and writes its
+// own partial gradient vector into row blockIdx.x of an [n_blocks, P]
+// buffer. The TPU kernel accumulated across its sequential grid; blocks on
+// Hopper run in parallel, so the sum over blocks happens in a fixed order
+// in C4 (adam.cu) and no atomics are needed. The buffers exceed the 48 KB
+// static limit at larger tiles, so both raise the kernel's dynamic
+// shared-memory limit before their launch.
 #include "level_tile_tc.cuh"
-
-#define FWD_TP 32
 
 // Each kernel is instantiated for every (motion, format) pair
 // (common.cuh dispatch_layout: nine of them) and for NR in {false, true},
 // so the per-point head arrays have a compile-time size (3 to 11 floats)
 // and stay in registers.
 
-template <int TP, int MOTION, int FMT, bool NR>
-__global__ void level_warp_fwd_kernel(const float* __restrict__ prm,
-                                      const float* __restrict__ x, int n,
-                                      const LevelLayout L, float freq,
-                                      float scale, bool gate,
-                                      float* __restrict__ out,
-                                      float* __restrict__ nr_out) {
+// One block of C3_THREADS threads a tile of `tp` points (a multiple of
+// C3_MT): the forward, then one thread a point warps it and, with NR,
+// writes its nonrigidity.
+template <int MOTION, int FMT, bool NR>
+__global__ void __launch_bounds__(C3_THREADS, 1)
+    level_warp_fwd_kernel(const float* __restrict__ prm,
+                          const float* __restrict__ x, int n,
+                          const LevelLayout L, int tp, float freq,
+                          float scale, bool gate, float* __restrict__ out,
+                          float* __restrict__ nr_out) {
   constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
+  const int ld = c3_ld(L.w);
   extern __shared__ float sm[];
-  float* xs = sm;
-  float* fea = xs + TP * 3;
-  float* head = fea + TP * 6;
-  float* acts = head + TP * HS;
-  const int base = blockIdx.x * TP;
+  float* acts = sm;
+  float* xs = acts + 2 * tp * ld;
+  float* fea = xs + tp * 3;
+  float* head = fea + tp * 6;
+  const int base = blockIdx.x * tp;
 
-  load_rows(x, n, base, TP, xs);
+  load_rows(x, n, base, tp, xs);
   __syncthreads();
-  forward_tile<TP, MOTION, FMT, NR>(prm, L, freq, scale, xs, fea, head,
-                                    acts, false);
+  c3_forward<MOTION, FMT, NR, false>(prm, L, tp, freq, scale, xs, fea, head,
+                                     acts);
 
-  for (int p = threadIdx.x; p < TP; p += blockDim.x) {
+  for (int p = threadIdx.x; p < tp; p += blockDim.x) {
     if (base + p >= n) continue;
     float o[3];
     const float nr = point_warp<MOTION, FMT, NR>(head + p * HS, xs + p * 3,
@@ -127,18 +131,19 @@ template <bool NR>
 cudaError_t launch_level_warp_fwd(const void* prm, const void* x, int n,
                                   int width, int depth, int motion, int fmt,
                                   bool gate, float freq, float scale,
-                                  void* out, void* nr_out, void* stream) {
+                                  void* out, void* nr_out, int tile,
+                                  void* stream) {
+  const int blocks = (n + tile - 1) / tile;
   const LevelLayout L = level_layout(width, depth, motion, fmt, NR);
-  const size_t smem = sizeof(float) * (FWD_TP * (9 + L.hs) + 2 * FWD_TP * width);
-  const int blocks = (n + FWD_TP - 1) / FWD_TP;
+  const size_t smem = sizeof(float) * c2_smem_floats(tile, width, L.hs);
   return dispatch_layout(motion, fmt, [&](auto m, auto r) {
-    auto kernel = level_warp_fwd_kernel<FWD_TP, decltype(m)::value,
+    auto kernel = level_warp_fwd_kernel<decltype(m)::value,
                                         decltype(r)::value, NR>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<blocks, threads_for(width), smem, (cudaStream_t)stream>>>(
-        (const float*)prm, (const float*)x, n, L, freq, scale, gate,
+    kernel<<<blocks, C3_THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)prm, (const float*)x, n, L, tile, freq, scale, gate,
         (float*)out, (float*)nr_out);
     return cudaGetLastError();
   });
@@ -172,7 +177,7 @@ cudaError_t launch_level_warp_fwd_nr(const void* prm, const void* x, int n,
                                      int width, int depth, int motion,
                                      int fmt, bool gate, float freq,
                                      float scale, void* out, void* nr_out,
-                                     void* stream);
+                                     int tile, void* stream);
 cudaError_t launch_level_warp_bwd_nr(const void* prm, const void* x,
                                      const void* g, const void* g_nr, int n,
                                      int width, int depth, int motion,

@@ -9,9 +9,10 @@ cudaError_t launch_level_warp_fwd_nr(const void* prm, const void* x, int n,
                                      int width, int depth, int motion,
                                      int fmt, bool gate, float freq,
                                      float scale, void* out, void* nr_out,
-                                     void* stream) {
+                                     int tile, void* stream) {
   return launch_level_warp_fwd<true>(prm, x, n, width, depth, motion, fmt,
-                                     gate, freq, scale, out, nr_out, stream);
+                                     gate, freq, scale, out, nr_out, tile,
+                                     stream);
 }
 
 cudaError_t launch_level_warp_bwd_nr(const void* prm, const void* x,

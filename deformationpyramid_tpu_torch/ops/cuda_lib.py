@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -33,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: ctypes.CDLL | None = None
+KERNELS: list["Kernel"] = []   # every Kernel made, for use_variant
 
 
 def _sources() -> list[Path]:
@@ -120,6 +122,36 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def build_variants(dirs: list[Path]) -> float:
+    """Build the library from each of ``dirs`` (a copy of ``csrc`` with an
+    edit, say), all at once, each into ``DIR/build`` with this module's
+    flags; raises if one fails. Returns the wall seconds. For timing
+    variants of a kernel in one process (:func:`use_variant`)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; from pathlib import Path; "
+         "from deformationpyramid_tpu_torch.ops import cuda_lib as c; "
+         "c.CSRC = Path(sys.argv[1]); c.BUILD_DIR = c.CSRC / 'build'; "
+         "c.build()", str(d)], cwd=Path(__file__).resolve().parents[2])
+        for d in dirs]
+    if any(p.wait() for p in procs):
+        raise RuntimeError("a variant did not build")
+    return time.perf_counter() - t0
+
+
+def use_variant(src: Path) -> None:
+    """Bind every kernel to the library built from ``src`` (see
+    :func:`build_variants`; this module's ``CSRC`` to go back): the C
+    entry points must keep their signatures."""
+    global CSRC, BUILD_DIR, _lib
+    CSRC = Path(src)
+    BUILD_DIR = CSRC / "build"
+    _lib = None
+    for kernel in KERNELS:
+        kernel._fn = None
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
@@ -139,6 +171,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def _bind(self):
         if self._fn is None:

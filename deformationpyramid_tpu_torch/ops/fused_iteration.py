@@ -4,7 +4,9 @@ Counterpart of ``deformationpyramid_tpu/ops/fused_iteration.py``. One
 iteration of the chamfer-mode level loop is:
 
 * **C2** ``level_warp_fwd`` (``csrc/level_warp.cu``): the level warp of the
-  source sample, from the flat parameter vector;
+  source sample, from the flat parameter vector (C3's forward: its
+  width x width products as 3xTF32 on the tensor cores, a tile of
+  :func:`fwd_tile` points a block);
 * **C1** ``nn_dual`` (``csrc/nn_dual.cu``, via ``ops/knn.py``): both 1-NN
   directions against the fixed target sample, on the warped points that
   C2 just wrote;
@@ -62,9 +64,11 @@ Tensor = torch.Tensor
 SYNC_EVERY = 8          # iterations between host reads of the stop flag
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MAX_WIDTH = 256         # DP_MAX_WIDTH in csrc/common.cuh
-BWD_TILE = 16           # C3_MT in csrc/level_tile_tc.cuh: a C3 block takes
-                        # a multiple of these points (bwd_tile)
-C3_MAX_BLOCKS = 132     # C3 grids of at most one block for each SM of an H100
+BWD_TILE = 16           # C3_MT in csrc/level_tile_tc.cuh: a C2 or C3 block
+                        # takes a multiple of these points (fwd_tile,
+                        # bwd_tile)
+C3_MAX_BLOCKS = 132     # C2 / C3 grids of at most one block for each SM of
+                        # an H100
 LDMK_TILE = 32          # LDMK_TP in csrc/ldmk_iteration.cu: rows per C5 block
 SMEM_LIMIT = 232448     # shared memory a Hopper block may opt in to
 _FLOOR = 1e-16          # sqrt floor, as ops/chamfer._gathered_sum
@@ -75,7 +79,7 @@ ROTATION_FORMATS = {"axis_angle": 0, "euler": 1, "quaternion": 2, "6D": 3}
 NSFP_TILE = 16          # NSFP_TP in csrc/nsfp.cu: points per C10 / C11 block
 
 LEVEL_WARP_FWD = Kernel("level_warp_fwd", "dp_level_warp_fwd",
-                        [P, P, I, I, I, I, I, I, I, F, F, P, P])
+                        [P, P, I, I, I, I, I, I, I, F, F, P, P, I])
 LEVEL_WARP_BWD = Kernel("level_warp_bwd", "dp_level_warp_bwd",
                         [P, P, P, P, I, I, I, I, I, I, I, F, F, P, I, I])
 ADAM_STEP = Kernel("adam_step", "dp_adam_step",
@@ -121,17 +125,37 @@ def c3_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
                        + bool(pcfg.nonrigidity_est))
 
 
+def c2_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
+    """Shared memory of one C2 block of ``tile`` points in bytes
+    (csrc/level_tile_tc.cuh ``c2_smem_floats``): two activation buffers
+    with C3's rows, and the points, features and heads."""
+    wp = -(-pcfg.width // 16) * 16
+    ld = wp + (40 - wp % 32) % 32
+    return 4 * tile * (2 * ld + 9 + _head_slots(pcfg))
+
+
+def _one_wave_tile(n: int, smem, pcfg: pyramid.NDPConfig) -> int:
+    m_tiles = max(-(-n // BWD_TILE), 1)
+    tile = BWD_TILE * -(-m_tiles // C3_MAX_BLOCKS)
+    while tile > BWD_TILE and smem(pcfg, tile) > SMEM_LIMIT:
+        tile -= BWD_TILE
+    return tile
+
+
 def bwd_tile(n: int, pcfg: pyramid.NDPConfig) -> int:
     """Points per C3 block for n points: whole m-tiles of ``BWD_TILE``,
     as few a block as keep the grid within ``C3_MAX_BLOCKS`` (one block an
     SM; 2000 points: 125 blocks of 16, 6000: 125 of 48), fewer where a
     block's shared memory would not fit. C3 writes ``-(-n // tile)``
     partial rows."""
-    m_tiles = max(-(-n // BWD_TILE), 1)
-    tile = BWD_TILE * -(-m_tiles // C3_MAX_BLOCKS)
-    while tile > BWD_TILE and c3_smem(pcfg, tile) > SMEM_LIMIT:
-        tile -= BWD_TILE
-    return tile
+    return _one_wave_tile(n, c3_smem, pcfg)
+
+
+def fwd_tile(n: int, pcfg: pyramid.NDPConfig) -> int:
+    """Points per C2 block for n points: C3's one-wave rule
+    (:func:`bwd_tile`) with C2's shared memory (:func:`c2_smem`). The warp
+    of a point does not depend on its tile."""
+    return _one_wave_tile(n, c2_smem, pcfg)
 
 
 def _supports_warp(pcfg: pyramid.NDPConfig) -> bool:
@@ -226,7 +250,8 @@ def _warp_launch(flat: Tensor, x: Tensor, level: int,
                           *_layout_args(pcfg), int(pcfg.nonrigidity_est),
                           int(level > 0), _freq(level, pcfg.k0),
                           float(pcfg.mlp_scale), out.data_ptr(),
-                          0 if nr is None else nr.data_ptr())
+                          0 if nr is None else nr.data_ptr(),
+                          fwd_tile(x.shape[0], pcfg))
     return out, nr
 
 

@@ -3,6 +3,7 @@
 
     python scripts/parity_torch_vs_ledger.py A.pairs.jsonl B.pairs.jsonl \\
         [--pairs 100] [--metrics full-epe vis-epe occ-epe]
+        [--max-points 2000 [--gap 0.1]]
 
 Each ledger has one JSON row a pair, with the pair's ``name`` and its
 metrics, as ``cli/eval_nolearned.py`` of either package writes it. The two
@@ -12,7 +13,13 @@ difference d_p = A(p) - B(p) with its 95% t interval (df = n - 1; the
 estimator of ``docs/PARITY.md``: single pairs are chaotic, the mean of
 the paired differences over many pairs is not). The exit code is 1 when
 the interval of the first metric (``full-epe``) excludes zero, 2 when the
-names do not match, 0 otherwise.
+names do not match, 0 otherwise. With ``--max-points`` it also prints
+each pair's |A - B| of the first metric on the pairs whose source and
+target both have at most that many points (read from the pair's npz at
+its ledger name, from the working directory): the pairs that the fast
+path and ``--no-fast`` solve on the same points, in another order, rather
+than on two different subsamples; then how many differ by more than
+``--gap``, the median and the largest.
 
 Imports neither package: it compares the port's ledger with the JAX
 package's ledgers kept in ``snapshot/`` on any machine.
@@ -66,6 +73,18 @@ def compare(a: dict[str, dict], b: dict[str, dict], metrics: list[str]
     return out
 
 
+def same_point_gaps(a: dict[str, dict], b: dict[str, dict], metric: str,
+                    max_points: int) -> dict[str, float]:
+    """|A - B| of ``metric`` on each pair whose npz (at its name) has at
+    most ``max_points`` source and target points."""
+    gaps = {}
+    for name in sorted(a):
+        with np.load(name) as z:
+            if max(len(z["s_pc"]), len(z["t_pc"])) <= max_points:
+                gaps[name] = abs(a[name][metric] - b[name][metric])
+    return gaps
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("a", help="ledger A (.pairs.jsonl)")
@@ -75,6 +94,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--metrics", nargs="+",
                     default=["full-epe", "vis-epe", "occ-epe"],
                     help="metrics to compare; the exit code reads the first")
+    ap.add_argument("--max-points", type=int, default=None,
+                    help="also the per-pair gaps on pairs of at most this "
+                         "many source and target points")
+    ap.add_argument("--gap", type=float, default=0.1,
+                    help="the gap that --max-points counts pairs beyond")
     args = ap.parse_args(argv)
     a, b = read_ledger(args.a), read_ledger(args.b)
     if set(a) != set(b) or len(a) != args.pairs:
@@ -88,8 +112,21 @@ def main(argv: list[str] | None = None) -> int:
               f"{r['mean_b']:.4f}, paired A - B {r['diff']:+.4f} +- "
               f"{r['half']:.4f} (95% t, df {len(a) - 1}); interval "
               f"{'includes' if r['includes_zero'] else 'excludes'} zero")
-    print(json.dumps({"pairs": len(a), "a": args.a, "b": args.b,
-                      "results": results}))
+    out = {"pairs": len(a), "a": args.a, "b": args.b, "results": results}
+    if args.max_points is not None:
+        gaps = same_point_gaps(a, b, args.metrics[0], args.max_points)
+        for name, g in gaps.items():
+            print(f"{name}: |A - B| {g:.4f}")
+        vals = np.array(list(gaps.values()))
+        out["same_points"] = {
+            "pairs": len(vals), "over_gap": int((vals > args.gap).sum()),
+            "median": float(np.median(vals)), "max": float(vals.max())}
+        print(f"{args.metrics[0]} on the {len(vals)} pairs of <= "
+              f"{args.max_points} points: {out['same_points']['over_gap']} "
+              f"differ by more than {args.gap} (median "
+              f"{out['same_points']['median']:.4f}, max "
+              f"{out['same_points']['max']:.4f})")
+    print(json.dumps(out))
     return 0 if results[0]["includes_zero"] else 1
 
 

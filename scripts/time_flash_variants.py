@@ -7,9 +7,10 @@ one call.
     python3 scripts/time_flash_variants.py DIR [DIR ...]
 
 Each DIR holds those three files (a copy of ``deformationpyramid_tpu_torch/
-csrc`` with an edit, say); each is built alone into ``DIR/build`` with the
-package's own nvcc flags and bound through this tree's wrappers, so the C
-entry points must keep their signatures. For each DIR and for L = S = 4096
+csrc`` with an edit, say); all of them are built at once, each alone into
+``DIR/build`` with the package's own nvcc flags
+(``cuda_lib.build_variants``), and bound through this tree's wrappers, so
+the C entry points must keep their signatures. For each DIR and for L = S = 4096
 (2836 valid) and 1024 (900 valid), 4 heads of 132, it prints the device
 time of C7 and of C9 (``chip_smoke.cuda_ms``) and the max abs error of o,
 lse and dq against the plain versions.
@@ -17,7 +18,6 @@ lse and dq against the plain versions.
 from __future__ import annotations
 
 import sys
-import time
 from pathlib import Path
 
 import torch
@@ -44,16 +44,12 @@ def main() -> None:
                        for m in (L, S, S, L))
         cases.append((q, k, v, do, torch.tensor(n, dtype=torch.int32,
                                                 device=dev), d ** -0.5))
-    for src in sys.argv[1:]:
-        cuda_lib.CSRC = Path(src).resolve()
-        cuda_lib.BUILD_DIR = cuda_lib.CSRC / "build"
-        cuda_lib._lib = None
-        for kern in (att.FLASH_ATTENTION, att.FLASH_ATTENTION_BWD_DKV,
-                     att.FLASH_ATTENTION_BWD_DQ):
-            kern._fn = None
-        t0 = time.perf_counter()
-        cuda_lib.build()
-        line = f"{Path(src).name:14s} build {time.perf_counter() - t0:5.1f} s"
+    dirs = [Path(d).resolve() for d in sys.argv[1:]]
+    print(f"built {len(dirs)} variants in "
+          f"{cuda_lib.build_variants(dirs):.1f} s", flush=True)
+    for src in dirs:
+        cuda_lib.use_variant(src)
+        line = f"{src.name:14s}"
         for q, k, v, do, nv, sc in cases:
             L, S, (h, d) = q.shape[0], k.shape[0], q.shape[1:]
             o, lse = att.flash_attention_cuda(q, k, v, nv, sc,

@@ -20,9 +20,7 @@ printed for the 2000-point case.
 """
 from __future__ import annotations
 
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
@@ -36,28 +34,12 @@ from deformationpyramid_tpu_torch.ops import cuda_lib  # noqa: E402
 from deformationpyramid_tpu_torch.ops import fused_iteration as fi  # noqa: E402
 
 
-def use(src: Path) -> None:
-    cuda_lib.CSRC = src
-    cuda_lib.BUILD_DIR = src / "build"
-    cuda_lib._lib = None
-    fi.LEVEL_WARP_BWD._fn = None
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     dirs = [Path(d).resolve() for d in sys.argv[1:]]
-    t0 = time.perf_counter()
-    builds = [subprocess.Popen(
-        [sys.executable, "-c",
-         "import sys; from pathlib import Path; "
-         "from deformationpyramid_tpu_torch.ops import cuda_lib as c; "
-         "c.CSRC = Path(sys.argv[1]); c.BUILD_DIR = c.CSRC / 'build'; "
-         "c.build()", str(d)], cwd=REPO) for d in dirs]
-    if any(b.wait() for b in builds):
-        raise RuntimeError("a variant did not build")
-    print(f"built {len(dirs)} variants in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"built {len(dirs)} variants in "
+          f"{cuda_lib.build_variants(dirs):.1f} s", flush=True)
     dev = torch.device("cuda")
     import scripts.check_torch_level_warp as chk  # noqa: E402
     cases = [c for c in chk.cases(dev)
@@ -65,7 +47,7 @@ def main() -> None:
     refs = [fi.level_warp_bwd_plain(f, x, g, lv, c, gn)[0]
             for _, c, f, x, g, gn, lv in cases]
     for d in dirs:
-        use(d)
+        cuda_lib.use_variant(d)
         line = f"{d.name:16s}"
         for (tag, c, f, x, g, gn, lv), ref in zip(cases, refs):
             try:

@@ -45,8 +45,15 @@ pair with and without the nonrigidity head, at 1, 31, 33, 2000 and 6000
 points: its rows, a second launch bit-equal, the gradient within 1e-4 of
 each tensor's max (smooth cotangents, none at a ReLU's kink), the head's
 gradient exactly 0 at level 0, every tile alike, C13 bit-equal to the
-block-order sum of its rows; C2's and C5's outputs bit-equal (sha256) to
-what they gave before C3's redesign.
+block-order sum of its rows; C5's outputs bit-equal (sha256) to what it
+gave before C3's redesign, C2's to what its tensor-core design gave. C2 on
+C3's tile for every (motion, format) pair with and without the head, at 1
+to 6000 points, widths 32, 100, 128 and 256, depths 2 to 5: 1e-5 max abs,
+a second launch and every tile bit-equal; at mlp_scale 1 too, where the
+tolerance tells three TF32 passes from one. C1 on its edge cases (exact ties
+across the database's slices, slices without a valid row, +inf rows)
+bit-equal to the plain version, and its outputs on pinned inputs
+bit-equal to those of the design it replaced (chip_smoke.C1_DIGESTS).
 """
 import pytest
 import torch
@@ -107,6 +114,29 @@ def test_nn_dual_matches_plain(dev):
             dr = ((q[flips] - db[ri[flips]]) ** 2).sum(-1)
             assert ((dg - dr).abs() / dr.clamp_min(1e-30)).max() < 3e-4
     assert yv[got[1]].all() and xv[got[3]].all()
+
+
+@pytest.mark.parametrize("tag", sorted(chip_smoke.C1_EDGE_CASES))
+def test_nn_dual_edge_cases_bit_equal_to_plain(dev, tag):
+    """C1 on its edge cases (points on a 1/32 grid, every distance exact):
+    exact ties across the database's slices, slices and whole clouds
+    without a valid row, +inf rows, sizes 1 to 2000 with n != m; both
+    directions' distances and indices bit-equal to the plain version on
+    the CPU, one launch a call."""
+    args = chip_smoke.c1_edge_input(dev, tag)
+    before = tknn.NN_DUAL.launches
+    got = tknn.nn_argmin_dual(*args)
+    assert tknn.NN_DUAL.launches == before + 1
+    ref = tknn.nn_argmin_dual_plain(*(a.cpu() for a in args))
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_nn_dual_bits_pinned(dev):
+    """C1 gives, on the pinned inputs (2000 x 2000, 6000 x 6000 and a
+    masked grid with ties), the bits of the one-query-a-thread design it
+    replaced."""
+    assert chip_smoke.c1_digests(dev) == chip_smoke.C1_DIGESTS
 
 
 @pytest.mark.parametrize("n,m,mask", [(2000, 2000, None),
@@ -814,6 +844,73 @@ def test_c3_every_layout_matches_vjp_and_repeats(dev, motion, fmt, nonrigid,
     _grad_close(part.sum(0), ref, cfg)
 
 
+@pytest.mark.parametrize("n", [1, 33, 2000, 6000])
+@pytest.mark.parametrize("nonrigid", [False, True])
+@pytest.mark.parametrize("motion,fmt", C3_LAYOUTS)
+def test_c2_every_layout_matches_plain_and_repeats(dev, motion, fmt,
+                                                   nonrigid, n):
+    """C2 on C3's tile at width 128 / depth 3 for the nine (motion, format)
+    pairs with and without the nonrigidity head (gated, level 2), at 1 to
+    6000 points (ragged last tiles; 6000 points take tiles of 48): the warp
+    and the nonrigidity within 1e-5 max abs of the plain version, a second
+    launch bit-equal, one launch a call."""
+    cfg = tpyr.NDPConfig(m=4, k0=-6, depth=3, width=128, motion=motion,
+                         rotation_format=fmt, nonrigidity_est=nonrigid)
+    flat, x, _ = _level(dev, seed=n, n=n, cfg=cfg)
+    before = tfi.LEVEL_WARP_FWD.launches
+    got = tfi._warp_launch(flat, x, 2, cfg)
+    again = tfi._warp_launch(flat, x, 2, cfg)
+    assert tfi.LEVEL_WARP_FWD.launches == before + 2
+    ref = tfi._plain_warp_nr(flat, x, 2, cfg)
+    assert (got[1] is None) == (ref[1] is None) == (not nonrigid)
+    for a, b, r in zip(got, again, ref):
+        if r is not None:
+            assert (a - r).abs().max() < 1e-5
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nonrigid", [False, True])
+@pytest.mark.parametrize("motion,fmt", C3_LAYOUTS)
+def test_c2_at_mlp_scale_1_matches_plain(dev, motion, fmt, nonrigid):
+    """C2 with mlp_scale 1, where the hidden layers' rounding reaches the
+    warp unshrunk (at 1e-3 even one TF32 pass would stay within 1e-5):
+    every layout and the head within 1e-5 max abs of the plain version.
+    On these inputs the CPU emulation of tests/test_torch_level_warp_tf32.py
+    reads three passes at 2.4e-7 to 2.2e-6, one pass at 2.2e-4 to 3.0e-3."""
+    cfg = tpyr.NDPConfig(m=4, k0=-6, depth=3, width=128, motion=motion,
+                         rotation_format=fmt, nonrigidity_est=nonrigid,
+                         mlp_scale=1.0)
+    flat, x, _ = _level(dev, n=2000, cfg=cfg)
+    got = tfi._warp_launch(flat, x, 2, cfg)
+    ref = tfi._plain_warp_nr(flat, x, 2, cfg)
+    for a, r in zip(got, ref):
+        if r is not None:
+            assert (a - r).abs().max() < 1e-5
+
+
+@pytest.mark.parametrize("width,depth", [(32, 2), (100, 2), (256, 5)])
+def test_c2_widths_and_depths_match_plain(dev, width, depth):
+    """C2 at widths that are not a multiple of 16 (padded columns) and at
+    the widest, deepest level the kernels cover: within 1e-5 max abs."""
+    cfg = tpyr.NDPConfig(m=4, k0=-6, depth=depth, width=width)
+    flat, x, _ = _level(dev, n=2000, cfg=cfg)
+    got = tfi.level_warp_fwd(flat, x, 2, cfg)
+    assert (got - tfi._plain_warp(flat, x, 2, cfg)).abs().max() < 1e-5
+
+
+@pytest.mark.parametrize("tile", [16, 32, 48, 64])
+def test_c2_tiles_give_the_same_bits(dev, monkeypatch, tile):
+    """A point's warp depends on its own row alone: any tile of whole
+    m-tiles gives the same bits as ``fwd_tile``'s, the nonrigidity too."""
+    cfg = tpyr.NDPConfig(m=4, k0=-6, depth=3, width=128,
+                         nonrigidity_est=True)
+    flat, x, _ = _level(dev, n=777, cfg=cfg)
+    ref = tfi.level_warp_fwd_nr(flat, x, 1, cfg)
+    monkeypatch.setattr(tfi, "fwd_tile", lambda n, pcfg: tile)
+    got = tfi.level_warp_fwd_nr(flat, x, 1, cfg)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
 @pytest.mark.parametrize("motion,fmt", C3_LAYOUTS)
 def test_c3_nonrigid_level0_head_gets_exactly_zero(dev, motion, fmt):
     """At level 0 the warp is ungated: C3 gives the nonrigidity head's
@@ -859,22 +956,24 @@ def test_c3_tiles_agree(dev, monkeypatch, tile):
                 cfg)
 
 
-# sha256 of C2's and C5's outputs on chip_smoke.c2_c5_digests' inputs, as
-# the kernels of the tree before C3's tensor-core redesign gave them on an
+# sha256 of C2's and C5's outputs on chip_smoke.c2_c5_digests' inputs on an
 # H100 80GB HBM3 (scripts/check_torch_level_warp.py through
-# scripts/ab_kernels.sh): C2 and C5 did not change.
+# scripts/ab_kernels.sh): C5's as every tree since C3's tensor-core redesign
+# gave it (C5 did not change); C2's as C2 gives them since it runs C3's
+# tile (3xTF32 hidden layers), which changed its arithmetic by design.
 C2_C5_DIGESTS = {
     "C2 SE3+axis_angle 2000":
-        "0428717a00f560393a51a9dce24cd7738b08f1c521c95a17cc50f693506d4cdf",
+        "ee1b2442f69bb83b88df728d9a8e4d28646c444beba3fc91bd1bb6639a315a8c",
     "C2 Sim3+euler 6000":
-        "ebd6833f2078a3abaf313d1b19d5543d9e8c408b1f2b86f2c742f8900424d1a8",
+        "5220eabe3c40e190000383a9931266cab580ae82e307f2b444a20d54dd350e2d",
     "C2 nonrigid level 1":
-        "4c33cf0bdaeb6ad7359e8d475ea1b68bc9d00aa795b6dff170c513be6af96386",
+        "4e7b25c8b2ad4d7f09c6f696ffa7c9383c2105534f3f8c9e35b35f725042c97e",
     "C5 one step":
         "399bb501de05ad332c0a56dd13069fbb95dcd1b02d238df4e3d822b66c912d1c",
 }
 
 
 def test_c2_c5_bits_unchanged(dev):
-    """C2 and C5 give the bits they gave before C3 moved to its own tile."""
+    """C5 gives the bits it gave before C3 moved to its own tile, C2 those
+    of its tensor-core design."""
     assert chip_smoke.c2_c5_digests(dev) == C2_C5_DIGESTS

@@ -192,6 +192,24 @@ def test_c3_tile_fills_one_wave():
     assert tfi.c3_smem(wide, tile + 16) > tfi.SMEM_LIMIT
 
 
+def test_c2_tile_fills_one_wave():
+    """C2's tile (``fwd_tile``): C3's one-wave rule (2000 points: 125
+    blocks of 16; 6000: 125 of 48) with C2's smaller shared memory (two
+    activation buffers of rows of 136 floats at width 128), fewer points
+    where a block would not fit."""
+    bench = tpyr.NDPConfig(m=9, k0=-8, depth=3, width=128)
+    assert tfi.c2_smem(bench, 16) == 4 * 16 * (2 * 136 + 9 + 6)
+    for n in (1, 31, 2000, 2113, 6000):
+        assert tfi.fwd_tile(n, bench) == tfi.bwd_tile(n, bench), n
+    assert tfi.fwd_tile(100_000, bench) > tfi.bwd_tile(100_000, bench)
+    wide = tpyr.NDPConfig(m=9, k0=-8, depth=5, width=256,
+                          motion="Sim3", rotation_format="6D",
+                          nonrigidity_est=True)
+    tile = tfi.fwd_tile(1_000_000, wide)
+    assert tile % 16 == 0 and tfi.c2_smem(wide, tile) <= tfi.SMEM_LIMIT
+    assert tfi.c2_smem(wide, tile + 16) > tfi.SMEM_LIMIT
+
+
 def test_kernel_argtypes_match_c_entry_points():
     """Each wrapper's ctypes argtypes name the C entry point's parameters
     in order, the stream last excluded (the binding appends it): a pointer

@@ -190,3 +190,60 @@ def test_one_tf32_pass_on_the_heads_breaks_axis_angle(monkeypatch):
             errs[head_pass] = _worst(_grad(flat, x, g, g_nr, 4, cfg), f32,
                                      cfg)
     assert errs[False] < 2e-5 and errs[True] > BUDGET, errs
+
+
+# The forward alone, as kernel C2 computes it since it runs C3's tile
+# (``c3_forward``): the level warp at its path's shapes, held to 1e-5 max
+# abs of the plain float32 warp on the card (``chip_smoke.py``).
+C2_TOL = 1e-5
+FWD_CASES = {
+    "SE3-axis_angle": (dict(), 4),
+    "Sim3-euler": (dict(motion="Sim3", rotation_format="euler"), 4),
+    "nonrigid-level-1": (dict(nonrigidity_est=True), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FWD_CASES))
+def test_three_pass_tf32_keeps_c2_within_its_tolerance(monkeypatch, name):
+    """C2's warp (and, with the head, its nonrigidity) with the hidden
+    layers' products on three TF32 passes stays below 1e-7 max abs of the
+    plain float32 warp at 2000 points: found 3e-8 to 6e-8, about one ulp of
+    the coordinates, ~170x inside C2's 1e-5. A level moves the points by
+    only ~3e-4 (mlp_scale 1e-3), so one pass (3.6e-7 to 8.3e-7) would stay
+    inside the tolerance too, but ~10x further from float32: the next test
+    holds C2 where the tolerance tells them apart."""
+    kw, level = FWD_CASES[name]
+    cfg = tpyr.NDPConfig(m=9, k0=-8, depth=3, width=128, **kw)
+    flat, x, _, _ = _case(cfg, 2000, seed=12)
+    ref = tfi._plain_warp_nr(flat, x, level, cfg)
+    errs = {}
+    for passes in (1, 3):
+        with monkeypatch.context() as m:
+            _patch(m, passes)
+            got = tfi._plain_warp_nr(flat, x, level, cfg)
+        errs[passes] = max(float((a - b).abs().max())
+                           for a, b in zip(got, ref) if b is not None)
+    assert errs[3] < 1e-7 < errs[1] < C2_TOL, errs
+
+
+@pytest.mark.parametrize("name", sorted(FWD_CASES))
+def test_c2_tolerance_sees_one_pass_at_mlp_scale_1(monkeypatch, name):
+    """The same cases with mlp_scale 1, where the hidden layers' rounding
+    reaches the warp unshrunk (a level moves a point by ~0.3): three TF32
+    passes stay below 1e-6 max abs of the plain float32 warp (found 2.7e-7
+    to 4.8e-7, 20x inside C2's 1e-5), one pass lands beyond 5e-5 (found
+    3.8e-4 to 8.6e-4). So C2's 1e-5, held at mlp_scale 1 on the card
+    (``chip_smoke.C2_UNSCALED_CASES``), tells three passes from one."""
+    kw, level = FWD_CASES[name]
+    cfg = tpyr.NDPConfig(m=9, k0=-8, depth=3, width=128, mlp_scale=1.0,
+                         **kw)
+    flat, x, _, _ = _case(cfg, 2000, seed=12)
+    ref = tfi._plain_warp_nr(flat, x, level, cfg)
+    errs = {}
+    for passes in (1, 3):
+        with monkeypatch.context() as m:
+            _patch(m, passes)
+            got = tfi._plain_warp_nr(flat, x, level, cfg)
+        errs[passes] = max(float((a - b).abs().max())
+                           for a, b in zip(got, ref) if b is not None)
+    assert errs[3] < C2_TOL / 10 and errs[1] > 5 * C2_TOL, errs

@@ -67,3 +67,31 @@ def test_other_names_fail(tool, tmp_path):
     # the same names, but not the count the run must hold
     c = _ledger(tmp_path / "c.jsonl", [0.1, 0.2, 0.3])
     assert tool.main([a, c]) == 2
+
+
+def test_same_point_gaps_keep_the_small_pairs(tool, tmp_path, monkeypatch,
+                                              capsys):
+    """``--max-points``: only pairs whose source and target both have at
+    most that many points (read from each pair's npz at its ledger name)
+    get a per-pair gap; the count beyond ``--gap``, median and max are
+    theirs."""
+    monkeypatch.chdir(tmp_path)
+    sizes = [(3000, 1500), (1392, 1183), (1500, 2500), (800, 900)]
+    names = []
+    for i, (ns, nt) in enumerate(sizes):
+        name = f"split/pair{i:04d}.npz"
+        (tmp_path / "split").mkdir(exist_ok=True)
+        np.savez(name, s_pc=np.zeros((ns, 3)), t_pc=np.zeros((nt, 3)))
+        names.append(name)
+    a = _ledger(tmp_path / "a.jsonl", [1.0, 0.5, 0.2, 0.3], names)
+    b = _ledger(tmp_path / "b.jsonl", [2.0, 0.3, 0.9, 0.25], names)
+    gaps = tool.same_point_gaps(tool.read_ledger(a), tool.read_ledger(b),
+                                "full-epe", 2000)
+    assert sorted(gaps) == [names[1], names[3]]
+    assert gaps[names[1]] == pytest.approx(0.2)
+    assert gaps[names[3]] == pytest.approx(0.05)
+    assert tool.main([a, b, "--pairs", "4", "--max-points", "2000"]) in (0, 1)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["same_points"] == {"pairs": 2, "over_gap": 1,
+                                  "median": pytest.approx(0.125),
+                                  "max": pytest.approx(0.2)}

@@ -14,7 +14,7 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
 2. build    nvcc compiles deformationpyramid_tpu_torch/csrc/*.cu for sm_90a,
             one process per source, all at once, into build/torch_kernels/
             (the time is printed), and ptxas's registers and spill bytes of
-            C3's 18 instantiations;
+            C3's 18 instantiations and C5's 9;
 3. kernels  each kernel at its path's shapes against its plain PyTorch
             version on the same inputs, with the tolerance stated, and the
             device time of each, by CUDA events (median of 30 calls): C1
@@ -34,8 +34,13 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             sources on one row (bit-equal to index_add_ on the CPU and on
             a repeat, one launch a call); C2 and C3
             again at the shape-transfer shapes (6000 points, Sim3 + euler);
-            C5 ldmk_iteration at 2048 landmark rows (2000 valid), one step
-            and a held step, and a step at SE3 + quaternion; C2 and C3 at
+            C5 ldmk_iteration (C3's tensor-core tile: its VJP is C3's
+            code) at 2048 landmark rows (2000 valid) and at the lndp
+            path's 4096 rows (30 valid, the first), one step, a repeat
+            bit-equal and a held step, and a step at SE3 + quaternion (the
+            warped rows 1e-5, the loss 1e-6 relative, m / (1 - b1) and
+            v / (1 - b2) within 1e-4 / 2e-4 of each tensor's max, rows at
+            a ReLU's kink masked out of the inputs); C2 and C3 at
             the bench shapes for SE3 + quaternion, SE3 + 6D and sflow
             (timed) and Sim3 + quaternion, Sim3 + 6D; C10 nsfp_fwd and C11
             nsfp_bwd at 2000 points, 9 layers x 128 (C11 against its plain
@@ -88,7 +93,10 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             flow plus 0.002 noise, padded to 2048 rows: fused through C5,
             then unfused, then w_cd 1.0 (trunc 0.25) fused through C1-C4;
             EPE >= 10x below the initial flow, each path's kernels
-            launched, and C5's ms/iter against the unfused loop's;
+            launched, and C5's ms/iter against the unfused loop's; then
+            C5 against the unfused loop with the early stop off at 2
+            iterations a level (the warped source within 1e-3 cm, each
+            level's final loss within 1e-5 relative);
 9. lndp     the learned landmark path at full width (config/LNDP.yaml ->
             config/configs/lepard.yaml and outlier_rejection.yaml: matcher
             528 wide, 4 heads, 15 kernel points, first_feats_dim 256; NeCo
@@ -298,7 +306,8 @@ def tc_bound(nbytes: float, flops: float, wide: float) -> dict:
                 f32_bound_ms=bound(nbytes, flops)["bound_ms"])
 
 
-def level_bounds(n: int, cfg, n_params: int, rows: int) -> dict:
+def level_bounds(n: int, cfg, n_params: int, rows: int,
+                 valid: int | None = None) -> dict:
     """Bounds of C2, C3, C4 and C5 at n points, each for the function and
     not for this design's intermediates. The forward is the MLP; it reads
     the parameters and the points and writes the warp. The backward is the
@@ -306,12 +315,15 @@ def level_bounds(n: int, cfg, n_params: int, rows: int) -> dict:
     gradients (3x the forward); it reads the parameters, the points and the
     upstream gradient and writes one gradient. Adam on a summed gradient
     reads p, m, v, g and writes p, m, v. The landmark iteration is all
-    three in one launch: the same 3x (its forward is not run twice) plus
-    Adam's arithmetic. C2 and C3 compute their width x width products
-    (the hidden layers forward, and in C3 their weight gradients and
-    cotangents) as 3xTF32 on the tensor cores (``tc_bound``; the all-f32
-    bound beside it as ``f32_bound_ms``). The ``rows`` partial gradient
-    rows that C3 hands to C4 are the design's own traffic: C4's
+    three in one launch: the forward of its n rows (it writes every warped
+    row), the weight gradients and cotangents of the ``valid`` rows (all
+    of them where not given: a row of zero cotangent needs no VJP) and
+    Adam's arithmetic; it reads the rows, targets and mask and p, m, v and
+    writes the warp and p, m, v. C2, C3 and C5 compute their width x width
+    products (the hidden layers forward, and in C3 / C5 their weight
+    gradients and cotangents) as 3xTF32 on the tensor cores (``tc_bound``;
+    the all-f32 bound beside it as ``f32_bound_ms``). The ``rows`` partial
+    gradient rows that C3 hands to C4 are the design's own traffic: C4's
     ``design_bound_ms`` counts them, no ``bound_ms`` does (operations bind
     C3 with or without them).
     """
@@ -320,6 +332,7 @@ def level_bounds(n: int, cfg, n_params: int, rows: int) -> dict:
              + (1 if cfg.nonrigidity_est else 0))
     fwd = level_mlp_flops(n, cfg, heads)
     wide = 2.0 * n * (cfg.depth - 1) * cfg.width ** 2
+    valid = n if valid is None else valid
     p4 = 4.0 * n_params
     adam_design = bound(6.0 * p4 + rows * p4, (rows + 12.0) * n_params)
     return {
@@ -328,8 +341,10 @@ def level_bounds(n: int, cfg, n_params: int, rows: int) -> dict:
                                    3.0 * wide),
         "adam_step": dict(bound(7.0 * p4, 12.0 * n_params),
                           design_bound_ms=adam_design["bound_ms"]),
-        "ldmk_iteration": bound(6.0 * p4 + 40.0 * n,
-                                3.0 * fwd + 12.0 * n_params),
+        "ldmk_iteration": tc_bound(
+            6.0 * p4 + 40.0 * n,
+            fwd + 2.0 * level_mlp_flops(valid, cfg, heads) + 12.0 * n_params,
+            wide * (1.0 + 2.0 * valid / n)),
     }
 
 
@@ -1074,44 +1089,65 @@ LNDP_SOLVER = dict(iters=500, lr=0.01, max_break_count=15,
                    break_threshold_ratio=0.001, samples=2000, w_cd=0.0,
                    trunc_cd=0.25)
 N_LDMK, LDMK_ROWS = 2000, 2048
+# C5's second shape: the lndp path's 4096 padded rows with ~30 valid
+# landmarks (28-34 from the seed-0 model), here the first rows.
+LNDP_ROWS, LNDP_VALID = 4096, 30
 # the kernels of a fused chamfer-mode iteration
 CHAMFER_KERNELS = ("nn_dual", "level_warp_fwd", "scatter_rows",
                    "level_warp_bwd", "adam_step")
 
 
-def landmark_rows(seed: int, n: int = 4000):
-    """A make_pair pair with N_LDMK landmarks from the ground-truth flow
-    plus 0.002 noise, padded to LDMK_ROWS rows (the padding rows invalid):
-    (src, tgt, flow, src_ldmk, tgt_ldmk, ldmk_valid), numpy."""
+def landmark_rows(seed: int, n: int = 4000, rows: int = LDMK_ROWS,
+                  n_valid: int = N_LDMK):
+    """A make_pair pair of n points with ``n_valid`` landmarks from the
+    ground-truth flow plus 0.002 noise, padded to ``rows`` rows (the
+    padding rows invalid): (src, tgt, flow, src_ldmk, tgt_ldmk,
+    ldmk_valid), numpy."""
     from deformationpyramid_tpu_torch.data.synthetic import make_pair
 
     src, tgt, flow = make_pair(n=n, seed=seed, deform=0.12)
     rng = np.random.default_rng(seed)
-    li = rng.permutation(n)[:LDMK_ROWS]
+    li = rng.permutation(n)[:rows]
     s_l = src[li]
     t_l = (src[li] + flow[li]
-           + rng.normal(0.0, 0.002, (LDMK_ROWS, 3))).astype(np.float32)
-    return src, tgt, flow, s_l, t_l, np.arange(LDMK_ROWS) < N_LDMK
+           + rng.normal(0.0, 0.002, (rows, 3))).astype(np.float32)
+    return src, tgt, flow, s_l, t_l, np.arange(rows) < n_valid
 
 
-def ldmk_kernel_phase(dp, dev, pyr=None, label="", timed=True):
-    """C5 at 2048 landmark rows (2000 valid), LNDP's pyramid (or ``pyr``),
-    a mid level: one step from fresh state and a held step, against its
-    plain version."""
+# C5 against its plain version: the warped rows (max abs), the loss
+# (relative), the held step and p (where |m| > 1e-3 max|m|) as C5 always
+# was; m / (1 - b1) and v / (1 - b2), the step's gradient and its square,
+# within these shares of each parameter tensor's max, as C3's gradient
+# (C5's VJP is C3's 3xTF32 code), with the landmark rows at a ReLU's kink
+# (off_kinks) masked out of the check's inputs.
+C5_M_TOL, C5_V_TOL = 1e-4, 2e-4
+C5_TOL = ("rows 1e-5; loss 1e-6 rel; counter/done/it/applied equal; m / "
+          "(1 - b1) 1e-4 and v / (1 - b2) 2e-4 of each tensor's max; p 1e-6 "
+          "where |m| > 1e-3 max|m|; held step exact")
+
+
+def ldmk_case(dev, cfg, rows: int, n_valid: int, seed: int,
+              timed: bool) -> dict:
+    """C5 at ``rows`` landmark rows (``n_valid`` valid, the first ones),
+    ``cfg``'s pyramid, a mid level: one step from fresh state and a held
+    step against its plain version under the C5 gates; a second launch
+    bit-equal; with ``timed`` the device times and the bound."""
     from deformationpyramid_tpu_torch.models import pyramid
     from deformationpyramid_tpu_torch.ops import fused_iteration as fi
     from deformationpyramid_tpu_torch.solve.loop import LoopConfig
 
-    cfg = pyramid.NDPConfig(**(pyr or LNDP_PYRAMID))
-    src, _, _, s_l, t_l, valid = landmark_rows(seed=5)
+    src, _, _, s_l, t_l, valid = landmark_rows(
+        seed=seed, n=max(4000, rows + 1000), rows=rows, n_valid=n_valid)
     mean = src.mean(0)
     x = torch.from_numpy(s_l - mean).to(dev)
     tgt = torch.from_numpy(t_l - mean).to(dev)
-    mask = torch.from_numpy(valid.astype(np.float32)).to(dev)
-    count = mask.sum().clamp_min(1.0)
     flat = pyramid.ravel(pyramid.params_from_numpy(
         numpy_level_params(pyramid.level_shapes(cfg), seed=2),
         device=dev)).contiguous()
+    keep = off_kinks(flat, x, MID_LEVEL, cfg)
+    mask = (torch.from_numpy(valid).to(dev) & keep).float()
+    count = mask.sum().clamp_min(1.0)
+    shapes = pyramid.level_shapes(cfg)
 
     def run(fn, lcfg):
         stop = fi.EarlyStop(lcfg, dev)
@@ -1123,33 +1159,47 @@ def ldmk_kernel_phase(dp, dev, pyr=None, label="", timed=True):
     lcfg = LoopConfig(iters=500)
     (p, m, v, aux, st), (rp, rm, rv, raux, rst) = (
         run(fi.ldmk_iteration, lcfg), run(fi.ldmk_iteration_plain, lcfg))
+    again = run(fi.ldmk_iteration, lcfg)
     torch.cuda.synchronize()
+    tag = f"C5 [{cfg.motion}+{cfg.rotation_format}, {rows} rows]"
+    check(all(torch.equal(a, b) for a, b in zip(
+        (p, m, v, aux, st.loss), (*again[:4], again[4].loss))),
+          f"{tag}: a second launch differs")
     err = float((aux - raux).abs().max())
-    check(err <= 1e-5, f"C5 warped rows err {err} > 1e-5")
+    check(err <= 1e-5, f"{tag} warped rows err {err} > 1e-5")
     lerr = abs(float(st.loss) - float(rst.loss))
-    check(lerr <= 1e-6 * float(rst.loss), f"C5 loss err {lerr}")
+    check(lerr <= 1e-6 * float(rst.loss), f"{tag} loss err {lerr}")
     for k in ("counter", "done", "it", "applied"):
         check(float(getattr(st, k)) == float(getattr(rst, k)),
-              f"C5 {k} {float(getattr(st, k))} vs "
+              f"{tag} {k} {float(getattr(st, k))} vs "
               f"{float(getattr(rst, k))}")
-    check(not bool(st.done) and int(st.applied) == 1, "C5 did not step")
-    for name, a, b in (("m", m, rm), ("v", v, rv)):
-        e = float((a - b).abs().max())
-        check(e <= 1e-6 * float(b.abs().max()), f"C5 {name} err {e}")
+    check(not bool(st.done) and int(st.applied) == 1, f"{tag} did not step")
+    c1, c2 = 1.0 - fi.ADAM_B1, 1.0 - fi.ADAM_B2
+    m_err = rel_grad_err(m / c1, rm / c1, shapes, f"{tag} m / (1 - b1)",
+                         C5_M_TOL)
+    v_err = rel_grad_err(v / c2, rv / c2, shapes, f"{tag} v / (1 - b2)",
+                         C5_V_TOL)
+    # the whole-vector reading the gate held before C5's VJP was C3's code
+    whole = {name: float((a - b).abs().max()) / float(b.abs().max())
+             for name, a, b in (("m", m, rm), ("v", v, rv))}
     big = rm.abs() > 1e-3 * rm.abs().max()
     perr = float((p - rp)[big].abs().max())
-    check(perr <= 1e-6, f"C5 p err {perr} where |m| > 1e-3 max|m|")
+    check(perr <= 1e-6, f"{tag} p err {perr} where |m| > 1e-3 max|m|")
     held = run(fi.ldmk_iteration, LoopConfig(iters=500, loss_eps=1e9))
     torch.cuda.synchronize()
     check(bool(held[4].done) and torch.equal(held[0], flat)
           and not held[1].any() and not held[2].any()
-          and int(held[4].it) == 1, "C5 did not hold with done set")
-
+          and int(held[4].it) == 1, f"{tag} did not hold with done set")
+    res = dict(err=err, m_rel_err=m_err, v_rel_err=v_err,
+               whole_vector_rel_err=whole, kinks=int((~keep).sum()),
+               valid=int(mask.sum()), tol=C5_TOL)
+    phase("kernels", f"{tag}: warped rows {err:.3e}, m / (1 - b1) "
+          f"{m_err:.3e}, v / (1 - b2) {v_err:.3e} of each tensor's max "
+          f"(whole vector, the old reading: m {whole['m']:.3e}, v "
+          f"{whole['v']:.3e} of max), {res['kinks']} rows at a kink masked; "
+          f"a second launch bit-equal")
     if not timed:
-        phase("kernels", f"ldmk_iteration [{label}, {LDMK_ROWS} rows]: "
-              f"max_abs_err {err:.3e} (rows 1e-5; loss 1e-6 rel; m, v 1e-6 of "
-              "max; p 1e-6 where |m| > 1e-3 max|m|; held step exact)")
-        return dict(err=err)
+        return res
     # Timing: an early stop that never fires, so every call steps.
     never = LoopConfig(iters=10 ** 9, loss_eps=0.0, max_break_count=10 ** 9)
     states = {}
@@ -1157,21 +1207,37 @@ def ldmk_kernel_phase(dp, dev, pyr=None, label="", timed=True):
         stop = fi.EarlyStop(never, dev)
         states[name] = (flat.clone(), torch.zeros_like(flat),
                         torch.zeros_like(flat), stop, x.clone())
-    scratch = fi.ldmk_scratch(LDMK_ROWS, cfg, dev)
+    scratch = fi.ldmk_scratch(rows, cfg, dev)
     kp, km, kv, kst, kaux = states["kernel"]
     pp, pm, pv, pst, paux = states["plain"]
-    res = dict(
-        err=err, tol="rows 1e-5; loss 1e-6 rel; counter/done equal; m, v "
-        "1e-6 of max; p 1e-6 where |m| > 1e-3 max|m|; held step exact",
-        library_ms=None,
-        **level_bounds(LDMK_ROWS, cfg, flat.numel(), 0)["ldmk_iteration"],
+    res.update(
+        library_ms=None, rows=rows, blocks=scratch["partial"].shape[0],
+        tile=fi.ldmk_tile(rows, cfg),
+        **level_bounds(rows, cfg, flat.numel(), 0,
+                       valid=int(mask.sum()))["ldmk_iteration"],
         ms=cuda_ms(lambda: fi.ldmk_iteration(
             kp, km, kv, x, tgt, mask, count, kst, kaux, MID_LEVEL, cfg, 0.01,
             scratch)),
         plain_ms=cuda_ms(lambda: fi.ldmk_iteration_plain(
             pp, pm, pv, x, tgt, mask, count, pst, paux, MID_LEVEL, cfg,
             0.01)))
-    print_kernel(f"ldmk_iteration [{LDMK_ROWS} rows, {N_LDMK} valid]", res)
+    print_kernel(f"ldmk_iteration [{rows} rows, {res['valid']} valid, "
+                 f"{res['blocks']} blocks of {res['tile']}]", res)
+    return res
+
+
+def ldmk_kernel_phase(dp, dev, pyr=None, timed=True):
+    """C5 at LNDP's pyramid (or ``pyr``), a mid level: at 2048 landmark
+    rows with 2000 valid and, timed, at the lndp path's 4096 rows with 30
+    valid (``ldmk_case``). Returns the 2048-row case with the other under
+    ``at_4096_30``."""
+    from deformationpyramid_tpu_torch.models import pyramid
+
+    cfg = pyramid.NDPConfig(**(pyr or LNDP_PYRAMID))
+    res = ldmk_case(dev, cfg, LDMK_ROWS, N_LDMK, seed=5, timed=timed)
+    if timed:
+        res["at_4096_30"] = ldmk_case(dev, cfg, LNDP_ROWS, LNDP_VALID,
+                                      seed=6, timed=True)
     return res
 
 
@@ -1317,7 +1383,53 @@ def landmark_phase(dp, dev, kernels):
         phase("landmark", f"{name}: EPE {epe:.5f} (initial flow "
               f"{init:.5f}), iterations per level {it}, {dt:.3f} s, "
               f"{dt * 1e3 / sum(it):.4f} ms/iter, launches {launches}")
+    out["fixed"] = fixed_landmark_paths(dp, dev, base, modes, kernels,
+                                        (src, tgt, s_l, t_l, lv))
     return out
+
+
+def fixed_landmark_paths(dp, dev, base, modes, kernels, pair) -> dict:
+    """The C5 route against the unfused landmark loop on the landmark pair
+    with the early stop off (no plateau rule, no loss floor) and
+    FIXED_ITERS iterations a level, before a solve turns chaotic (as
+    ``fixed_two_paths``): every level ran its iterations on both, the
+    warped source (the landmarks are rows of it) within FIXED_FLOW_CM and
+    each level's final loss within FIXED_LOSS_REL; C5 launched once an
+    iteration."""
+    src, tgt, s_l, t_l, lv = pair
+    runs = {}
+    for name in ("C5", "unfused"):
+        cfg = dataclasses.replace(base, **modes[name], iters=FIXED_ITERS,
+                                  max_break_count=NO_STOP, loss_eps=0.0)
+        for k in kernels:
+            k.launches = 0
+        warped, stats = dp.register_pair(1, src, tgt, cfg, src_ldmk=s_l,
+                                         tgt_ldmk=t_l, ldmk_valid=lv)
+        torch.cuda.synchronize()
+        runs[name] = (warped, stats,
+                      {k.name: k.launches for k in kernels})
+    (w5, st5, la5), (wu, stu, _) = runs["C5"], runs["unfused"]
+    iters = [st5["iters"].tolist(), stu["iters"].tolist()]
+    levels = len(iters[0])
+    check(iters[0] == iters[1] == [FIXED_ITERS] * levels,
+          f"landmark fixed: iterations {iters}, not {FIXED_ITERS} a level")
+    check(la5["ldmk_iteration"] == FIXED_ITERS * levels,
+          f"landmark fixed: C5 launched {la5['ldmk_iteration']} times")
+    res = dict(flow_cm=100.0 * float((w5 - wu).abs().max()),
+               loss_rel=float(((st5["loss"] - stu["loss"]).abs()
+                               / stu["loss"].abs()).max()),
+               losses=[st5["loss"].tolist(), stu["loss"].tolist()])
+    check(res["flow_cm"] <= FIXED_FLOW_CM
+          and res["loss_rel"] <= FIXED_LOSS_REL,
+          f"landmark fixed: the C5 route and the unfused loop part with the "
+          f"early stop off: warps by {res['flow_cm']} cm (limit "
+          f"{FIXED_FLOW_CM}), losses by {res['loss_rel']} (limit "
+          f"{FIXED_LOSS_REL}): {res}")
+    phase("landmark", f"fixed, {FIXED_ITERS} iterations a level, early stop "
+          f"off: C5 against the unfused loop, warps {res['flow_cm']:.3e} cm "
+          f"(<= {FIXED_FLOW_CM}), level losses {res['loss_rel']:.3e} "
+          f"relative (<= {FIXED_LOSS_REL})")
+    return res
 
 
 def small_phase(dp, dev):
@@ -3167,9 +3279,10 @@ MOTION_NAMES = {0: "SE3", 1: "Sim3", 2: "sflow"}
 FORMAT_NAMES = {0: "axis_angle", 1: "euler", 2: "quaternion", 3: "6D"}
 
 
-def c3_ptxas() -> list[dict]:
-    """Registers and spill bytes of every C3 instantiation (nine (motion,
-    format) pairs, with and without the nonrigidity head), from the ptxas
+def _ptxas(entry: str) -> list[dict]:
+    """Registers and spill bytes of every instantiation of the kernel
+    whose mangled name matches ``entry`` (its motion and format, and a
+    nonrigid flag where the name has one, as groups), from the ptxas
     report of this build (``cuda_lib.ptxas_log``)."""
     import re
 
@@ -3179,8 +3292,7 @@ def c3_ptxas() -> list[dict]:
     for line in cuda_lib.ptxas_log().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            cur = re.search(r"level_warp_bwd_kernelILi(\d+)ELi(\d+)ELb([01])E",
-                            m.group(1))
+            cur = re.search(entry, m.group(1))
             continue
         if cur is None:
             continue
@@ -3194,19 +3306,40 @@ def c3_ptxas() -> list[dict]:
             fmt = FORMAT_NAMES[int(cur.group(2))]
             out.append(dict(layout=motion if motion == "sflow"
                             else f"{motion}+{fmt}",
-                            nonrigid=cur.group(3) == "1",
+                            nonrigid=(cur.lastindex == 3
+                                      and cur.group(3) == "1"),
                             registers=int(m.group(1)),
                             spill_stores=spill[0], spill_loads=spill[1]))
             cur, spill = None, (0, 0)
     return out
 
 
+def c3_ptxas() -> list[dict]:
+    """Registers and spill bytes of every C3 instantiation (nine (motion,
+    format) pairs, with and without the nonrigidity head)."""
+    return _ptxas(r"level_warp_bwd_kernelILi(\d+)ELi(\d+)ELb([01])E")
+
+
+def c5_ptxas() -> list[dict]:
+    """Registers and spill bytes of every C5 instantiation (nine (motion,
+    format) pairs)."""
+    return _ptxas(r"ldmk_iteration_kernelILi(\d+)ELi(\d+)EEv")
+
+
+def ptxas_line(regs: list[dict]) -> str:
+    return ", ".join(f"{r['layout']}{' nr' if r['nonrigid'] else ''} "
+                     f"{r['registers']}/{r['spill_stores']}/"
+                     f"{r['spill_loads']}" for r in regs)
+
+
 def c2_c5_digests(dev) -> dict:
-    """sha256 of C2's and C5's outputs on fixed inputs made with numpy (C2
-    at the bench shapes for SE3 + axis_angle, at 6000 points for Sim3 +
-    euler, with the nonrigidity head at level 1; C5 one step at 2048
-    landmark rows): kernels whose code did not change give the same bits
-    from one tree to another (``scripts/check_torch_level_warp.py``,
+    """sha256 of C2's, C3's and C5's outputs on fixed inputs made with
+    numpy (C2 and C3 at the bench shapes for SE3 + axis_angle, at 6000
+    points for Sim3 + euler, with the nonrigidity head at level 1: C2's
+    warp, C3's partial rows; C5 one step at 2048 landmark rows): kernels
+    whose code did not change give the same bits from one tree to another
+    (``scripts/check_torch_level_warp.py``,
+    ``scripts/check_torch_ldmk_iteration.py``,
     ``tests/test_torch_cuda_kernels.py``)."""
     from deformationpyramid_tpu_torch.models import pyramid
     from deformationpyramid_tpu_torch.ops import fused_iteration as fi
@@ -3214,7 +3347,7 @@ def c2_c5_digests(dev) -> dict:
 
     digest = sha256_of
     rng = np.random.default_rng(2024)
-    out = {}
+    out, c3_inputs = {}, []
     for tag, kw, n, level in (
             ("C2 SE3+axis_angle 2000", {}, 2000, MID_LEVEL),
             ("C2 Sim3+euler 6000", dict(motion="Sim3",
@@ -3231,6 +3364,16 @@ def c2_c5_digests(dev) -> dict:
             out[tag] = digest(*fi.level_warp_fwd_nr(flat, x, level, cfg))
         else:
             out[tag] = digest(fi.level_warp_fwd(flat, x, level, cfg))
+        c3_inputs.append((tag.replace("C2", "C3"), cfg, flat, x, level))
+    # C3's cotangents from a stream of their own, so C2's and C5's inputs
+    # stay what they were before C3 was pinned.
+    g_rng = np.random.default_rng(2025)
+    for tag, cfg, flat, x, level in c3_inputs:
+        g = torch.from_numpy(g_rng.normal(0.0, 1e-3, x.shape).astype(
+            np.float32)).to(dev)
+        g_nr = torch.from_numpy(g_rng.normal(0.0, 1e-2, x.shape[0]).astype(
+            np.float32)).to(dev) if cfg.nonrigidity_est else None
+        out[tag] = digest(fi.level_warp_bwd(flat, x, g, level, cfg, g_nr))
     cfg = pyramid.NDPConfig(**LNDP_PYRAMID)
     x = torch.from_numpy(rng.normal(0.0, 0.3, (LDMK_ROWS, 3)).astype(
         np.float32)).to(dev)
@@ -3297,13 +3440,15 @@ def main() -> None:
     path, secs = cuda_lib.build()
     cuda_lib.load()
     phase("build", f"nvcc {secs:.1f} s -> {path.relative_to(REPO)}")
-    c3_regs = c3_ptxas()
+    c3_regs, c5_regs = c3_ptxas(), c5_ptxas()
     check(len(c3_regs) == 18, f"ptxas reported {len(c3_regs)} C3 "
           "instantiations, not 18")
+    check(len(c5_regs) == 9, f"ptxas reported {len(c5_regs)} C5 "
+          "instantiations, not 9")
     phase("build", "C3 ptxas (registers / spill stores / spill loads): "
-          + ", ".join(f"{r['layout']}{' nr' if r['nonrigid'] else ''} "
-                      f"{r['registers']}/{r['spill_stores']}/"
-                      f"{r['spill_loads']}" for r in c3_regs))
+          + ptxas_line(c3_regs))
+    phase("build", "C5 ptxas (registers / spill stores / spill loads): "
+          + ptxas_line(c5_regs))
 
     kernels = [knn.NN_DUAL, fused_iteration.LEVEL_WARP_FWD,
                fused_iteration.SCATTER_ROWS, fused_iteration.LEVEL_WARP_BWD,
@@ -3318,7 +3463,7 @@ def main() -> None:
     measured["ldmk_iteration"] = ldmk_kernel_phase(dp, dev)
     ldmk_quat = ldmk_kernel_phase(
         dp, dev, pyr=dict(LNDP_PYRAMID, rotation_format="quaternion"),
-        label="SE3+quaternion", timed=False)
+        timed=False)
     measured.update(flash_kernel_phase(dev))
     nsfp_k = nsfp_kernel_phase(dp, dev)
     measured.update({k: nsfp_k[k] for k in ("nsfp_fwd", "nsfp_bwd")})
@@ -3480,6 +3625,10 @@ def main() -> None:
                 for tag in ("NDP", "NDP quaternion", "NDP 6D", "NDP sflow")}
         if k.name == "ldmk_iteration":
             row["se3_quaternion"] = ldmk_quat
+            row["ptxas"] = c5_regs
+            for key in ("at_4096_30", "m_rel_err", "v_rel_err",
+                        "whole_vector_rel_err", "blocks", "tile"):
+                row[key] = measured[k.name][key]
         if k.name == "adam_step":
             row["at_nsfp_shape"] = nsfp_k["adam_step_at_nsfp"]
         if k.name == "nn_argmin":

@@ -1,7 +1,9 @@
-// C2 level_warp_fwd's and C3 level_warp_bwd's tile (level_warp.cuh): one
-// pyramid level's forward over a tile of `tp` points (c3_forward; C2 warps
-// the points with it) and its parameter VJP with that forward recomputed
-// (c3_tile), the width x width products as 3xTF32 on the tensor cores
+// The level tile of C2 level_warp_fwd, C3 level_warp_bwd (level_warp.cuh)
+// and C5 ldmk_iteration (ldmk_iteration.cu): one pyramid level's forward
+// over a tile of `tp` points (c3_forward; C2 warps the points with it) and
+// its parameter VJP from the forward's kept activations (c3_backward; C3
+// runs both in a row, c3_tile, C5 the VJP only where its cotangent is not
+// exactly zero), the width x width products as 3xTF32 on the tensor cores
 // (tf32_mma.cuh).
 //
 // The products: the hidden layers h_l = relu(h_{l-1} W_l + b_l),
@@ -38,7 +40,7 @@
 // point's row alone, so C2's warp does not depend on the tile.
 #pragma once
 
-#include "level_tile.cuh"
+#include "common.cuh"
 #include "tf32_mma.cuh"
 
 #define C3_THREADS 512
@@ -70,6 +72,40 @@ __host__ inline size_t c3_smem_floats(int tp, int width, int depth, int hs,
 // ([tp][ld] each), then xs, fea and head.
 __host__ inline size_t c2_smem_floats(int tp, int width, int hs) {
   return (size_t)2 * tp * c3_ld(width) + (size_t)tp * (3 + 6 + hs);
+}
+
+// dst [rows * 3] = src rows base .. base + rows - 1 of [n, 3], zero past n.
+__device__ __forceinline__ void load_rows(const float* __restrict__ src,
+                                          int n, int base, int rows,
+                                          float* dst) {
+  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x) {
+    dst[i] = (base + i / 3 < n) ? src[base * 3 + i] : 0.f;
+  }
+}
+
+// posenc at one frequency: sin/cos of x*freq, feature order
+// [sin x, cos x, sin y, cos y, sin z, cos z].
+__device__ __forceinline__ void posenc_rows(const float* xs, float* fea,
+                                            int rows, float freq) {
+  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x) {
+    const int p = i / 3, c = i % 3;
+    const float a = xs[i] * freq;
+    fea[p * 6 + 2 * c] = sinf(a);
+    fea[p * 6 + 2 * c + 1] = cosf(a);
+  }
+}
+
+// *dst = v, or *dst += v where ADD (C5's block adds the VJPs of its later
+// tiles into its row). A compile-time choice: with a run-time one every
+// store of the partial row also loaded it, and C5 at 2048 rows ran 9%
+// slower on an H100.
+template <bool ADD>
+__device__ __forceinline__ void put(float* dst, float v) {
+  if constexpr (ADD) {
+    *dst += v;
+  } else {
+    *dst = v;
+  }
 }
 
 // One point's warp from its head outputs `head` (HeadCount<.., NR> of
@@ -212,7 +248,8 @@ __device__ __forceinline__ void c3_layer_cot(const float* dz, float* dn,
 // The weight gradient gw[k * w + j] = sum over the tile's points p of
 // h[p][k] dz[p][j]: M = the width (rows k), N = the width, K = the tp
 // points, A read transposed (one float a load, rows of ld = 8 mod 32
-// floats put a warp's loads on 32 banks).
+// floats put a warp's loads on 32 banks); added to gw where ADD.
+template <bool ADD>
 __device__ __forceinline__ void c3_wgrad(const float* h, const float* dz,
                                          float* __restrict__ gw, int tp,
                                          int w, int ld) {
@@ -239,8 +276,8 @@ __device__ __forceinline__ void c3_wgrad(const float* h, const float* dz,
       }
     }
     c3_epilogue(c, m0, n0, [&](int r, int col, float v0, float v1) {
-      if (r < w && col < w) gw[r * w + col] = v0;
-      if (r < w && col + 1 < w) gw[r * w + col + 1] = v1;
+      if (r < w && col < w) put<ADD>(gw + r * w + col, v0);
+      if (r < w && col + 1 < w) put<ADD>(gw + r * w + col + 1, v1);
     });
   }
 }
@@ -249,10 +286,10 @@ __device__ __forceinline__ void c3_wgrad(const float* h, const float* dz,
 // synchronised, zero on rows past the end): posenc into fea, the input
 // layer, the hidden layers on the tensor cores and the heads, scaled by
 // mlp_scale, into head [tp][HS]. Layer l's activations go to
-// acts + l * tp * ld where KEEP (C3, whose VJP reads every layer), else to
-// one of two ping-pong buffers (C2). Returns the last layer's activations;
-// ends with __syncthreads(). C2 and C3 run this same code, so C2's warp is
-// bit for bit the forward whose VJP C3 computes.
+// acts + l * tp * ld where KEEP (C3 and C5, whose VJP reads every layer),
+// else to one of two ping-pong buffers (C2). Returns the last layer's
+// activations; ends with __syncthreads(). C2, C3 and C5 run this same code,
+// so C2's warp is bit for bit the forward whose VJP C3 computes.
 template <int MOTION, int FMT, bool NR, bool KEEP>
 __device__ __forceinline__ const float* c3_forward(
     const float* __restrict__ prm, const LevelLayout L, int tp, float freq,
@@ -324,30 +361,30 @@ __device__ __forceinline__ const float* c3_forward(
   return hL;
 }
 
-// The block's VJP: the forward of its tp points (xs, gs and, with NR, gnr
-// loaded and synchronised; zero cotangents on rows past the end), then
-// every entry of the partial row `part` [L.total].
-template <int MOTION, int FMT, bool NR>
-__device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
-                                        const LevelLayout L, int tp,
-                                        float freq, float scale, bool gate,
-                                        const float* xs, const float* gs,
-                                        const float* gnr, float* fea,
-                                        float* head, float* gh, float* acts,
-                                        float* dA, float* dB,
-                                        float* __restrict__ part) {
+// The block's VJP from the kept activations of c3_forward<..., KEEP = true>
+// (acts, fea and head as it left them; gs and, with NR, gnr loaded and
+// synchronised; zero cotangents on rows past the end): every entry of the
+// partial row `part` [L.total], written, or added to it where ADD.
+template <int MOTION, int FMT, bool NR, bool ADD = false>
+__device__ __forceinline__ void c3_backward(const float* __restrict__ prm,
+                                            const LevelLayout L, int tp,
+                                            float scale, bool gate,
+                                            const float* xs, const float* gs,
+                                            const float* gnr,
+                                            const float* fea,
+                                            const float* head, float* gh,
+                                            const float* acts, float* dA,
+                                            float* dB,
+                                            float* __restrict__ part) {
   constexpr int HS = HeadCount<MOTION, FMT, NR>::value;
   const int W = L.w, wp = c3_wpad(W), ld = c3_ld(W);
+  const float* hL = acts + (L.depth - 1) * tp * ld;
 
   // head o's weight from hidden unit k
   auto head_w = [&](int k, int o) {
     const HeadSlot sl = head_slot(L, o);
     return __ldg(prm + sl.w + k * sl.ncol);
   };
-
-  const float* hL = c3_forward<MOTION, FMT, NR, true>(prm, L, tp, freq,
-                                                      scale, xs, fea, head,
-                                                      acts);
 
   // Motion VJP: the cotangents of the heads' pre-activations.
   for (int p = threadIdx.x; p < tp; p += blockDim.x) {
@@ -364,14 +401,14 @@ __device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
   for (int o = threadIdx.x; o < HS; o += blockDim.x) {
     float s = 0.f;
     for (int p = 0; p < tp; ++p) s += gh[p * HS + o];
-    part[head_slot(L, o).b] = s;
+    put<ADD>(part + head_slot(L, o).b, s);
   }
   for (int i = threadIdx.x; i < W * HS; i += blockDim.x) {
     const int k = i / HS, o = i - k * HS;
     const HeadSlot sl = head_slot(L, o);
     float s = 0.f;
     for (int p = 0; p < tp; ++p) s = fmaf(hL[p * ld + k], gh[p * HS + o], s);
-    part[sl.w + k * sl.ncol] = s;
+    put<ADD>(part + sl.w + k * sl.ncol, s);
   }
   for (int i = threadIdx.x; i < tp * wp; i += blockDim.x) {
     const int p = i / wp, k = i - p * wp;
@@ -393,10 +430,10 @@ __device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
     for (int j = threadIdx.x; j < W; j += blockDim.x) {
       float s = 0.f;
       for (int p = 0; p < tp; ++p) s += dz[p * ld + j];
-      part[L.hb + (l - 1) * W + j] = s;
+      put<ADD>(part + L.hb + (l - 1) * W + j, s);
     }
     c3_layer_cot(dz, dn, hprev, prm + L.hw + (l - 1) * W * W, tp, W, ld);
-    c3_wgrad(hprev, dz, part + L.hw + (l - 1) * W * W, tp, W, ld);
+    c3_wgrad<ADD>(hprev, dz, part + L.hw + (l - 1) * W * W, tp, W, ld);
     __syncthreads();
     float* tmp = dz;
     dz = dn;
@@ -409,10 +446,28 @@ __device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
     float s = 0.f;
     if (k == 6) {
       for (int p = 0; p < tp; ++p) s += dz[p * ld + j];
-      part[L.ib + j] = s;
+      put<ADD>(part + L.ib + j, s);
     } else {
       for (int p = 0; p < tp; ++p) s = fmaf(fea[p * 6 + k], dz[p * ld + j], s);
-      part[L.iw + k * W + j] = s;
+      put<ADD>(part + L.iw + k * W + j, s);
     }
   }
+}
+
+// C3's block: the forward of its tp points (xs, gs and, with NR, gnr
+// loaded and synchronised; zero cotangents on rows past the end), then
+// its VJP into every entry of the partial row `part` [L.total].
+template <int MOTION, int FMT, bool NR>
+__device__ __forceinline__ void c3_tile(const float* __restrict__ prm,
+                                        const LevelLayout L, int tp,
+                                        float freq, float scale, bool gate,
+                                        const float* xs, const float* gs,
+                                        const float* gnr, float* fea,
+                                        float* head, float* gh, float* acts,
+                                        float* dA, float* dB,
+                                        float* __restrict__ part) {
+  c3_forward<MOTION, FMT, NR, true>(prm, L, tp, freq, scale, xs, fea, head,
+                                    acts);
+  c3_backward<MOTION, FMT, NR>(prm, L, tp, scale, gate, xs, gs, gnr, fea,
+                               head, gh, acts, dA, dB, part);
 }

@@ -9,10 +9,11 @@ edited kernel is rebuilt and a stale build is never loaded. Nothing here
 runs when the module is imported: the CPU tests import every module on a
 machine without ``nvcc``.
 
-Every C entry point takes device pointers and the CUDA stream as
-``void*``, launches on that stream, allocates nothing and returns
+Every C entry point of a kernel takes device pointers and the CUDA stream
+as ``void*``, launches on that stream, allocates nothing and returns
 ``cudaGetLastError()``; :meth:`Kernel.launch` raises if that is not 0 and
-only then counts the launch.
+only then counts the launch. An entry point that launches nothing (C5's
+grid for a shape) goes through :func:`query`.
 """
 from __future__ import annotations
 
@@ -155,6 +156,15 @@ def use_variant(src: Path) -> None:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+
+
+def query(symbol: str, argtypes: list, *args) -> int:
+    """Call a C entry point of the library that launches nothing and takes
+    no stream (a question about a kernel's grid, say) and return its int."""
+    fn = getattr(load(), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn(*args)
 
 
 class Kernel:

@@ -56,6 +56,7 @@ import torch
 
 from ..losses import bce_with_zeros_target
 from ..models import baselines, pyramid
+from . import cuda_lib
 from .cuda_lib import F, I, Kernel, P, check_cuda, on_cpu
 from .knn import nn_argmin_dual
 
@@ -69,7 +70,9 @@ BWD_TILE = 16           # C3_MT in csrc/level_tile_tc.cuh: a C2 or C3 block
                         # bwd_tile)
 C3_MAX_BLOCKS = 132     # C2 / C3 grids of at most one block for each SM of
                         # an H100
-LDMK_TILE = 32          # LDMK_TP in csrc/ldmk_iteration.cu: rows per C5 block
+LDMK_MAX_ROWS = 1 << 24  # LDMK_MAX_ROWS in csrc/ldmk_iteration.cu: the
+                         # landmark rows one C5 launch takes
+LDMK_STATIC_SMEM = 128  # LDMK_STATIC_SMEM there: C5's static shared memory
 SMEM_LIMIT = 232448     # shared memory a Hopper block may opt in to
 _FLOOR = 1e-16          # sqrt floor, as ops/chamfer._gathered_sum
 
@@ -88,7 +91,7 @@ SUM_PARTIALS = Kernel("sum_partials", "dp_sum_partials", [P, I, I, P])
 LDMK_ITERATION = Kernel(
     "ldmk_iteration", "dp_ldmk_iteration",
     [P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P, P, P, I, I, F, F,
-     F, F, F, F, F, F, P, P, P, I])
+     F, F, F, F, F, F, P, P, P, P, I, I])
 SCATTER_ROWS = Kernel("scatter_rows", "dp_scatter_rows", [P, I, P, P, I])
 NSFP_FWD = Kernel("nsfp_fwd", "dp_nsfp_fwd", [P, P, I, I, I, P])
 NSFP_BWD = Kernel("nsfp_bwd", "dp_nsfp_bwd", [P, P, P, I, I, I, P, I])
@@ -104,14 +107,15 @@ def _head_slots(pcfg: pyramid.NDPConfig) -> int:
 
 
 def bwd_smem(pcfg: pyramid.NDPConfig) -> int:
-    """Shared memory of one C5 block in bytes (csrc/level_tile.cuh
-    ``bwd_tile_floats``): every layer's activations of its 32 points plus
-    the gradient buffers, counted with the nonrigidity head's cotangent.
-    C3's smallest tile (:func:`c3_smem` at 16 points) needs less, so this
-    limit covers both."""
+    """The shared-memory measure of what the level kernels cover, in bytes:
+    every layer's activations of 32 points plus the gradient buffers, with
+    the nonrigidity head's cotangent, as the kernels' first tile (FMA, one
+    thread a hidden unit) held them. The gate keeps that coverage; C3's
+    tile at 16 points (:func:`c3_smem`, and C5's, :func:`ldmk_smem`) needs
+    less, so every covered configuration fits it."""
     hs = _head_slots(pcfg)
-    return 4 * LDMK_TILE * (12 + bool(pcfg.nonrigidity_est) + 2 * hs
-                            + (pcfg.depth + 2) * pcfg.width)
+    return 4 * 32 * (12 + bool(pcfg.nonrigidity_est) + 2 * hs
+                     + (pcfg.depth + 2) * pcfg.width)
 
 
 def c3_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
@@ -123,6 +127,13 @@ def c3_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
     ld = wp + (40 - wp % 32) % 32
     return 4 * tile * ((pcfg.depth + 2) * ld + 12 + 2 * _head_slots(pcfg)
                        + bool(pcfg.nonrigidity_est))
+
+
+def ldmk_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
+    """Shared memory of one C5 block of ``tile`` rows in bytes: C3's tile
+    (:func:`c3_smem`; C5 has no nonrigidity head) and the kernel's static
+    shared memory."""
+    return c3_smem(pcfg, tile) + LDMK_STATIC_SMEM
 
 
 def c2_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
@@ -158,6 +169,15 @@ def fwd_tile(n: int, pcfg: pyramid.NDPConfig) -> int:
     return _one_wave_tile(n, c2_smem, pcfg)
 
 
+def ldmk_tile(n: int, pcfg: pyramid.NDPConfig) -> int:
+    """Rows per C5 tile for n landmark rows: C3's one-wave rule
+    (:func:`bwd_tile`) with C5's shared memory (:func:`ldmk_smem`; 2048
+    rows: 128 tiles of 16, 4096: 128 of 32). Where the card holds fewer
+    blocks than tiles, each block loops over its tiles
+    (csrc/ldmk_iteration.cu)."""
+    return _one_wave_tile(n, ldmk_smem, pcfg)
+
+
 def _supports_warp(pcfg: pyramid.NDPConfig) -> bool:
     """What C2 / C3 cover: every motion and rotation format, with or
     without the nonrigidity head, at least one hidden layer (the JAX
@@ -190,9 +210,11 @@ def supports_fused_iteration_ldmk(pcfg: pyramid.NDPConfig, w_reg: float,
     ``w_cd == 0`` the one-launch iteration C5 (:func:`run_fused_level_ldmk`),
     with ``w_cd > 0`` C1-C4 with the landmark term in the glue
     (``run_fused_level(n_ldmk=...)``). The same warp coverage as
-    :func:`supports_fused_iteration`."""
+    :func:`supports_fused_iteration`, and at most ``LDMK_MAX_ROWS``
+    landmark rows (C5's limit: its blocks loop over their tiles where the
+    card does not hold one block a tile)."""
     return (_supports_warp(pcfg) and not pcfg.nonrigidity_est
-            and w_reg == 0 and n_ldmk > 0)
+            and w_reg == 0 and 0 < n_ldmk <= LDMK_MAX_ROWS)
 
 
 def level_param_count(pcfg: pyramid.NDPConfig) -> int:
@@ -704,13 +726,29 @@ def ldmk_iteration_plain(p: Tensor, m: Tensor, v: Tensor, x: Tensor,
     aux.copy_(torch.where(halt, aux, warped))
 
 
+def ldmk_blocks(n: int, pcfg: pyramid.NDPConfig,
+                device: torch.device) -> int:
+    """C5's grid for n landmark rows on ``device``: one block a tile of
+    :func:`ldmk_tile` rows, or as many as the card holds at once
+    (``dp_ldmk_blocks``: the kernel's occupancy x the SMs)."""
+    with torch.cuda.device(device):
+        got = cuda_lib.query("dp_ldmk_blocks", [I] * 6, n,
+                             *_layout_args(pcfg), ldmk_tile(n, pcfg))
+    if got <= 0:
+        raise RuntimeError(f"ldmk_iteration: no grid for {n} rows "
+                           f"(CUDA error {-got})")
+    return got
+
+
 def ldmk_scratch(n: int, pcfg: pyramid.NDPConfig,
                  device: torch.device) -> dict[str, Tensor]:
-    """C5's buffers for n landmark rows: one gradient row and one loss
-    share per block of LDMK_TILE rows."""
-    n_blocks = -(-n // LDMK_TILE)
+    """C5's buffers for n landmark rows: a gradient row, its flag (the
+    row holds a VJP) and a loss share for each block of the grid
+    (:func:`ldmk_blocks`)."""
+    n_blocks = ldmk_blocks(n, pcfg, device)
     f32 = dict(dtype=torch.float32, device=device)
     return {"partial": torch.empty((n_blocks, level_param_count(pcfg)), **f32),
+            "full": torch.empty(n_blocks, dtype=torch.int32, device=device),
             "ploss": torch.empty(n_blocks, **f32)}
 
 
@@ -743,10 +781,16 @@ def ldmk_iteration(p: Tensor, m: Tensor, v: Tensor, x: Tensor, tgt: Tensor,
             or count.numel() != 1 or any(t.numel() != 1 for t in state):
         raise ValueError("ldmk_iteration: expected m, v like p, mask [N] and "
                          "scalar count and stop state")
+    if n > LDMK_MAX_ROWS:
+        raise ValueError(f"ldmk_iteration: C5 takes at most {LDMK_MAX_ROWS} "
+                         "rows")
     if scratch is None:
         scratch = ldmk_scratch(n, pcfg, x.device)
-    partial, ploss = scratch["partial"], scratch["ploss"]
-    if partial.shape != (-(-n // LDMK_TILE), p.shape[0]):
+    partial, full, ploss = scratch["partial"], scratch["full"], \
+        scratch["ploss"]
+    rows = partial.shape[0]
+    if partial.shape[1:] != p.shape or full.shape != (rows,) \
+            or ploss.shape != (rows,):
         raise ValueError("ldmk_iteration: scratch made for another shape")
     cfg = stop.cfg
     LDMK_ITERATION.launch(
@@ -756,8 +800,8 @@ def ldmk_iteration(p: Tensor, m: Tensor, v: Tensor, x: Tensor, tgt: Tensor,
         *(t.data_ptr() for t in state), int(cfg.iters),
         int(cfg.max_break_count), float(cfg.break_threshold_ratio),
         float(cfg.loss_eps), float(lr), ADAM_B1, ADAM_B2, 1.0 - ADAM_B1,
-        1.0 - ADAM_B2, ADAM_EPS, partial.data_ptr(), ploss.data_ptr(),
-        aux.data_ptr(), partial.shape[0])
+        1.0 - ADAM_B2, ADAM_EPS, partial.data_ptr(), full.data_ptr(),
+        ploss.data_ptr(), aux.data_ptr(), rows, ldmk_tile(n, pcfg))
 
 
 def run_fused_level_ldmk(lvl_params: dict, pts: Tensor, ldmk_valid: Tensor,

@@ -7,8 +7,14 @@ decision is taken in a fixture, never at import). On the card run
 Tolerances: C1 indices equal up to near-ties < 3e-4 relative and
 distances 1e-5; C2 warped points 1e-5; C3 gradients 1e-4 of each tensor's
 max |g|; C4 moments 1e-6 of their max and ``hold`` bit-exact; C5 warped
-rows 1e-5, loss 1e-6 relative, counter and done equal, moments 1e-6 of
-their max, params 1e-6 where |g| > 1e-3 max|g|, a held step bit-exact; C6
+rows 1e-5, loss 1e-6 relative, counter and done equal, m / (1 - b1) and
+v / (1 - b2) within 1e-4 / 2e-4 of each tensor's max (its VJP is C3's
+3xTF32 code; rows at a ReLU's kink masked out of the inputs), params 1e-6
+where |m| > 1e-3 max|m|, a held step bit-exact, for the nine layouts at 1
+to 4096 rows, with every, no, first-tile and last-tile rows valid (only
+the blocks whose tile holds a valid row run a VJP), a masked row with a
+NaN target (its tile keeps its VJP) and more tiles than the card holds
+blocks (each block loops over its tiles); C6
 bit-equal to index_add_ on the CPU, on a repeat, at the solver's and the
 shape-transfer demo's sizes and with every source on one row. The fused
 level repeats bit for bit
@@ -45,8 +51,9 @@ pair with and without the nonrigidity head, at 1, 31, 33, 2000 and 6000
 points: its rows, a second launch bit-equal, the gradient within 1e-4 of
 each tensor's max (smooth cotangents, none at a ReLU's kink), the head's
 gradient exactly 0 at level 0, every tile alike, C13 bit-equal to the
-block-order sum of its rows; C5's outputs bit-equal (sha256) to what it
-gave before C3's redesign, C2's to what its tensor-core design gave. C2 on
+block-order sum of its rows; C3's partial rows bit-equal (sha256) to
+what they were before C5 took C3's VJP code, C2's outputs to what its
+tensor-core design gave, C5's to what its tensor-core design gives. C2 on
 C3's tile for every (motion, format) pair with and without the head, at 1
 to 6000 points, widths 32, 100, 128 and 256, depths 2 to 5: 1e-5 max abs,
 a second launch and every tile bit-equal; at mlp_scale 1 too, where the
@@ -360,10 +367,15 @@ def _ldmk_inputs(dev, n=333):
 @pytest.mark.parametrize("loss_eps", [1e-4, 1e9])
 def test_ldmk_iteration_matches_plain(dev, loss_eps):
     """C5 against its plain version: one step, and (loss_eps 1e9) a step
-    that the early stop holds, bit-exact."""
+    that the early stop holds, bit-exact. The step's moments are held as
+    C3's gradient (C5's VJP is C3's 3xTF32 code): m / (1 - b1) and
+    v / (1 - b2) within 1e-4 / 2e-4 of each tensor's max, the rows at a
+    ReLU's kink masked out of the inputs (``chip_smoke.off_kinks``)."""
     from deformationpyramid_tpu_torch.solve.loop import LoopConfig
 
     flat, x, tgt, mask, count = _ldmk_inputs(dev)
+    mask = mask * chip_smoke.off_kinks(flat, x, 2, CFG)
+    count = mask.sum().clamp_min(1.0)
     outs = []
     for fn in ("kernel", "plain"):
         stop = tfi.EarlyStop(LoopConfig(iters=10, loss_eps=loss_eps), dev)
@@ -386,10 +398,18 @@ def test_ldmk_iteration_matches_plain(dev, loss_eps):
         assert bool(st.done) and torch.equal(p, flat)
         assert not m.any() and not v.any()
         return
-    assert (m - rm).abs().max() <= 1e-6 * rm.abs().max()
-    assert (v - rv).abs().max() <= 1e-6 * rv.abs().max()
+    _moments_close(m, v, rm, rv, CFG)
     big = rm.abs() > 1e-3 * rm.abs().max()
     assert (p - rp)[big].abs().max() < 1e-6
+
+
+def _moments_close(m, v, rm, rv, cfg):
+    """One Adam step's moments from zero: m / (1 - b1) (the gradient) and
+    v / (1 - b2) (its square) within 1e-4 / 2e-4 of each parameter
+    tensor's max of the plain version's."""
+    c1, c2 = 1.0 - tfi.ADAM_B1, 1.0 - tfi.ADAM_B2
+    _grad_close(m / c1, rm / c1, cfg, chip_smoke.C5_M_TOL)
+    _grad_close(v / c2, rv / c2, cfg, chip_smoke.C5_V_TOL)
 
 
 def test_ldmk_iteration_halted_is_a_no_op(dev):
@@ -956,11 +976,175 @@ def test_c3_tiles_agree(dev, monkeypatch, tile):
                 cfg)
 
 
-# sha256 of C2's and C5's outputs on chip_smoke.c2_c5_digests' inputs on an
-# H100 80GB HBM3 (scripts/check_torch_level_warp.py through
-# scripts/ab_kernels.sh): C5's as every tree since C3's tensor-core redesign
-# gave it (C5 did not change); C2's as C2 gives them since it runs C3's
-# tile (3xTF32 hidden layers), which changed its arithmetic by design.
+# -- C5 on C3's tile: every layout, masks, the loop over tiles
+
+def _c5_inputs(dev, cfg, n, seed, valid=None):
+    """Landmark rows, a smooth residual (targets = rows - 0.1 tanh(x A):
+    random residuals cancel in the sums over rows, where float32 itself
+    is ~3e-5 of a tensor's max off float64) and a mask (``valid``, else
+    80% of the rows), the rows at a ReLU's kink masked out."""
+    flat, x, _ = _level(dev, seed=seed, n=n, cfg=cfg)
+    tgt = x - _smooth_field(x, seed)
+    if valid is None:
+        gen = torch.Generator().manual_seed(seed)
+        valid = torch.rand(n, generator=gen) > 0.2
+    mask = (valid.to(dev) & chip_smoke.off_kinks(flat, x, 2, cfg)).float()
+    return flat, x, tgt, mask
+
+
+def _c5_pair(dev, cfg, flat, x, tgt, mask, loss_eps=1e-4):
+    """C5 (twice, the second on its own scratch) and its plain version on
+    the same inputs from fresh state: ((p, m, v, aux, stop, scratch) of
+    the kernel, of its repeat and of the plain version)."""
+    from deformationpyramid_tpu_torch.solve.loop import LoopConfig
+
+    count = mask.sum().clamp_min(1.0)
+    outs = []
+    for fn in ("kernel", "kernel", "plain"):
+        stop = tfi.EarlyStop(LoopConfig(iters=10, loss_eps=loss_eps), dev)
+        p, m, v = flat.clone(), torch.zeros_like(flat), torch.zeros_like(flat)
+        aux = torch.zeros_like(x)
+        scratch = None
+        if fn == "kernel":
+            scratch = tfi.ldmk_scratch(x.shape[0], cfg, dev)
+            tfi.ldmk_iteration(p, m, v, x, tgt, mask, count, stop, aux, 2,
+                               cfg, 0.01, scratch)
+        else:
+            tfi.ldmk_iteration_plain(p, m, v, x, tgt, mask, count, stop, aux,
+                                     2, cfg, 0.01)
+        outs.append((p, m, v, aux, stop, scratch))
+    torch.cuda.synchronize()
+    return outs
+
+
+def _c5_gates(got, again, ref, cfg, exact=None):
+    """The C5 gates: warped rows 1e-5, loss 1e-6 relative, the stop state
+    equal, the moments as ``_moments_close``, p 1e-6 where |m| > 1e-3
+    max|m|; the repeat bit-equal. With ``exact`` (the warped rows and the
+    loss of the plain version in float64) the warped rows and the loss are
+    held to it instead: within the gate plus the plain float32 version's
+    own distance from it."""
+    p, m, v, aux, st, _ = got
+    rp, rm, rv, raux, rst, _ = ref
+    for a, b in zip(got[:4], again[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(st.loss, again[4].loss)
+    if exact is None:
+        assert (aux - raux).abs().max() < 1e-5
+        assert abs(float(st.loss) - float(rst.loss)) \
+            <= 1e-6 * float(rst.loss)
+    else:
+        w64, loss64 = exact
+        own = float((raux.double() - w64).abs().max())
+        assert float((aux.double() - w64).abs().max()) < 1e-5 + own
+        own = abs(float(rst.loss) - loss64)
+        assert abs(float(st.loss) - loss64) <= 1e-6 * loss64 + own
+    for k in ("counter", "done", "it", "applied"):
+        assert float(getattr(st, k)) == float(getattr(rst, k)), k
+    _moments_close(m, v, rm, rv, cfg)
+    if rm.any():
+        big = rm.abs() > 1e-3 * rm.abs().max()
+        assert (p - rp)[big].abs().max() < 1e-6
+    else:
+        assert torch.equal(p, rp)
+
+
+C5_CFG = {(motion, fmt): tpyr.NDPConfig(m=4, k0=-6, depth=3, width=128,
+                                        motion=motion, rotation_format=fmt)
+          for motion, fmt in C3_LAYOUTS}
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 333, 2048, 4096])
+@pytest.mark.parametrize("motion,fmt", C3_LAYOUTS)
+def test_c5_every_layout_matches_plain_and_repeats(dev, motion, fmt, n):
+    """C5 on C3's tile at width 128 / depth 3 for the nine (motion, format)
+    pairs at 1 to 4096 rows (ragged last tiles; 4096 rows take 128 tiles of
+    32), 80% of the rows valid: the C5 gates against the plain version,
+    a second launch bit-equal, one partial row a block. The warped rows
+    and the loss are held to the plain version in float64, within the
+    gates plus float32's own distance from it: at a few rows float32
+    itself reaches the gates (Sim3 at 1 row: the loss of one residual 4%
+    of its coordinates is 1.1e-6 relative off float64; Sim3 + 6D at 31
+    rows: the warp 6.4e-6, where 6D orthonormalises two head outputs of
+    ~1e-3 that are nearly parallel)."""
+    cfg = C5_CFG[(motion, fmt)]
+    flat, x, tgt, mask = _c5_inputs(dev, cfg, n, seed=n)
+    got, again, ref = _c5_pair(dev, cfg, flat, x, tgt, mask)
+    w64 = tfi._plain_warp(flat.double(), x.double(), 2, cfg)
+    d64 = (w64 - tgt.double()) * mask.double()[:, None]
+    loss64 = float((d64 * d64).sum() / mask.double().sum().clamp_min(1.0))
+    _c5_gates(got, again, ref, cfg, exact=(w64, loss64))
+    tiles = -(-n // tfi.ldmk_tile(n, cfg))
+    assert got[5]["partial"].shape == (tiles, flat.numel())
+
+
+@pytest.mark.parametrize("rows", [2048, 4096])
+@pytest.mark.parametrize("where", ["all", "none", "first tile",
+                                   "last tile"])
+def test_c5_masks_and_the_tiles_that_skip_their_vjp(dev, where, rows):
+    """Every row valid, none (the count clamps to 1, the gradient is
+    zero), the valid rows in the first tile only and in the last tile
+    only: the C5 gates against the plain version (the early stop's loss
+    floor off, so every case steps), and exactly the blocks whose tile
+    holds a valid row mark their row full."""
+    cfg = C5_CFG[("SE3", "axis_angle")]
+    tile = tfi.ldmk_tile(rows, cfg)
+    idx = torch.arange(rows)
+    valid = {"all": idx >= 0, "none": idx < 0,
+             "first tile": idx < tile - 3,
+             "last tile": idx >= rows - tile + 3}[where]
+    flat, x, tgt, mask = _c5_inputs(dev, cfg, rows, seed=7, valid=valid)
+    got, again, ref = _c5_pair(dev, cfg, flat, x, tgt, mask, loss_eps=0.0)
+    _c5_gates(got, again, ref, cfg)
+    tiles = -(-rows // tile)
+    full = got[5]["full"].cpu()
+    want = (mask.cpu().reshape(tiles, tile) != 0).any(1).to(torch.int32)
+    assert torch.equal(full, want), (where, int(full.sum()))
+    assert int(full.sum()) == {"all": tiles, "none": 0}.get(where, 1)
+
+
+def test_c5_masked_row_with_a_non_finite_target_keeps_its_vjp(dev):
+    """A row of mask 0 whose target is NaN, in a tile where every row is
+    masked: (warped - tgt) * mask is NaN there, as in the plain version,
+    so that tile runs its VJP and the NaN reaches the loss and the
+    moments in both."""
+    cfg = C5_CFG[("SE3", "axis_angle")]
+    rows = 2048
+    tile = tfi.ldmk_tile(rows, cfg)
+    valid = torch.arange(rows) < tile
+    flat, x, tgt, mask = _c5_inputs(dev, cfg, rows, seed=9, valid=valid)
+    tgt[rows - 5, 1] = float("nan")
+    got, _, ref = _c5_pair(dev, cfg, flat, x, tgt, mask)
+    assert torch.isnan(got[4].loss) and torch.isnan(ref[4].loss)
+    assert (got[3] - ref[3]).abs().max() < 1e-5
+    assert int(got[5]["full"][-1]) == 1 and int(got[5]["full"][0]) == 1
+    assert int(got[5]["full"].sum()) == 2
+    assert torch.isnan(got[1]).any() and torch.isnan(ref[1]).any()
+
+
+def test_c5_loops_over_its_tiles_where_one_wave_does_not_hold_them(dev):
+    """At width 256 a block holds 32 rows at most, so 9000 rows are 282
+    tiles, more than the card holds blocks at once: each block adds the
+    VJPs of its tiles into its row in tile order. The C5 gates against the
+    plain version, and a repeat bit-equal."""
+    cfg = tpyr.NDPConfig(m=4, k0=-6, depth=3, width=256)
+    n = 9000
+    tiles = -(-n // tfi.ldmk_tile(n, cfg))
+    blocks = tfi.ldmk_blocks(n, cfg, dev)
+    assert blocks == torch.cuda.get_device_properties(
+        dev).multi_processor_count < tiles
+    flat, x, tgt, mask = _c5_inputs(dev, cfg, n, seed=11)
+    got, again, ref = _c5_pair(dev, cfg, flat, x, tgt, mask)
+    _c5_gates(got, again, ref, cfg)
+
+
+# sha256 of C2's, C3's and C5's outputs on chip_smoke.c2_c5_digests' inputs
+# on an H100 80GB HBM3 (scripts/check_torch_level_warp.py and
+# scripts/check_torch_ldmk_iteration.py through scripts/ab_kernels.sh):
+# C2's as C2 gives them since it runs C3's tile (3xTF32 hidden layers);
+# C3's partial rows as they were before C5 took C3's VJP code (c3_backward,
+# split out of c3_tile without a change of bits); C5's as its tensor-core
+# design gives them, which changed its arithmetic by design.
 C2_C5_DIGESTS = {
     "C2 SE3+axis_angle 2000":
         "ee1b2442f69bb83b88df728d9a8e4d28646c444beba3fc91bd1bb6639a315a8c",
@@ -968,12 +1152,18 @@ C2_C5_DIGESTS = {
         "5220eabe3c40e190000383a9931266cab580ae82e307f2b444a20d54dd350e2d",
     "C2 nonrigid level 1":
         "4e7b25c8b2ad4d7f09c6f696ffa7c9383c2105534f3f8c9e35b35f725042c97e",
+    "C3 SE3+axis_angle 2000":
+        "f3429a0ce04d94b015d29fc9cc67de6b061c84dc90330a99918f5ee6fe8569d0",
+    "C3 Sim3+euler 6000":
+        "aad31f495f83387a905e8bc1a51540ba4823f22b80a8f5c0e28680ad50c9b21f",
+    "C3 nonrigid level 1":
+        "92ec34390d6b1d9411e72e27ad908eb1a955e4ca031ce0009b2708b2b9ae3947",
     "C5 one step":
-        "399bb501de05ad332c0a56dd13069fbb95dcd1b02d238df4e3d822b66c912d1c",
+        "b37fabf8ef9bf5c7d644f389c8be5e39dae1e673127891460b6321ccebc0cce0",
 }
 
 
 def test_c2_c5_bits_unchanged(dev):
-    """C5 gives the bits it gave before C3 moved to its own tile, C2 those
-    of its tensor-core design."""
+    """C2 gives the bits of its tensor-core design, C3 those it gave
+    before its VJP became C5's too, C5 those of its tensor-core design."""
     assert chip_smoke.c2_c5_digests(dev) == C2_C5_DIGESTS

@@ -43,9 +43,12 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             a ReLU's kink masked out of the inputs); C2 and C3 at
             the bench shapes for SE3 + quaternion, SE3 + 6D and sflow
             (timed) and Sim3 + quaternion, Sim3 + 6D; C10 nsfp_fwd and C11
-            nsfp_bwd at 2000 points, 9 layers x 128 (C11 against its plain
-            version in float64) and C4 at the 125 partial rows C11 hands
-            it; C7 flash_attention_fwd at L = S = 2048, 4 heads
+            nsfp_bwd at 2000 points, 9 layers x 128 (both on C3's
+            tensor-core tile, their bounds 3xTF32 with the f32 one beside;
+            C11 against its plain version in float64, the points at a
+            ReLU kink given zero cotangents, a repeat bit-equal; ptxas
+            without spills), C4 at the partial rows C11 hands it and C11 +
+            C4 back to back; C7 flash_attention_fwd at L = S = 2048, 4 heads
             of 132, 1500 valid source rows, and at L = 777, S = 1333 with
             1000 and with 0 valid rows; C8 flash_attention_bwd_dkv and C9
             flash_attention_bwd_dq at 2048 / 1500 and 4096 / 2836 rows
@@ -988,10 +991,45 @@ def numpy_nsfp_params(ncfg, seed: int) -> list:
     return out
 
 
+def nsfp_off_kinks(flat, x, ncfg, tol=1e-6):
+    """The points away from the NSFP net's ReLU kinks: False where a
+    pre-activation lies within ``tol`` of 0 in a float64 forward (as
+    :func:`off_kinks` for a level). Two float32 computations of the trunk
+    (C11's 3xTF32 products, the plain version's) may take either side
+    there, and the gradient then differs by a whole point's term; the
+    gradient check gives those points zero cotangents."""
+    from deformationpyramid_tpu_torch.ops import fused_iteration as fi
+
+    h, near = x.double(), torch.zeros(x.shape[0], dtype=torch.bool,
+                                      device=x.device)
+    for p in fi.nsfp_flat_to_params(flat.double(), ncfg)[:-1]:
+        z = h @ p["w"] + p["b"]
+        near |= (z.abs() < tol).any(-1)
+        h = torch.relu(z)
+    return ~near
+
+
+def nsfp_bounds(n: int, ncfg, n_params: int) -> dict:
+    """Bounds of C10 and C11 at n points, for the function: the forward is
+    the MLP (3 -> w, L - 2 hidden layers, w -> 3); it reads the parameters
+    and the points and writes the warp. The backward is the recomputed
+    forward, the weight gradients and the cotangents (3x the forward); it
+    reads the parameters, the points and the upstream gradient and writes
+    one gradient. Both compute their hidden layers' products as 3xTF32 on
+    the tensor cores (``tc_bound``; the all-f32 bound beside it)."""
+    w, nl = ncfg.width, ncfg.n_layers
+    fwd = 2.0 * n * (3 * w + (nl - 2) * w * w + 3 * w)
+    wide = 2.0 * n * (nl - 2) * w * w
+    p4 = 4.0 * n_params
+    return {"nsfp_fwd": tc_bound(p4 + 24.0 * n, fwd, wide),
+            "nsfp_bwd": tc_bound(2.0 * p4 + 36.0 * n, 3.0 * fwd, 3.0 * wide)}
+
+
 def nsfp_kernel_phase(dp, dev):
     """C10 and C11 at the NSFP path's shapes (2000 points, 9 layers x 128,
-    116,483 parameters) against their plain versions, and C4 at the 125
-    partial rows C11 hands it."""
+    116,483 parameters) against their plain versions, C4 at the partial
+    rows C11 hands it, and C11 + C4 back to back, as the fused NSFP
+    iteration runs them."""
     from deformationpyramid_tpu_torch.data.synthetic import make_pair
     from deformationpyramid_tpu_torch.models import pyramid
     from deformationpyramid_tpu_torch.models.baselines import NSFPConfig
@@ -1014,10 +1052,13 @@ def nsfp_kernel_phase(dp, dev):
     torch.cuda.synchronize()
     err = float((warped - ref).abs().max())
     check(err <= FWD_TOL, f"C10 nsfp_fwd max abs err {err} > {FWD_TOL}")
-    # the chamfer gradient of the main path feeds C11
+    # the chamfer gradient of the main path feeds C11, zero at the points
+    # next to a ReLU kink (nsfp_off_kinks)
     _, cidx, _, rarg = knn.nn_argmin_dual(warped, y, xv, xv)
     n_len = torch.tensor(float(n), device=dev)
     _, g = fi._chamfer_glue(warped, cidx, rarg, y, xv, xv, n_len, n_len, 1e9)
+    off = nsfp_off_kinks(flat, x, ncfg)
+    g = g * off[:, None]
     partials = fi.nsfp_bwd(flat, x, g, ncfg)
     # Nine layers deep, two float32 gradients differ by more than either
     # is wrong: the plain version runs in float64 on the same inputs, and
@@ -1034,25 +1075,26 @@ def nsfp_kernel_phase(dp, dev):
     check(torch.equal(again, partials), "C11 does not repeat bit for bit")
 
     w, nl = ncfg.width, ncfg.n_layers
-    fwd_flops = 2.0 * n * (3 * w + (nl - 2) * w * w + 3 * w)
     p4 = 4.0 * flat.numel()
+    bounds = nsfp_bounds(n, ncfg, flat.numel())
     res = {
         "nsfp_fwd": dict(
             err=err, tol=f"max abs {FWD_TOL}", library_ms=None,
             ms=cuda_ms(lambda: fi.nsfp_fwd(flat, x, ncfg)),
             plain_ms=cuda_ms(lambda: fi.nsfp_fwd_plain(flat, x, ncfg)),
-            **bound(p4 + 24.0 * n, fwd_flops)),
+            **bounds["nsfp_fwd"]),
         "nsfp_bwd": dict(
             err=float((got_g - ref_g).abs().max()), library_ms=None,
             tol=f"1e-4 of each tensor's max|g| against the plain version in "
             f"float64 (worst {worst:.2e}; the plain version in float32 "
-            f"{plain_worst:.2e}); a repeat bit-equal",
+            f"{plain_worst:.2e}; {n - int(off.sum())} points at a ReLU kink "
+            f"given zero cotangents); a repeat bit-equal",
             ms=cuda_ms(lambda: fi.nsfp_bwd(flat, x, g, ncfg)),
             plain_ms=cuda_ms(lambda: fi.nsfp_bwd_plain(flat, x, g, ncfg)),
-            **bound(2.0 * p4 + 36.0 * n, 3.0 * fwd_flops))}
+            **bounds["nsfp_bwd"])}
     for name, r in res.items():
         print_kernel(f"{name} [{n} points, {nl} x {w}]", r)
-    # C4 at this path's shape: 125 rows of 116,483
+    # C4 at this path's shape: C11's partial rows of 116,483
     pa, ma, va = flat.clone(), torch.zeros_like(flat), torch.zeros_like(flat)
     zero = torch.zeros((), device=dev)
     outs = []
@@ -1080,6 +1122,18 @@ def nsfp_kernel_phase(dp, dev):
           f"(bytes), with this design's partial rows "
           f"{adam['design_bound_ms']:.5f} ms")
     res["adam_step_at_nsfp"] = adam
+    # C11 + C4 as the iteration runs them: the rows C11 writes and C4 reads
+    # are the pair's own traffic
+    pair = dict(
+        rows=rows, rows_bytes=rows * p4,
+        ms=cuda_ms(lambda: fi.adam_step(pa, ma, va,
+                                        fi.nsfp_bwd(flat, x, g, ncfg), zero,
+                                        zero, 0.01)))
+    phase("kernels", f"nsfp_bwd + adam_step [{n} points, {nl} x {w}]: "
+          f"{pair['ms']:.4f} ms, {rows} partial rows = "
+          f"{pair['rows_bytes'] / 1e6:.1f} MB written and read back")
+    res["nsfp_bwd"]["with_adam"] = pair
+    res["inputs"] = (flat, x, g)
     return res
 
 
@@ -3282,8 +3336,9 @@ FORMAT_NAMES = {0: "axis_angle", 1: "euler", 2: "quaternion", 3: "6D"}
 def _ptxas(entry: str) -> list[dict]:
     """Registers and spill bytes of every instantiation of the kernel
     whose mangled name matches ``entry`` (its motion and format, and a
-    nonrigid flag where the name has one, as groups), from the ptxas
-    report of this build (``cuda_lib.ptxas_log``)."""
+    nonrigid flag where the name has one, as groups; a kernel that is no
+    template is named by the match itself), from the ptxas report of this
+    build (``cuda_lib.ptxas_log``)."""
     import re
 
     from deformationpyramid_tpu_torch.ops import cuda_lib
@@ -3302,10 +3357,13 @@ def _ptxas(entry: str) -> list[dict]:
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            motion = MOTION_NAMES[int(cur.group(1))]
-            fmt = FORMAT_NAMES[int(cur.group(2))]
-            out.append(dict(layout=motion if motion == "sflow"
-                            else f"{motion}+{fmt}",
+            if cur.lastindex is None:
+                layout = cur.group(0)
+            else:
+                motion = MOTION_NAMES[int(cur.group(1))]
+                fmt = FORMAT_NAMES[int(cur.group(2))]
+                layout = motion if motion == "sflow" else f"{motion}+{fmt}"
+            out.append(dict(layout=layout,
                             nonrigid=(cur.lastindex == 3
                                       and cur.group(3) == "1"),
                             registers=int(m.group(1)),
@@ -3318,6 +3376,11 @@ def c3_ptxas() -> list[dict]:
     """Registers and spill bytes of every C3 instantiation (nine (motion,
     format) pairs, with and without the nonrigidity head)."""
     return _ptxas(r"level_warp_bwd_kernelILi(\d+)ELi(\d+)ELb([01])E")
+
+
+def nsfp_ptxas() -> list[dict]:
+    """Registers and spill bytes of C10 and C11."""
+    return _ptxas(r"nsfp_(?:fwd|bwd)_kernel")
 
 
 def c5_ptxas() -> list[dict]:
@@ -3449,6 +3512,12 @@ def main() -> None:
           + ptxas_line(c3_regs))
     phase("build", "C5 ptxas (registers / spill stores / spill loads): "
           + ptxas_line(c5_regs))
+    nsfp_regs = nsfp_ptxas()
+    check(len(nsfp_regs) == 2 and not any(
+        r["spill_stores"] or r["spill_loads"] for r in nsfp_regs),
+          f"ptxas on C10 / C11: {nsfp_regs}")
+    phase("build", "C10 / C11 ptxas (registers / spill stores / spill "
+          "loads): " + ptxas_line(nsfp_regs))
 
     kernels = [knn.NN_DUAL, fused_iteration.LEVEL_WARP_FWD,
                fused_iteration.SCATTER_ROWS, fused_iteration.LEVEL_WARP_BWD,
@@ -3631,6 +3700,10 @@ def main() -> None:
                 row[key] = measured[k.name][key]
         if k.name == "adam_step":
             row["at_nsfp_shape"] = nsfp_k["adam_step_at_nsfp"]
+        if k.name in ("nsfp_fwd", "nsfp_bwd"):
+            row["ptxas"] = [r for r in nsfp_regs if k.name in r["layout"]]
+        if k.name == "nsfp_bwd":
+            row["with_adam"] = measured[k.name]["with_adam"]
         if k.name == "nn_argmin":
             c14 = measured[k.name]
             row["masked"] = c14["masked"]

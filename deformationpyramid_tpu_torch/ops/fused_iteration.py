@@ -29,10 +29,11 @@ its kernel 2 (``_bwd_adam_kernel``). The landmark-only loop (LNDP with
 ``_ldmk_iter_kernel`` (:func:`run_fused_level_ldmk`). The NSFP baseline's
 loop (:func:`run_fused_nsfp`) is the chamfer-mode iteration with the
 flow-field MLP in place of the level: **C10** ``nsfp_fwd`` and **C11**
-``nsfp_bwd`` (``csrc/nsfp.cu``) replace kernels 1 and 2 with
-``model="nsfp"``, around the same C1, glue, C6 and C4. Each kernel's
-wrapper runs the plain PyTorch version of the same function when its
-tensors are on the CPU.
+``nsfp_bwd`` (``csrc/nsfp.cu``: C3's tensor-core tile for the hidden
+layers, tiles of :func:`nsfp_fwd_tile` / :func:`nsfp_bwd_tile` points)
+replace kernels 1 and 2 with ``model="nsfp"``, around the same C1, glue,
+C6 and C4. Each kernel's wrapper runs the plain PyTorch version of the
+same function when its tensors are on the CPU.
 
 The early-stop state stays on the device as 0-d tensors (:class:`EarlyStop`)
 and the host reads it every ``SYNC_EVERY`` iterations only; an iteration
@@ -65,9 +66,9 @@ Tensor = torch.Tensor
 SYNC_EVERY = 8          # iterations between host reads of the stop flag
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 MAX_WIDTH = 256         # DP_MAX_WIDTH in csrc/common.cuh
-BWD_TILE = 16           # C3_MT in csrc/level_tile_tc.cuh: a C2 or C3 block
-                        # takes a multiple of these points (fwd_tile,
-                        # bwd_tile)
+BWD_TILE = 16           # C3_MT in csrc/level_tile_tc.cuh: a block of C2,
+                        # C3, C5, C10 or C11 takes a multiple of these
+                        # points (fwd_tile, bwd_tile, ...)
 C3_MAX_BLOCKS = 132     # C2 / C3 grids of at most one block for each SM of
                         # an H100
 LDMK_MAX_ROWS = 1 << 24  # LDMK_MAX_ROWS in csrc/ldmk_iteration.cu: the
@@ -79,7 +80,6 @@ _FLOOR = 1e-16          # sqrt floor, as ops/chamfer._gathered_sum
 # Codes of csrc/common.cuh DpMotion and DpRotFmt.
 MOTIONS = {"SE3": 0, "Sim3": 1, "sflow": 2}
 ROTATION_FORMATS = {"axis_angle": 0, "euler": 1, "quaternion": 2, "6D": 3}
-NSFP_TILE = 16          # NSFP_TP in csrc/nsfp.cu: points per C10 / C11 block
 
 LEVEL_WARP_FWD = Kernel("level_warp_fwd", "dp_level_warp_fwd",
                         [P, P, I, I, I, I, I, I, I, F, F, P, P, I])
@@ -93,8 +93,8 @@ LDMK_ITERATION = Kernel(
     [P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P, P, P, I, I, F, F,
      F, F, F, F, F, F, P, P, P, P, I, I])
 SCATTER_ROWS = Kernel("scatter_rows", "dp_scatter_rows", [P, I, P, P, I])
-NSFP_FWD = Kernel("nsfp_fwd", "dp_nsfp_fwd", [P, P, I, I, I, P])
-NSFP_BWD = Kernel("nsfp_bwd", "dp_nsfp_bwd", [P, P, P, I, I, I, P, I])
+NSFP_FWD = Kernel("nsfp_fwd", "dp_nsfp_fwd", [P, P, I, I, I, P, I])
+NSFP_BWD = Kernel("nsfp_bwd", "dp_nsfp_bwd", [P, P, P, I, I, I, P, I, I, P])
 
 
 def _head_slots(pcfg: pyramid.NDPConfig) -> int:
@@ -118,15 +118,20 @@ def bwd_smem(pcfg: pyramid.NDPConfig) -> int:
                      + (pcfg.depth + 2) * pcfg.width)
 
 
+def row_floats(width: int) -> int:
+    """Floats of one row of C3's tile buffers (csrc/level_tile_tc.cuh
+    ``c3_ld``): the width rounded up to 16 and then to 8 (mod 32)."""
+    wp = -(-width // 16) * 16
+    return wp + (40 - wp % 32) % 32
+
+
 def c3_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
     """Shared memory of one C3 block of ``tile`` points in bytes
     (csrc/level_tile_tc.cuh ``c3_smem_floats``): every layer's activations
-    and two gradient buffers as rows of the width rounded up to 16 and then
-    to 8 (mod 32) floats, and the points' inputs, features and heads."""
-    wp = -(-pcfg.width // 16) * 16
-    ld = wp + (40 - wp % 32) % 32
-    return 4 * tile * ((pcfg.depth + 2) * ld + 12 + 2 * _head_slots(pcfg)
-                       + bool(pcfg.nonrigidity_est))
+    and two gradient buffers as rows of :func:`row_floats`, and the points'
+    inputs, features and heads."""
+    return 4 * tile * ((pcfg.depth + 2) * row_floats(pcfg.width) + 12
+                       + 2 * _head_slots(pcfg) + bool(pcfg.nonrigidity_est))
 
 
 def ldmk_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
@@ -140,15 +145,16 @@ def c2_smem(pcfg: pyramid.NDPConfig, tile: int) -> int:
     """Shared memory of one C2 block of ``tile`` points in bytes
     (csrc/level_tile_tc.cuh ``c2_smem_floats``): two activation buffers
     with C3's rows, and the points, features and heads."""
-    wp = -(-pcfg.width // 16) * 16
-    ld = wp + (40 - wp % 32) % 32
-    return 4 * tile * (2 * ld + 9 + _head_slots(pcfg))
+    return 4 * tile * (2 * row_floats(pcfg.width) + 9 + _head_slots(pcfg))
 
 
-def _one_wave_tile(n: int, smem, pcfg: pyramid.NDPConfig) -> int:
+def _one_wave_tile(n: int, smem, cfg) -> int:
+    """Whole m-tiles of ``BWD_TILE`` points, as few a block as keep the
+    grid within ``C3_MAX_BLOCKS``, fewer where ``smem(cfg, tile)`` bytes
+    would not fit a block (never below one m-tile)."""
     m_tiles = max(-(-n // BWD_TILE), 1)
     tile = BWD_TILE * -(-m_tiles // C3_MAX_BLOCKS)
-    while tile > BWD_TILE and smem(pcfg, tile) > SMEM_LIMIT:
+    while tile > BWD_TILE and smem(cfg, tile) > SMEM_LIMIT:
         tile -= BWD_TILE
     return tile
 
@@ -867,22 +873,44 @@ def nsfp_flat_to_params(flat: Tensor, ncfg: baselines.NSFPConfig
     return pyramid.unravel(flat, nsfp_shapes(ncfg))
 
 
-def nsfp_bwd_smem(ncfg: baselines.NSFPConfig) -> int:
-    """Shared memory of one C11 block in bytes (``csrc/nsfp.cu``): the
-    activations of every layer but the last plus two gradient buffers,
-    unit-major with a pad of 4 points, and the tile's points and
-    cotangents."""
-    return 4 * (6 * NSFP_TILE
-                + (ncfg.n_layers + 1) * ncfg.width * (NSFP_TILE + 4))
+def nsfp_fwd_smem(ncfg: baselines.NSFPConfig, tile: int) -> int:
+    """Shared memory of one C10 block of ``tile`` points in bytes
+    (``csrc/nsfp.cu``): two activation buffers as rows of
+    :func:`row_floats`, and the points."""
+    return 4 * tile * (2 * row_floats(ncfg.width) + 3)
+
+
+def nsfp_bwd_smem(ncfg: baselines.NSFPConfig, tile: int = BWD_TILE) -> int:
+    """Shared memory of one C11 block of ``tile`` points in bytes
+    (``csrc/nsfp.cu``): the activations of every layer but the last and
+    two gradient buffers as rows of :func:`row_floats`, and the points and
+    their cotangents. Where it exceeds ``SMEM_LIMIT``, :func:`nsfp_bwd`
+    hands C11 those buffers in device memory instead."""
+    return 4 * tile * ((ncfg.n_layers + 1) * row_floats(ncfg.width) + 6)
+
+
+def nsfp_fwd_tile(n: int, ncfg: baselines.NSFPConfig) -> int:
+    """Points per C10 block for n points: C3's one-wave rule
+    (:func:`bwd_tile`) with C10's shared memory (:func:`nsfp_fwd_smem`;
+    2000 points: 125 blocks of 16). The warp of a point does not depend on
+    its tile."""
+    return _one_wave_tile(n, nsfp_fwd_smem, ncfg)
+
+
+def nsfp_bwd_tile(n: int, ncfg: baselines.NSFPConfig) -> int:
+    """Points per C11 block for n points: C3's one-wave rule
+    (:func:`bwd_tile`) with C11's shared memory (:func:`nsfp_bwd_smem`;
+    2000 points: 125 blocks of 16). C11 writes ``-(-n // tile)`` partial
+    rows."""
+    return _one_wave_tile(n, nsfp_bwd_smem, ncfg)
 
 
 def supports_fused_nsfp(ncfg: baselines.NSFPConfig) -> bool:
-    """What C10 / C11 cover: ReLU, at least two layers, a width that is a
-    multiple of 4 up to 256, and C11's activations within one block's
-    shared memory (at width 128, up to 20 layers)."""
+    """What C10 / C11 cover: ReLU, at least two layers and a width that is
+    a multiple of 4 up to 256, at any depth (C11's buffers go to device
+    memory where they exceed a block's shared memory: :func:`nsfp_bwd`)."""
     return (ncfg.act == "relu" and ncfg.n_layers >= 2
-            and 4 <= ncfg.width <= MAX_WIDTH and ncfg.width % 4 == 0
-            and nsfp_bwd_smem(ncfg) <= SMEM_LIMIT)
+            and 4 <= ncfg.width <= MAX_WIDTH and ncfg.width % 4 == 0)
 
 
 def nsfp_fwd_plain(flat: Tensor, x: Tensor, ncfg: baselines.NSFPConfig
@@ -922,7 +950,8 @@ def nsfp_fwd(flat: Tensor, x: Tensor, ncfg: baselines.NSFPConfig) -> Tensor:
     _check_nsfp("nsfp_fwd", flat, x, ncfg)
     out = torch.empty_like(x)
     NSFP_FWD.launch(flat.data_ptr(), x.data_ptr(), x.shape[0], ncfg.width,
-                    ncfg.n_layers, out.data_ptr())
+                    ncfg.n_layers, out.data_ptr(),
+                    nsfp_fwd_tile(x.shape[0], ncfg))
     return out
 
 
@@ -930,17 +959,24 @@ def nsfp_bwd(flat: Tensor, x: Tensor, g: Tensor,
              ncfg: baselines.NSFPConfig) -> Tensor:
     """Parameter gradient of the NSFP warp for the cotangent g [N, 3], as
     partial rows [n_blocks, P] whose sum is the gradient: kernel C11 on
-    CUDA tensors (one row per block of NSFP_TILE points, summed by
-    :func:`adam_step` in block order), the plain VJP on CPU tensors (one
-    row)."""
+    CUDA tensors (one row per block of :func:`nsfp_bwd_tile` points,
+    summed by :func:`adam_step` in block order), the plain VJP on CPU
+    tensors (one row)."""
     if on_cpu(flat, x, g):
         return nsfp_bwd_plain(flat, x, g, ncfg)
     _check_nsfp("nsfp_bwd", flat, x, ncfg, g)
-    n_blocks = -(-x.shape[0] // NSFP_TILE)
-    partial = torch.empty((n_blocks, flat.shape[0]), dtype=torch.float32,
-                          device=flat.device)
-    NSFP_BWD.launch(flat.data_ptr(), x.data_ptr(), g.data_ptr(), x.shape[0],
-                    ncfg.width, ncfg.n_layers, partial.data_ptr(), n_blocks)
+    n = x.shape[0]
+    tile = nsfp_bwd_tile(n, ncfg)
+    n_blocks = -(-n // tile)
+    f32 = dict(dtype=torch.float32, device=flat.device)
+    partial = torch.empty((n_blocks, flat.shape[0]), **f32)
+    scratch = None
+    if nsfp_bwd_smem(ncfg, tile) > SMEM_LIMIT:
+        scratch = torch.empty((n_blocks, (ncfg.n_layers + 1) * tile
+                               * row_floats(ncfg.width)), **f32)
+    NSFP_BWD.launch(flat.data_ptr(), x.data_ptr(), g.data_ptr(), n,
+                    ncfg.width, ncfg.n_layers, partial.data_ptr(), n_blocks,
+                    tile, None if scratch is None else scratch.data_ptr())
     return partial
 
 

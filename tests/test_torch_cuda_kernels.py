@@ -23,9 +23,13 @@ C14 distances 1e-6 relative and indices equal up to near-ties, at ragged
 tiles and with no valid row. C2 and C3 are checked for SE3 + axis_angle, Sim3 + euler, sflow, and SE3 and
 Sim3 with the quaternion and 6D formats. C10 warped points 2e-5; C11
 gradients 1e-4 of each tensor's max |g| against the plain version in float64
-(nine float32 layers deep, two float32 gradients differ by more), bit-equal
-on a second launch, at a ragged last tile and at width 32; the fused NSFP
-loop against the CPU's plain loop. C7 against its
+(nine float32 layers deep, two float32 gradients differ by more; points at
+a ReLU kink given zero cotangents), bit-equal on a second launch, both on
+C3's tensor-core tile: at 9 x 128, 2 layers (no hidden product), widths
+20, 32, 36, 64 and 256, a ragged last tile, 1 and 7 points; C11 at tiles
+of 16, 32 and 48 points, with its buffers in device memory bit-equal to
+shared memory, and at 100 layers of 20; C10 bit-equal at every tile; the
+fused NSFP loop against the CPU's plain loop. C7 against its
 plain version 2e-5 max abs (outputs are convex combinations of N(0, 1)
 values; C7 computes its products as 3xTF32 on the tensor cores, ~1e-6 off
 f32), bit-equal on a second launch, at the matcher's shapes (caps 1024 and
@@ -248,21 +252,26 @@ def _nsfp(dev, ncfg, n, seed=0):
 
 
 NSFP_CASES = {"9x128-2000": (dict(), 2000), "9x128-ragged": (dict(), 333),
+              "9x128-below-an-m-tile": (dict(), 7),
+              "9x128-one-point": (dict(), 1),
               "4x32": (dict(width=32, n_layers=4), 50),
-              "2x64": (dict(width=64, n_layers=2), 17)}
+              "2x64": (dict(width=64, n_layers=2), 17),
+              "2x20": (dict(width=20, n_layers=2), 40),
+              "3x20": (dict(width=20, n_layers=3), 45),
+              "5x36": (dict(width=36, n_layers=5), 100),
+              "4x256": (dict(width=256, n_layers=4), 300),
+              "9x256": (dict(width=256, n_layers=9), 2000)}
 
 
-@pytest.mark.parametrize("name", sorted(NSFP_CASES))
-def test_nsfp_fwd_and_bwd_match_plain(dev, name):
-    from deformationpyramid_tpu_torch.models.baselines import NSFPConfig
-
-    kw, n = NSFP_CASES[name]
-    ncfg = NSFPConfig(**kw)
-    flat, x, g = _nsfp(dev, ncfg, n)
+def _nsfp_check(flat, x, g, ncfg):
+    """C10 against its plain version (2e-5 max abs) and C11 against the
+    plain VJP in float64 (1e-4 of each tensor's max |g|, the cotangents of
+    points at a ReLU kink zeroed), a second C11 launch bit-equal; returns
+    C11's partial rows."""
     got = tfi.nsfp_fwd(flat, x, ncfg)
     assert (got - tfi.nsfp_fwd_plain(flat, x, ncfg)).abs().max() < 2e-5
+    g = g * chip_smoke.nsfp_off_kinks(flat, x, ncfg)[:, None]
     part = tfi.nsfp_bwd(flat, x, g, ncfg)
-    assert part.shape == (-(-n // tfi.NSFP_TILE), flat.numel())
     assert torch.equal(part, tfi.nsfp_bwd(flat, x, g, ncfg))
     ref = tfi.nsfp_bwd_plain(flat.double(), x.double(), g.double(),
                              ncfg)[0].float()
@@ -270,6 +279,69 @@ def test_nsfp_fwd_and_bwd_match_plain(dev, name):
     for a, b in zip(tpyr.tree_leaves(tpyr.unravel(part.sum(0), shapes)),
                     tpyr.tree_leaves(tpyr.unravel(ref, shapes))):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp_min(1e-30)
+    return part
+
+
+@pytest.mark.parametrize("name", sorted(NSFP_CASES))
+def test_nsfp_fwd_and_bwd_match_plain(dev, name):
+    """C10 / C11 on C3's tensor-core tile at the path's 9 x 128, at no
+    hidden product (2 layers), at widths that are no multiple of 16 (the
+    padded columns) and at 256, at a ragged last tile and below one
+    m-tile; one partial row a block of ``nsfp_bwd_tile`` points."""
+    from deformationpyramid_tpu_torch.models.baselines import NSFPConfig
+
+    kw, n = NSFP_CASES[name]
+    ncfg = NSFPConfig(**kw)
+    flat, x, g = _nsfp(dev, ncfg, n)
+    part = _nsfp_check(flat, x, g, ncfg)
+    assert part.shape == (-(-n // tfi.nsfp_bwd_tile(n, ncfg)), flat.numel())
+
+
+@pytest.mark.parametrize("tile,rows", [(16, 125), (32, 63), (48, 42)])
+def test_nsfp_bwd_tiles_agree(dev, monkeypatch, tile, rows):
+    """Any tile of whole m-tiles gives C11 the same gradient within its
+    budget (the rows differ, their sum does not): 2000 points as 125 rows
+    of 16, 63 of 32 (the last block half full) and 42 of 48."""
+    from deformationpyramid_tpu_torch.models.baselines import NSFPConfig
+
+    ncfg = NSFPConfig()
+    flat, x, g = _nsfp(dev, ncfg, 2000, seed=1)
+    monkeypatch.setattr(tfi, "nsfp_bwd_tile", lambda n, cfg: tile)
+    assert _nsfp_check(flat, x, g, ncfg).shape[0] == rows
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64, 208])
+def test_nsfp_fwd_does_not_depend_on_its_tile(dev, monkeypatch, tile):
+    """A point's warp depends on its own row alone: C10 at any tile gives
+    the bits of its own rule's tile."""
+    from deformationpyramid_tpu_torch.models.baselines import NSFPConfig
+
+    ncfg = NSFPConfig()
+    flat, x, _ = _nsfp(dev, ncfg, 777, seed=2)
+    want = tfi.nsfp_fwd(flat, x, ncfg)
+    monkeypatch.setattr(tfi, "nsfp_fwd_tile", lambda n, cfg: tile)
+    assert torch.equal(tfi.nsfp_fwd(flat, x, ncfg), want)
+
+
+def test_nsfp_bwd_scratch_gives_the_shared_memory_bits(dev, monkeypatch):
+    """C11 with its layer buffers in device memory (where they do not fit a
+    block's shared memory) gives the bits of its shared-memory run, and a
+    net too deep for shared memory (width 20, 100 layers) runs that way
+    and repeats."""
+    from deformationpyramid_tpu_torch.models.baselines import NSFPConfig
+
+    ncfg = NSFPConfig()
+    flat, x, g = _nsfp(dev, ncfg, 500, seed=3)
+    want = tfi.nsfp_bwd(flat, x, g, ncfg)
+    with monkeypatch.context() as m:
+        m.setattr(tfi, "nsfp_bwd_smem", lambda cfg, tile=16: 1 << 30)
+        assert torch.equal(tfi.nsfp_bwd(flat, x, g, ncfg), want)
+    deep = NSFPConfig(width=20, n_layers=100)
+    assert tfi.nsfp_bwd_smem(deep) > tfi.SMEM_LIMIT
+    flat, x, g = _nsfp(dev, deep, 50, seed=3)
+    part = tfi.nsfp_bwd(flat, x, g, deep)
+    assert torch.isfinite(part).all()
+    assert torch.equal(part, tfi.nsfp_bwd(flat, x, g, deep))
 
 
 def test_nsfp_kernels_refuse_what_they_do_not_cover(dev):

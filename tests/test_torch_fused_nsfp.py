@@ -94,16 +94,83 @@ def test_flat_layout_is_ravel_pytree():
 
 
 def test_supports_fused_nsfp_gate():
+    """C10 / C11 cover ReLU, >= 2 layers, a width that is a multiple of 4
+    up to 256. C11's 16-point tile at 9 x 128 takes 87,424 bytes of shared
+    memory: 10 [16][136] buffers and the points and cotangents."""
     assert tfi.supports_fused_nsfp(tbase.NSFPConfig())
     assert tfi.supports_fused_nsfp(TN)
-    assert tfi.nsfp_bwd_smem(tbase.NSFPConfig()) == 102784
+    assert tfi.nsfp_bwd_smem(tbase.NSFPConfig()) == 87424
+    for kw in (dict(n_layers=2), dict(width=256, n_layers=12),
+               dict(n_layers=20)):
+        assert tfi.supports_fused_nsfp(tbase.NSFPConfig(**kw)), kw
     for kw in (dict(act="sigmoid"), dict(width=130), dict(width=512),
-               dict(n_layers=1), dict(width=256, n_layers=12)):
+               dict(width=260), dict(n_layers=1)):
         assert not tfi.supports_fused_nsfp(tbase.NSFPConfig(**kw)), kw
     with pytest.raises(ValueError):
         tfi.run_fused_nsfp([], torch.zeros(4, 3), torch.ones(4, dtype=bool),
                            torch.zeros(4, 3), torch.ones(4, dtype=bool),
                            LoopConfig(), tbase.NSFPConfig(act="sigmoid"))
+
+
+def test_supports_fused_nsfp_covers_the_first_tiles_configurations():
+    """Every configuration that the first C11 (one thread a unit, 16
+    points of 20 floats a unit, 4 (6 * 16 + (L + 1) w 20) bytes within a
+    block) covered is still covered. Where C11's tensor-core buffers do not
+    fit a block (narrow nets many layers deep: widths 4 and 20 from 90
+    layers, 36 and 48 from 50), they go to device memory."""
+    spilled = 0
+    for w in range(4, tfi.MAX_WIDTH + 1, 4):
+        depth = 2
+        while 4 * (6 * 16 + (depth + 1) * w * 20) <= tfi.SMEM_LIMIT:
+            ncfg = tbase.NSFPConfig(width=w, n_layers=depth)
+            assert tfi.supports_fused_nsfp(ncfg), (w, depth)
+            spilled += tfi.nsfp_bwd_smem(ncfg) > tfi.SMEM_LIMIT
+            depth += 1
+    assert spilled > 0
+    assert tfi.nsfp_bwd_smem(tbase.NSFPConfig(width=128, n_layers=25)) \
+        <= tfi.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,fwd,bwd", [(1, 16, 16), (15, 16, 16),
+                                       (16, 16, 16), (2000, 16, 16),
+                                       (6000, 48, 32), (30000, 208, 32)])
+def test_nsfp_tiles(n, fwd, bwd):
+    """C10's and C11's tiles at 9 x 128 (``nsfp_fwd_tile``,
+    ``nsfp_bwd_tile``): C3's one-wave rule, whole 16-point m-tiles, as few
+    a block as keep the grid within one block an SM, fewer where a block's
+    shared memory would not fit (C11 from 48 points on, C10 from 224)."""
+    ncfg = tbase.NSFPConfig()
+    assert tfi.nsfp_fwd_tile(n, ncfg) == fwd
+    assert tfi.nsfp_bwd_tile(n, ncfg) == bwd
+    assert tfi.nsfp_fwd_smem(ncfg, fwd) <= tfi.SMEM_LIMIT
+    assert tfi.nsfp_bwd_smem(ncfg, bwd) <= tfi.SMEM_LIMIT
+    for tile, smem in ((fwd, tfi.nsfp_fwd_smem), (bwd, tfi.nsfp_bwd_smem)):
+        assert -(-n // tile) <= tfi.C3_MAX_BLOCKS \
+            or smem(ncfg, tile + 16) > tfi.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("kw,n,rows,tile,spill", [
+    (dict(), 2000, 125, 16, False), (dict(), 333, 21, 16, False),
+    (dict(), 6000, 188, 32, False), (dict(width=20, n_layers=100), 50, 4,
+                                     16, True)])
+def test_nsfp_bwd_allocates_one_row_a_block(monkeypatch, kw, n, rows, tile,
+                                            spill):
+    """The CUDA branch of ``nsfp_bwd`` (its launch recorded here): one
+    partial row of P values for each block of ``nsfp_bwd_tile`` points,
+    and a device-memory scratch of (L + 1) [tile][ld] buffers a block only
+    where they exceed a block's shared memory."""
+    ncfg = tbase.NSFPConfig(**kw)
+    seen = []
+    monkeypatch.setattr(tfi, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(tfi, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tfi.NSFP_BWD, "launch", lambda *a: seen.append(a))
+    flat = torch.zeros(tfi.nsfp_param_count(ncfg))
+    part = tfi.nsfp_bwd(flat, torch.zeros(n, 3), torch.zeros(n, 3), ncfg)
+    assert part.shape == (rows, flat.numel())
+    (args,) = seen
+    assert args[3:9] == (n, ncfg.width, ncfg.n_layers, part.data_ptr(),
+                         rows, tile)
+    assert (args[9] is not None) == spill
 
 
 def test_nsfp_fwd_plain_matches_fwd_sweep_call():

@@ -14,7 +14,9 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
 2. build    nvcc compiles deformationpyramid_tpu_torch/csrc/*.cu for sm_90a,
             one process per source, all at once, into build/torch_kernels/
             (the time is printed), and ptxas's registers and spill bytes of
-            C3's 18 instantiations and C5's 9;
+            C3's 18 instantiations, C5's 9, C10 / C11, and of the kernels
+            on the split-database sweep and the bucket pass (C1, C14 with
+            one and two slices a warp, C12's two, C6: no spills);
 3. kernels  each kernel at its path's shapes against its plain PyTorch
             version on the same inputs, with the tolerance stated, and the
             device time of each, by CUDA events (median of 30 calls): C1
@@ -56,11 +58,17 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             the f32 FMA bound) and at edge cases: head widths 1, 18, 24,
             132, 144, prefixes of 0, 1 and all rows, NaN in the padded
             rows; C12 chamfer_fused at 2000 x 2000
-            with masks and the truncation at the median (five outputs
-            within 2e-5, the gradient within 1e-4 of its max, a repeat
-            bit-equal; beside it the time of C1 + glue + C6, the work it
-            replaces); C13 sum_partials on C3's 125 partial rows of
-            34,694 and of 34,823 (with the nonrigidity head): bit-equal to
+            with masks and the truncation at the median against its plain
+            version on the CPU (rmin and rarg bit-equal, cgrad within 2e-5
+            of its max and the sums 2e-5 relative, the gradient within
+            1e-4 of its max, a repeat bit-equal; beside it the time of C1 +
+            glue + C6, the work it replaces), its outputs on pinned inputs bit-equal to
+            C12_DIGESTS and its edge cases (C12_EDGE_CASES: ties across
+            slices, every row or column invalid, invalid queries, every
+            column on one row) bit-equal to the plain version on the CPU
+            in cgrad, rmin and rarg (the sums 1e-5 relative); C13
+            sum_partials on C3's 125 partial rows of 34,694 and of 34,823
+            (with the nonrigidity head): bit-equal to
             a sum in block order and on a repeat, within 1e-6 of a float64
             sum; C3's checks give zero cotangents to the points at a ReLU's
             kink (off_kinks); C2 /
@@ -187,8 +195,11 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             (~40k x ~37k), without and with a mask, and at 2000 x 2000 and
             6000 x 6000 beside C1 (indices equal up to near-ties,
             distances 1e-6 relative; the times, the bound and torch.cdist's
-            time); point_2_plane_distance on those clouds with the meshes'
-            vertex normals: within 1e-5 of the plain 1-NN's value, C14
+            time), its outputs on pinned inputs bit-equal to C14_DIGESTS and
+            to C1's x -> y half, and on C1's edge cases also to its plain
+            version on the CPU; point_2_plane_distance on those clouds with
+            the meshes' vertex normals: within 1e-5 of the plain 1-NN's
+            value, C14
             launched twice;
 14. small   small solves on the card against the same solves on the CPU,
             where every kernel's plain version runs (SE3 + axis_angle,
@@ -527,6 +538,178 @@ C1_DIGESTS = {
         "4497c07fac4b70c2e6ac96308c6aad6626b0ecc0c43865c1102d0b80a96e4596",
 }
 
+
+
+def c12_digests(dev) -> dict:
+    """sha256 of C12's four outputs (sums, cgrad, rmin, rarg) on
+    ``c1_digest_inputs``, each at trunc 1e9 and at the median of the valid
+    rows' rmin (from the trunc 1e9 call, so both trees take the same
+    median where their rmin agree)."""
+    from deformationpyramid_tpu_torch.ops import chamfer_fused as cf
+
+    out = {}
+    for tag, (x, y, xv, yv) in c1_digest_inputs(dev).items():
+        tag = tag.replace("C1", "C12")
+        first = cf.chamfer_fused(x, y, xv, yv, 1e9)
+        rmin = first[2] if xv is None else first[2][xv]
+        out[f"{tag}, trunc 1e9"] = sha256_of(*first)
+        out[f"{tag}, trunc median"] = sha256_of(*cf.chamfer_fused(
+            x, y, xv, yv, float(rmin.median())))
+    return out
+
+
+def c14_digest_inputs(dev) -> dict:
+    """Inputs on which C14's outputs are pinned: ``c1_digest_inputs``'
+    x -> y halves (x, y, y_valid) and clouds of N(0, 0.3) at 40159 x 37417
+    (the ED pair's shape), made with numpy, every row valid (y_valid
+    None)."""
+    out = {tag.replace("C1", "C14"): (x, y, yv)
+           for tag, (x, y, _, yv) in c1_digest_inputs(dev).items()}
+    rng = np.random.default_rng(2027)
+    out["C14 40159 x 37417"] = tuple(
+        torch.from_numpy(rng.normal(0.0, 0.3, (k, 3)).astype(np.float32))
+        .to(dev) for k in (40159, 37417)) + (None,)
+    return out
+
+
+def c14_digests(dev) -> dict:
+    """sha256 of C14's outputs (distances and indices) on
+    ``c14_digest_inputs``."""
+    from deformationpyramid_tpu_torch.ops import knn
+
+    return {tag: sha256_of(*knn.nn_argmin(*args))
+            for tag, args in c14_digest_inputs(dev).items()}
+
+
+def c14_edge_check(dev) -> int:
+    """C14 on the x -> y half of every C1 edge case, with y's mask and
+    without one, bit-equal to its plain version on the CPU and to C1's
+    x -> y half on the card; and equal to C1's x -> y half on
+    ``c14_digest_inputs``. Returns the number of comparisons."""
+    from deformationpyramid_tpu_torch.ops import knn
+
+    done = 0
+    for tag in C1_EDGE_CASES:
+        x, y, xv, yv = c1_edge_input(dev, tag)
+        for mask in (yv, None):
+            got = knn.nn_argmin(x, y, mask)
+            ref = knn.nn_argmin_plain(x.cpu(), y.cpu(),
+                                      None if mask is None else mask.cpu())
+            half = knn.nn_argmin_dual(x, y, xv, mask)[:2]
+            for name, a, b, c in zip(("d", "i"), got, ref, half):
+                check(torch.equal(a.cpu(), b), f"C14 [{tag}]: {name} "
+                      "differs from the plain version")
+                check(torch.equal(a, c), f"C14 [{tag}]: {name} differs "
+                      "from C1's x -> y half")
+            done += 1
+    for tag, (x, y, yv) in c14_digest_inputs(dev).items():
+        xv = torch.ones(len(x), dtype=torch.bool, device=dev)
+        got, half = knn.nn_argmin(x, y, yv), knn.nn_argmin_dual(x, y, xv, yv)
+        check(torch.equal(got[0], half[0]) and torch.equal(got[1], half[1]),
+              f"C14 [{tag}]: differs from C1's x -> y half")
+        done += 1
+    return done
+
+
+# C12's edge cases (tag: n, m, kind), on a grid of 1/32 (1/2 for "ties"),
+# where every distance is exact in float32: "random" masks ~20% of each
+# cloud out; "ties" has 125 distinct points (exact ties across every slice
+# boundary); "rows invalid" / "columns invalid" mask out every row / every
+# column (each query then meets BIG terms only: ties at 3e38, or +inf where
+# BIG + BIG overflows); "invalid queries" masks out rows 0-699 and columns
+# 0-1299, so invalid queries meet valid candidates (every one at 3e38) and
+# the first valid index, in a later slice, must win; "one row" puts every
+# row on one point, so every column's argmin is row 0 (the bucket pass's
+# serial chain of M adds). Truncation at C12_EDGE_TRUNC.
+C12_EDGE_CASES = {
+    "1 x 1": (1, 1, "random"), "63 x 777": (63, 777, "random"),
+    "777 x 2000": (777, 2000, "random"), "2000 x 777": (2000, 777, "random"),
+    "ties 2000 x 2000": (2000, 2000, "ties"),
+    "rows invalid 777 x 2000": (777, 2000, "rows invalid"),
+    "columns invalid 2000 x 777": (2000, 777, "columns invalid"),
+    "invalid queries 777 x 2000": (777, 2000, "invalid queries"),
+    "one row 2000 x 2000": (2000, 2000, "one row"),
+}
+C12_EDGE_TRUNC = 0.25
+
+
+def c12_edge_input(dev, tag: str):
+    """(w, y, w_valid, y_valid) of ``C12_EDGE_CASES[tag]``, made with numpy
+    from a seed."""
+    n, m, kind = C12_EDGE_CASES[tag]
+    rng = np.random.default_rng(n * 10007 + m + 12)
+    levels = 2 if kind == "ties" else 32
+
+    def grid(k):
+        return (rng.integers(-levels, levels + 1, (k, 3)) / levels).astype(
+            np.float32)
+
+    w, y = grid(n), grid(m)
+    wv, yv = rng.random(n) > 0.2, rng.random(m) > 0.2
+    if kind == "rows invalid":
+        wv[:] = False
+    elif kind == "columns invalid":
+        yv[:] = False
+    elif kind == "invalid queries":
+        wv[:] = yv[:] = True
+        wv[:700] = yv[:1300] = False
+    elif kind == "one row":
+        w[:] = w[0]
+        wv[:] = yv[:] = True
+    return tuple(torch.from_numpy(a).to(dev) for a in (w, y, wv, yv))
+
+
+def c12_edge_check(dev) -> int:
+    """C12 on every edge case against its plain version on the CPU (where
+    index_add_ adds in index order; on CUDA it adds by atomics): cgrad,
+    rmin and rarg bit-equal, the two sums within 1e-5 relative (the plain
+    version sums in another order). Returns the number of cases."""
+    from deformationpyramid_tpu_torch.ops import chamfer_fused as cf
+
+    for tag in C12_EDGE_CASES:
+        args = c12_edge_input(dev, tag)
+        got = cf.chamfer_fused(*args, C12_EDGE_TRUNC)
+        ref = cf.chamfer_fused_plain(*(a.cpu() for a in args),
+                                     C12_EDGE_TRUNC)
+        for name, a, b in zip(("cgrad", "rmin", "rarg"), got[1:], ref[1:]):
+            check(torch.equal(a.cpu(), b), f"C12 [{tag}]: {name} differs "
+                  "from the plain version")
+        check(bool(((got[0].cpu() - ref[0]).abs()
+                    <= 1e-5 * ref[0].abs()).all()),
+              f"C12 [{tag}]: sums {got[0].tolist()} against the plain "
+              f"version's {ref[0].tolist()}")
+    return len(C12_EDGE_CASES)
+
+
+# C12's and C14's outputs on their pinned inputs (c12_digests,
+# c14_digests) as the one-query-a-thread kernels that the split-database
+# designs replaced gave them on an H100 80GB HBM3
+# (scripts/check_torch_chamfer_fused.py and scripts/check_torch_nn_argmin.py
+# through scripts/ab_kernels.sh): the redesigns keep every bit.
+C12_DIGESTS = {
+    "C12 2000 x 2000, trunc 1e9":
+        "75e40370a5296614bd1e7e0810cb979803712cf3bc1d49278292dc66a2ca5e07",
+    "C12 2000 x 2000, trunc median":
+        "9b5e2777995362cbe06b7539ae82070dc362f80bd000bd21f4fef195e03487e6",
+    "C12 6000 x 6000, trunc 1e9":
+        "c77ac21a7d8d96a97be6bd596b441bd6366b05980c92ef3423547fa789135234",
+    "C12 6000 x 6000, trunc median":
+        "bd841675c866ed71f6ac34cfcb75502e66b3ab46d6e895b82f26af8ae5f3f723",
+    "C12 masked 1777 x 1333 grid, trunc 1e9":
+        "1c9df6596f940a076c9f274884bb33591b97012fd79ff3c0ef0df252bb0df4e6",
+    "C12 masked 1777 x 1333 grid, trunc median":
+        "3c9601a0e47f5ece7d3d6060675babc00bef51f24d4bc6fa82bfe53743531e30",
+}
+C14_DIGESTS = {
+    "C14 2000 x 2000":
+        "54de70a1f13495f1a374166c403c70ea4d27fd6d2de10792f7755a66292d7238",
+    "C14 6000 x 6000":
+        "fb43fc8dc6baca2d44273a83b5beaa5a56535378a8000c1bf863734e83c9387c",
+    "C14 masked 1777 x 1333 grid":
+        "8c1e0298bb7feb4d209ec91ae080af5417a87e360e6af4ed88cf21392dd3cdd8",
+    "C14 40159 x 37417":
+        "b53b3efb69d048c501d75971190616b4fa5d472870b3c5affd5b609e8f022547",
+}
 
 # C2 at mlp_scale 1 (tag: pyramid config, points, level). At the yaml's
 # 1e-3 a level moves a point by ~3e-4, which shrinks any error of the MLP
@@ -1107,20 +1290,31 @@ def nsfp_kernel_phase(dp, dev):
     check(e <= 1e-6 * float(outs[1][1].abs().max()),
           f"C4 at the NSFP shape: m err {e}")
     rows = partials.shape[0]
+    # the library's work for the same function: the rows summed, then one
+    # fused Adam step on the flat parameters (the done gate aside)
+    lib_p = flat.clone().requires_grad_(True)
+    lib_opt = torch.optim.Adam([lib_p], lr=0.01, fused=True)
+
+    def library():
+        lib_p.grad = partials.sum(0)
+        lib_opt.step()
+
     adam = dict(
         rows=rows, params=flat.numel(),
         ms=cuda_ms(lambda: fi.adam_step(pa, ma, va, partials, zero, zero,
                                         0.01)),
         plain_ms=cuda_ms(lambda: fi.adam_step_plain(pa, ma, va, partials,
                                                     zero, zero, 0.01)),
+        library_ms=cuda_ms(library),
         **bound(7.0 * p4, 12.0 * flat.numel()),
         design_bound_ms=bound(6.0 * p4 + rows * p4,
                               (rows + 12.0) * flat.numel())["bound_ms"])
     phase("kernels", f"adam_step [NSFP: {rows} partial rows of "
           f"{flat.numel()}]: kernel {adam['ms']:.4f} ms, plain "
-          f"{adam['plain_ms']:.4f} ms, bound {adam['bound_ms']:.5f} ms "
-          f"(bytes), with this design's partial rows "
-          f"{adam['design_bound_ms']:.5f} ms")
+          f"{adam['plain_ms']:.4f} ms, library (partials.sum(0) + a fused "
+          f"torch.optim.Adam step) {adam['library_ms']:.4f} ms, bound "
+          f"{adam['bound_ms']:.5f} ms (bytes), with this design's partial "
+          f"rows {adam['design_bound_ms']:.5f} ms")
     res["adam_step_at_nsfp"] = adam
     # C11 + C4 as the iteration runs them: the rows C11 writes and C4 reads
     # are the pair's own traffic
@@ -2635,21 +2829,19 @@ def nolearned_phase(dp, dev, kernels):
 OPTIN_TOL = 2e-5
 
 
-def optin_kernel_phase(dp, dev):
-    """The kernels of the solver's opt-in routes at the bench shapes
-    (2000 points, width 128, depth 3, a mid level) against their plain
-    versions: C12 chamfer_fused with masks and truncation, C13
-    sum_partials on C3's partial rows (with and without the nonrigidity
-    head), and C2 / C3 with the nonrigidity head at levels 0 and 1."""
+def c12_bench_inputs(dev):
+    """C12's inputs on the opt-in route's shapes: the bench pair's target
+    and its source warped by C2 at a mid level (2000 points, width 128,
+    depth 3, seed-0 weights), ~5% of each cloud masked out (numpy seed 5).
+    Returns (x, warped, y, x_valid, y_valid, flat, cfg, rng), rng after the
+    masks."""
     from deformationpyramid_tpu_torch.data.synthetic import make_pair
     from deformationpyramid_tpu_torch.models import pyramid
-    from deformationpyramid_tpu_torch.ops import chamfer_fused as cf
     from deformationpyramid_tpu_torch.ops import fused_iteration as fi
-    from deformationpyramid_tpu_torch.ops import knn
 
     n = 2000
     cfg = pyramid.NDPConfig(**BENCH_PYRAMID)
-    src, tgt, flow = make_pair(n=n, seed=0, deform=0.12)
+    src, tgt, _ = make_pair(n=n, seed=0, deform=0.12)
     x = torch.from_numpy(src - src.mean(0)).to(dev)
     y = torch.from_numpy(tgt - tgt.mean(0)).to(dev)
     flat = pyramid.ravel(pyramid.params_from_numpy(
@@ -2659,28 +2851,50 @@ def optin_kernel_phase(dp, dev):
     rng = np.random.default_rng(5)
     xv = torch.from_numpy(rng.random(n) > 0.05).to(dev)
     yv = torch.from_numpy(rng.random(n) > 0.05).to(dev)
-    res = {}
+    return x, warped, y, xv, yv, flat, cfg, rng
 
-    # C12: the truncation at the median squared distance of the valid rows,
-    # so that half the rows and about half the columns are cut
-    rmin0 = cf.chamfer_fused_plain(warped, y, xv, yv, 1e9)[2]
-    trunc = float(rmin0[xv].median())
+
+def c12_case(warped, y, xv=None, yv=None, trunc=None,
+             replaced: bool = True, label: str = "") -> dict:
+    """C12 against its plain version on the CPU, where index_add_ adds in
+    index order (on CUDA it adds by atomics, in another order on every
+    run; the truncation, where ``trunc`` is None, at the median squared
+    distance of the valid rows, so that half the rows and about half the
+    columns are cut): rmin and rarg bit-equal; cgrad within OPTIN_TOL of
+    its max and the two sums within OPTIN_TOL relative (torch's sqrt on the
+    CPU is not correctly rounded for every input, the card's is, and the
+    plain version sums in another order); the autograd gradient within
+    1e-4 of its max against the CPU's, a repeat bit-equal; then its time,
+    the plain version's on the card, the library call's, the bound and,
+    where ``replaced``, the time of the work it replaces (C1 + glue + C6).
+    Prints its line."""
+    from deformationpyramid_tpu_torch.ops import chamfer_fused as cf
+    from deformationpyramid_tpu_torch.ops import fused_iteration as fi
+    from deformationpyramid_tpu_torch.ops import knn
+
+    n, m = warped.shape[0], y.shape[0]
+    dev = warped.device
+    xv = torch.ones(n, dtype=torch.bool, device=dev) if xv is None else xv
+    yv = torch.ones(m, dtype=torch.bool, device=dev) if yv is None else yv
+    if trunc is None:
+        rmin0 = cf.chamfer_fused_plain(warped, y, xv, yv, 1e9)[2]
+        trunc = float(rmin0[xv].median())
     got = cf.chamfer_fused(warped, y, xv, yv, trunc)
-    ref = cf.chamfer_fused_plain(warped, y, xv, yv, trunc)
     again = cf.chamfer_fused(warped, y, xv, yv, trunc)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "C12 does not repeat bit for bit")
-    (sums, cgrad, rmin, rarg), (rsums, rcgrad, rrmin, rrarg) = got, ref
+    sums, cgrad, rmin, rarg = (t.cpu() for t in got)
+    rsums, rcgrad, rrmin, rrarg = cf.chamfer_fused_plain(
+        warped.cpu(), y.cpu(), xv.cpu(), yv.cpu(), trunc)
+    for name, a, b in (("rmin", rmin, rrmin), ("rarg", rarg, rrarg)):
+        check(torch.equal(a, b), f"C12: {name} differs from the plain "
+              "version on the CPU")
     e_sums = float(((sums - rsums).abs() / rsums.abs()).max())
     e_cgrad = float((cgrad - rcgrad).abs().max() / rcgrad.abs().max())
-    e_rmin = float((rmin - rrmin)[xv].abs().max())
-    flips = near_ties(warped[xv], y, rarg[xv], rrarg[xv], "C12 rarg")
-    check(e_sums <= OPTIN_TOL and e_cgrad <= OPTIN_TOL
-          and e_rmin <= OPTIN_TOL,
-          f"C12: sums {e_sums}, cgrad {e_cgrad} (relative), rmin {e_rmin} "
-          f"> {OPTIN_TOL}")
-    kept = float((rmin[xv] < trunc).float().mean())
+    check(e_sums <= OPTIN_TOL and e_cgrad <= OPTIN_TOL,
+          f"C12: sums {e_sums}, cgrad {e_cgrad} (relative) > {OPTIN_TOL}")
+    kept = float((rmin[xv.cpu()] < trunc).float().mean())
     wq = warped.clone().requires_grad_(True)
     cf.chamfer_l1_fused(wq, y, xv, yv, trunc=trunc).backward()
     wc = warped.cpu().requires_grad_(True)
@@ -2692,32 +2906,65 @@ def optin_kernel_phase(dp, dev):
     n_len = xv.sum().float()
     m_len = yv.sum().float()
 
-    def replaced():
+    def glue():
         # the work C12 replaces: C1, the glue and its C6 scatter
         _, cidx, _, ra = knn.nn_argmin_dual(warped, y, xv, yv)
         return fi._chamfer_glue(warped, cidx, ra, y, xv, yv, n_len, m_len,
                                 trunc)
 
-    res["chamfer_fused"] = dict(
+    res = dict(
         err=max(float((sums - rsums).abs().max()),
-                float((cgrad - rcgrad).abs().max()), e_rmin),
+                float((cgrad - rcgrad).abs().max())),
+        shape=f"{n} x {m}", trunc=trunc, kept=kept,
         ms=cuda_ms(lambda: cf.chamfer_fused(warped, y, xv, yv, trunc)),
         plain_ms=cuda_ms(lambda: cf.chamfer_fused_plain(warped, y, xv, yv,
                                                         trunc)),
         # the library's exact-difference 1-NN both ways: the sweep alone,
         # without the masks, the truncation, the sums or the gradient
         library_ms=cuda_ms(lambda: cdist_nn(warped, y)),
-        c1_glue_c6_ms=cuda_ms(replaced),
         # 8 flops a pair of points; inputs, masks and outputs once
-        **bound(n * (12 + 1 + 4 + 8 + 12) + n * (12 + 1) + 8,
-                8.0 * n * n),
-        tol=f"sums and cgrad {OPTIN_TOL} of their max, rmin {OPTIN_TOL} abs, "
-        f"rarg equal up to near-ties ({flips} flips), the gradient 1e-4 of "
-        f"its max ({e_grad:.2e}); a repeat bit-equal")
-    print_kernel(f"chamfer_fused [{n} x {n}, masks, trunc {trunc:.3e}: "
-                 f"{100 * kept:.0f}% of rows kept]", res["chamfer_fused"])
-    phase("kernels", f"chamfer_fused replaces C1 + glue + C6: "
-          f"{res['chamfer_fused']['c1_glue_c6_ms']:.4f} ms")
+        **bound(n * (12 + 1 + 4 + 8 + 12) + m * (12 + 1) + 8,
+                8.0 * n * m),
+        tol=f"rmin and rarg bit-equal to the plain version on the CPU, "
+        f"cgrad {OPTIN_TOL} of its max ({e_cgrad:.1e}) and the sums "
+        f"{OPTIN_TOL} relative ({e_sums:.1e}), the gradient 1e-4 of its max "
+        f"({e_grad:.2e}); a repeat bit-equal")
+    if replaced:
+        res["c1_glue_c6_ms"] = cuda_ms(glue)
+    print_kernel(f"chamfer_fused [{n} x {m}{label}, trunc {trunc:.3e}: "
+                 f"{100 * kept:.0f}% of rows kept]", res)
+    if replaced:
+        phase("kernels", f"chamfer_fused replaces C1 + glue + C6: "
+              f"{res['c1_glue_c6_ms']:.4f} ms")
+    return res
+
+
+def optin_kernel_phase(dp, dev):
+    """The kernels of the solver's opt-in routes at the bench shapes
+    (2000 points, width 128, depth 3, a mid level) against their plain
+    versions: C12 chamfer_fused with masks and truncation, C13
+    sum_partials on C3's partial rows (with and without the nonrigidity
+    head), and C2 / C3 with the nonrigidity head at levels 0 and 1. C12's
+    outputs on pinned inputs bit-equal to C12_DIGESTS and its edge cases
+    to the plain version on the CPU."""
+    from deformationpyramid_tpu_torch.models import pyramid
+    from deformationpyramid_tpu_torch.ops import fused_iteration as fi
+    from deformationpyramid_tpu_torch.ops import knn
+
+    n = 2000
+    x, warped, y, xv, yv, flat, cfg, rng = c12_bench_inputs(dev)
+    res = {"chamfer_fused": c12_case(warped, y, xv, yv, label=", masks")}
+    digests = c12_digests(dev)
+    check(digests == C12_DIGESTS, f"C12 outputs differ from the pinned "
+          f"bits: {digests}")
+    n_edge = c12_edge_check(dev)
+    res["chamfer_fused"].update(digests="equal to C12_DIGESTS",
+                                edge_cases=n_edge)
+    phase("kernels", f"chamfer_fused: outputs on {len(digests)} pinned "
+          f"inputs bit-equal to C12_DIGESTS; {n_edge} edge cases (ties "
+          "across slices, all rows or columns invalid, invalid queries, "
+          "every column on one row) bit-equal to the plain version on the "
+          "CPU (sums 1e-5 relative)")
 
     # C13 on C3's partial rows: the block-order sum, a repeat, float64
     n_len = torch.tensor(float(n), device=dev)
@@ -3289,6 +3536,15 @@ def ed_phase(dp, dev, kernels):
             phase("kernels", f"at {n} x {n}: C1 (both directions) "
                   f"{c14[f'at_{n}']['c1_ms']:.4f} ms, cdist both ways "
                   f"{c14[f'at_{n}']['c1_library_ms']:.4f} ms")
+        digests = c14_digests(dev)
+        check(digests == C14_DIGESTS, f"C14 outputs differ from the pinned "
+              f"bits: {digests}")
+        n_edge = c14_edge_check(dev)
+        c14.update(digests="equal to C14_DIGESTS", edge_cases=n_edge)
+        phase("kernels", f"nn_argmin: outputs on {len(digests)} pinned inputs "
+              f"bit-equal to C14_DIGESTS; {n_edge} cases bit-equal to C1's "
+              "x -> y half, the C1 edge cases also to the plain version on "
+              "the CPU")
 
         # point_2_plane_distance end to end: the warped source mesh's
         # normals against the target mesh's, C14 twice a call
@@ -3381,6 +3637,21 @@ def c3_ptxas() -> list[dict]:
 def nsfp_ptxas() -> list[dict]:
     """Registers and spill bytes of C10 and C11."""
     return _ptxas(r"nsfp_(?:fwd|bwd)_kernel")
+
+
+def nn_ptxas() -> list[dict]:
+    """Registers and spill bytes of the kernels on nn_sweep.cuh and
+    bucket_rows.cuh: C1, C14 (its three configurations, named
+    nn_argmin_kernel<warps,groups,queries a lane>), C12's sweep and
+    finish, C6."""
+    import re
+
+    regs = _ptxas(r"nn_dual_kernel|nn_argmin_kernel(?:ILi\d+ELi\d+ELi\d+E)?|"
+                  r"chamfer_(?:sweep|finish)_kernel|scatter_rows_kernel")
+    for r in regs:
+        r["layout"] = re.sub(r"ILi(\d+)ELi(\d+)ELi(\d+)E", r"<\1,\2,\3>",
+                             r["layout"])
+    return regs
 
 
 def c5_ptxas() -> list[dict]:
@@ -3518,6 +3789,12 @@ def main() -> None:
           f"ptxas on C10 / C11: {nsfp_regs}")
     phase("build", "C10 / C11 ptxas (registers / spill stores / spill "
           "loads): " + ptxas_line(nsfp_regs))
+    nn_regs = nn_ptxas()
+    check(len(nn_regs) == 7 and not any(
+        r["spill_stores"] or r["spill_loads"] for r in nn_regs),
+          f"ptxas on C1 / C14 / C12 / C6: {nn_regs}")
+    phase("build", "C1 / C14 / C12 / C6 ptxas (registers / spill stores / "
+          "spill loads): " + ptxas_line(nn_regs))
 
     kernels = [knn.NN_DUAL, fused_iteration.LEVEL_WARP_FWD,
                fused_iteration.SCATTER_ROWS, fused_iteration.LEVEL_WARP_BWD,
@@ -3677,6 +3954,9 @@ def main() -> None:
             row["rows"] = measured[k.name]["rows"]
         if k.name == "chamfer_fused":
             row["c1_glue_c6_ms"] = measured[k.name]["c1_glue_c6_ms"]
+            row["ptxas"] = [r for r in nn_regs if "chamfer" in r["layout"]]
+        if k.name in ("nn_dual", "nn_argmin", "scatter_rows"):
+            row["ptxas"] = [r for r in nn_regs if k.name in r["layout"]]
         if k.name == "sum_partials":
             row["nonrigid"] = measured[k.name]["nonrigid"]
         if k.name in sim3:

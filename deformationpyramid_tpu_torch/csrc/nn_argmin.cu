@@ -8,87 +8,101 @@
 // are ops/render.py point_2_plane_distance (twice a call, once each way) and
 // the package-level nn_argmin.
 //
-// What bounds it: N*M distance evaluations of ~8 flops each (1.6e9 pairs at
-// 40k x 40k, ~0.19 ms of float32 at 67 TFLOP/s); the inputs are under 1 MB,
-// so operations bound it, not bytes. The TPU kernel kept the whole database
-// in VMEM and swept [tn, tm] tiles of the expanded distance through the
-// matrix unit; here, as in C1's x->y half (nn_dual.cu), one thread owns one
-// query and keeps its running (min, argmin) in registers, while the block
-// streams the database through shared memory in tiles of NNA_BLOCK points.
-// A point is stored as one float4 (x, y, z, valid flag), so a candidate costs
-// one 16-byte broadcast load that every thread of the warp shares.
+// What bounds it: N*M distance evaluations (1.5e9 pairs at the ED pair's
+// 40159 x 37417); the inputs are under 1 MB, so operations bound it, not
+// bytes. The exact difference form cannot use the FMA (8 flops a pair as
+// 3 subtracts, 3 multiplies and 2 adds, then a compare and two selects: ~12
+// instructions a pair, ~0.55 ms of issue at that shape); the function's
+// bound counts the 8 flops at the FMA rate. The TPU kernel kept the whole
+// database in VMEM and swept [tn, tm] tiles of the expanded distance
+// through the matrix unit. Here it is C1's x->y half (nn_sweep.cuh): a
+// block of WARPS warps takes 32 x QPL queries, QPL a lane (one broadcast
+// candidate load feeds them all), and splits the database into WARPS
+// contiguous slices, one a warp, streamed through shared memory as float4s
+// with an invalid row staged as NaN; the slices' (min, argmin) pairs are
+// merged by the (d, i) rule. The shape picks the first of three
+// configurations whose grid fills the SMs: NNA_WARPS warps with NNA_QPL
+// queries a lane (from ~8.4k queries on; ~40k at the ED pair), 16 warps
+// with one, and, where ceil(N / 32) blocks would leave SMs idle (2000
+// queries: 63 blocks), 16 warps whose lanes split into two groups of 16
+// with a slice each: 16 queries a block, 32 slices a query.
 //
-// Semantics (the port's, not the TPU's): the distance is the exact
-// difference form (qx-px)^2 + (qy-py)^2 + (qz-pz)^2, summed left to right
-// with no FMA contraction, never |q|^2 + |p|^2 - 2 q.p as the TPU kernel
-// computes it; candidates are visited in increasing index order with a
-// strict '<', so an exact tie goes to the first index; a database row whose
-// valid flag is 0 never wins (y_valid may be null: every row valid); a
-// query with no valid candidate returns (+inf, 0). No atomics: the result
-// is deterministic.
-#include "common.cuh"
+// Semantics (the port's, not the TPU's; bit-equal to C1's x->y half and
+// to the one-query-a-thread kernel this design replaced): the distance is
+// the exact difference form (qx-px)^2 + (qy-py)^2 + (qz-pz)^2, summed left
+// to right with no FMA contraction, never |q|^2 + |p|^2 - 2 q.p as the TPU
+// kernel computes it; candidates are visited in increasing index order
+// with a strict '<' and the slices merged by the (d, i) rule, so an exact
+// tie goes to the first index; a database row whose valid flag is 0 never
+// wins (y_valid may be null: every row valid); a query with no valid
+// candidate returns (+inf, 0). No atomics: the result is deterministic.
+#include "nn_sweep.cuh"
 
-#define NNA_BLOCK 64
+#define NNA_WARPS 8                // slices a block at the large shapes
+#define NNA_QPL 2                  // queries a lane at the large shapes
 
-__global__ void __launch_bounds__(NNA_BLOCK)
+template <int WARPS, int G, int QPL>
+__global__ void __launch_bounds__(WARPS * 32)
 nn_argmin_kernel(const float* __restrict__ x, const float* __restrict__ y,
                  const unsigned char* __restrict__ y_valid, int n, int m,
                  float* __restrict__ out_d, long long* __restrict__ out_i) {
-  __shared__ float4 sp[NNA_BLOCK];
+  using S = NNSweep<WARPS, G, QPL>;
+  __shared__ typename S::Smem sm;
 
-  const int tid = threadIdx.x;
-  const int qi = blockIdx.x * NNA_BLOCK + tid;
-  float q0 = 0.f, q1 = 0.f, q2 = 0.f;
-  if (qi < n) {
-    q0 = x[qi * 3 + 0];
-    q1 = x[qi * 3 + 1];
-    q2 = x[qi * 3 + 2];
+  const int q0 = blockIdx.x * S::Q;
+  const int lane = threadIdx.x & 31;
+  NNDistPlain<QPL> dist;
+#pragma unroll
+  for (int r = 0; r < QPL; ++r) {
+    const int qi = q0 + S::query_of(lane, r);
+    dist.qx[r] = qi < n ? x[qi * 3 + 0] : 0.f;
+    dist.qy[r] = qi < n ? x[qi * 3 + 1] : 0.f;
+    dist.qz[r] = qi < n ? x[qi * 3 + 2] : 0.f;
   }
-  float best = INFINITY;
-  int best_i = 0;
+  const NNStageNaN<true> stage{y, y_valid};
+  nn_sweep<WARPS, G, QPL>(sm, stage, dist, m);
+  __syncthreads();
 
-  for (int tile = 0; tile < m; tile += NNA_BLOCK) {
-    const int j = tile + tid;
-    float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < m) {
-      p.x = y[j * 3 + 0];
-      p.y = y[j * 3 + 1];
-      p.z = y[j * 3 + 2];
-      p.w = (y_valid == nullptr || y_valid[j]) ? 1.f : 0.f;
+  if (threadIdx.x < S::Q) {
+    const int p = threadIdx.x;
+    float d;
+    int i;
+    nn_merge<WARPS, G, QPL>(sm, p, d, i);
+    if (q0 + p < n) {
+      out_d[q0 + p] = d;
+      out_i[q0 + p] = i == NN_NONE ? 0 : i;
     }
-    sp[tid] = p;
-    __syncthreads();
-    const int cnt = min(NNA_BLOCK, m - tile);
-#pragma unroll 8
-    for (int k = 0; k < cnt; ++k) {
-      const float4 c = sp[k];
-      if (c.w == 0.f) continue;
-      const float dx = __fsub_rn(q0, c.x);
-      const float dy = __fsub_rn(q1, c.y);
-      const float dz = __fsub_rn(q2, c.z);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      if (d < best) {
-        best = d;
-        best_i = tile + k;
-      }
-    }
-    __syncthreads();
   }
-  if (qi < n) {
-    out_d[qi] = best;
-    out_i[qi] = best_i;
-  }
+}
+
+// One configuration's launch when its grid fills the SMs (or `always`).
+template <int WARPS, int G, int QPL>
+static bool nn_argmin_launch(const void* x, const void* y,
+                             const void* y_valid, int n, int m, void* out_d,
+                             void* out_i, cudaStream_t st, int sms,
+                             bool always) {
+  const int q = NNSweep<WARPS, G, QPL>::Q;
+  const int blocks = (n + q - 1) / q;
+  if (blocks < sms && !always) return false;
+  nn_argmin_kernel<WARPS, G, QPL><<<blocks, WARPS * 32, 0, st>>>(
+      (const float*)x, (const float*)y, (const unsigned char*)y_valid, n, m,
+      (float*)out_d, (long long*)out_i);
+  return true;
 }
 
 extern "C" int dp_nn_argmin(const void* x, const void* y, const void* y_valid,
                             int n, int m, void* out_d, void* out_i,
                             void* stream) {
-  if (n > 0) {
-    const int blocks = (n + NNA_BLOCK - 1) / NNA_BLOCK;
-    nn_argmin_kernel<<<blocks, NNA_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)y, (const unsigned char*)y_valid, n, m,
-        (float*)out_d, (long long*)out_i);
-  }
+  if (n <= 0) return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!nn_argmin_launch<NNA_WARPS, 1, NNA_QPL>(x, y, y_valid, n, m, out_d,
+                                               out_i, st, sms, false)
+      && !nn_argmin_launch<16, 1, 1>(x, y, y_valid, n, m, out_d, out_i, st,
+                                     sms, false))
+    nn_argmin_launch<16, 2, 1>(x, y, y_valid, n, m, out_d, out_i, st, sms,
+                               true);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 Counterpart of ``deformationpyramid_tpu/ops/chamfer_fused.py``
 (``chamfer_l1_fused``), the opt-in ``use_fused_chamfer`` loss of
 ``solve/registration.py``. Kernel **C12** ``chamfer_fused``
-(``csrc/chamfer_fused.cu``, two launches, no atomics) computes what the JAX
+(``csrc/chamfer_fused.cu``: C1's split-database sweep, then C6's bucket
+pass; two launches, no atomics) computes what the JAX
 package's ``_kernel`` computes: each query row's nearest target column
 (exact squared difference, first index on ties) and each column's nearest
 row, the truncated row and column sums of the square roots, and the
@@ -25,7 +26,7 @@ from .cuda_lib import F, I, Kernel, P, check_cuda, on_cpu
 Tensor = torch.Tensor
 
 CHAMFER_FUSED = Kernel("chamfer_fused", "dp_chamfer_fused",
-                       [P, P, P, P, I, I, F, P, P, P, P, P, P])
+                       [P, P, P, P, I, I, F, P, P, P, P, P, P, P])
 _BIG = 3.0e38
 _FLOOR = 1e-16
 
@@ -91,12 +92,13 @@ def chamfer_fused(w: Tensor, y: Tensor, x_valid: Tensor | None = None,
     rarg = torch.empty(n, dtype=torch.int64, device=w.device)
     cmin = torch.empty(m, **f32)
     carg = torch.empty(m, dtype=torch.int64, device=w.device)
+    sy = torch.empty((m, 4), **f32)     # the column terms (s_j, s_j y_j)
     cgrad = torch.empty((n, 3), **f32)
     sums = torch.empty(2, **f32)
     CHAMFER_FUSED.launch(w.data_ptr(), y.data_ptr(), xv.data_ptr(),
                          yv.data_ptr(), n, m, float(trunc), rmin.data_ptr(),
                          rarg.data_ptr(), cmin.data_ptr(), carg.data_ptr(),
-                         cgrad.data_ptr(), sums.data_ptr())
+                         sy.data_ptr(), cgrad.data_ptr(), sums.data_ptr())
     return sums, cgrad, rmin, rarg
 
 

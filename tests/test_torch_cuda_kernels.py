@@ -65,6 +65,12 @@ tolerance tells three TF32 passes from one. C1 on its edge cases (exact ties
 across the database's slices, slices without a valid row, +inf rows)
 bit-equal to the plain version, and its outputs on pinned inputs
 bit-equal to those of the design it replaced (chip_smoke.C1_DIGESTS).
+C14 on the x -> y half of C1's edge cases bit-equal to its plain version
+and to C1's x -> y half, on pinned inputs to the design it replaced
+(chip_smoke.C14_DIGESTS); C12 on its edge cases (chip_smoke.C12_EDGE_CASES)
+bit-equal to its plain version on the CPU in cgrad, rmin and rarg (the
+sums 1e-5 relative), on pinned inputs to the design it replaced
+(chip_smoke.C12_DIGESTS).
 """
 import pytest
 import torch
@@ -154,9 +160,10 @@ def test_nn_dual_bits_pinned(dev):
                                        (777, 1333, "random"),
                                        (130, 65, "none valid")])
 def test_nn_argmin_matches_plain(dev, n, m, mask):
-    """C14 against its plain version: 64-point tiles, so 777 / 1333 / 130
-    / 65 leave ragged last tiles; distances 1e-6 relative, indices equal up
-    to near-ties, one launch a call; with no valid row (+inf, 0)."""
+    """C14 against its plain version: 16 or 32 slices of the database a
+    query, so 777 / 1333 / 130 / 65 leave ragged slices; distances 1e-6
+    relative, indices equal up to near-ties, one launch a call; with no
+    valid row (+inf, 0)."""
     gen = torch.Generator().manual_seed(n + m)
     centre = torch.tensor([0.2, -0.1, 1.5])
     x = (torch.randn(n, 3, generator=gen) * 0.3 + centre).to(dev)
@@ -183,6 +190,35 @@ def test_nn_argmin_matches_plain(dev, n, m, mask):
         assert ((dg - dr).abs() / dr.clamp_min(1e-30)).max() < 3e-4
     if yv is not None:
         assert yv[idx].all()
+
+
+@pytest.mark.parametrize("tag", sorted(chip_smoke.C1_EDGE_CASES))
+def test_nn_argmin_edge_cases_bit_equal_to_plain_and_c1(dev, tag):
+    """C14 on the x -> y half of C1's edge cases, with y's mask and
+    without one: bit-equal to its plain version on the CPU and to C1's
+    x -> y half on the card, one launch a call."""
+    x, y, xv, yv = chip_smoke.c1_edge_input(dev, tag)
+    for mask in (yv, None):
+        before = tknn.NN_ARGMIN.launches
+        got = tknn.nn_argmin(x, y, mask)
+        assert tknn.NN_ARGMIN.launches == before + 1
+        ref = tknn.nn_argmin_plain(x.cpu(), y.cpu(),
+                                   None if mask is None else mask.cpu())
+        half = tknn.nn_argmin_dual(x, y, xv, mask)[:2]
+        for a, b, c in zip(got, ref, half):
+            assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+
+
+def test_nn_argmin_bits_pinned_and_c1s_half(dev):
+    """C14 gives, on the pinned inputs (C1's, x -> y, and 40159 x 37417
+    clouds), the bits of the one-query-a-thread design it replaced, and
+    those of C1's x -> y half."""
+    assert chip_smoke.c14_digests(dev) == chip_smoke.C14_DIGESTS
+    for x, y, yv in chip_smoke.c14_digest_inputs(dev).values():
+        xv = torch.ones(len(x), dtype=torch.bool, device=dev)
+        got, half = tknn.nn_argmin(x, y, yv), tknn.nn_argmin_dual(x, y, xv,
+                                                                  yv)
+        assert torch.equal(got[0], half[0]) and torch.equal(got[1], half[1])
 
 
 def test_register_ed_repeats_on_the_card(dev):
@@ -782,6 +818,34 @@ def test_chamfer_fused_matches_plain_and_repeats(dev, trunc):
     tcf.chamfer_l1_fused(wc, y.cpu(), wv.cpu(), yv.cpu(),
                          trunc=trunc).backward()
     assert (wq.grad.cpu() - wc.grad).abs().max() < 1e-4 * wc.grad.abs().max()
+
+
+@pytest.mark.parametrize("tag", sorted(chip_smoke.C12_EDGE_CASES))
+def test_chamfer_fused_edge_cases_bit_equal_to_cpu_plain(dev, tag):
+    """C12 on its edge cases (points on a 1/32 grid, every distance exact:
+    ties across slices, every row or column invalid, invalid queries
+    against valid candidates, every column won by row 0): cgrad, rmin and
+    rarg bit-equal to the plain version on the CPU (index_add_ there adds
+    in index order, on CUDA by atomics), the sums within 1e-5 relative,
+    one launch a call."""
+    from deformationpyramid_tpu_torch.ops import chamfer_fused as tcf
+
+    args = chip_smoke.c12_edge_input(dev, tag)
+    before = tcf.CHAMFER_FUSED.launches
+    got = tcf.chamfer_fused(*args, chip_smoke.C12_EDGE_TRUNC)
+    assert tcf.CHAMFER_FUSED.launches == before + 1
+    ref = tcf.chamfer_fused_plain(*(a.cpu() for a in args),
+                                  chip_smoke.C12_EDGE_TRUNC)
+    for a, b in zip(got[1:], ref[1:]):
+        assert torch.equal(a.cpu(), b)
+    assert ((got[0].cpu() - ref[0]).abs() <= 1e-5 * ref[0].abs()).all()
+
+
+def test_chamfer_fused_bits_pinned(dev):
+    """C12 gives, on the pinned inputs (C1's, at trunc 1e9 and at the
+    median), the bits of the one-query-a-thread sweep and row walk it
+    replaced: sums, cgrad, rmin and rarg."""
+    assert chip_smoke.c12_digests(dev) == chip_smoke.C12_DIGESTS
 
 
 def test_sum_partials_is_the_block_order_sum(dev):

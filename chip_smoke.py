@@ -209,6 +209,22 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             counts and warped points within 1e-3; and a narrow landmark
             model on the card (C7 at head width 24) against the CPU: the
             confidence matrix within 1e-4.
+15. supervised the LNDP evaluation CLI (cli/eval_supervised.py, through its
+            argument parser) at config/LNDP.yaml's widths, the landmark
+            model of seed 0: the first 3 pairs of write_4dmatch_suite's
+            4DMatch-F stream (every metric of the ledger finite, C7 launched
+            8 times a pair, C5 once an iteration of the solves, each
+            level's count rounded up to a multiple of SYNC_EVERY by the
+            launches that hold the state after the stop), --resume on
+            the finished run (nothing solved or launched, the same scores),
+            --stage-timers --oracle-filter (each stage's ms a pair; IR 1
+            wherever a landmark survives), and bench_lndp_torch.py on 2
+            pairs, 1 repetition;
+16. threedmatch the 3DMatch rigid evaluation (cli/eval_3dmatch.py through
+            its argument parser) on 4 fragment pairs of write_3dmatch_suite
+            at its defaults (6300-point fragments), the same model, with
+            NeCo and with --no-reject-outliers: finite rows, recall in
+            [0, 1], C7 launched 8 times a pair, the host RANSAC's seconds.
 
 Then one JSON line with every kernel's launches, error, times and bound,
 the nvidia-smi line, and last the JSON result line. The script needs a CUDA
@@ -1678,6 +1694,162 @@ def fixed_landmark_paths(dp, dev, base, modes, kernels, pair) -> dict:
           f"(<= {FIXED_FLOW_CM}), level losses {res['loss_rel']:.3e} "
           f"relative (<= {FIXED_LOSS_REL})")
     return res
+
+
+SUPERVISED_SPLIT = "4DMatch-F"
+# the keys of an eval_supervised ledger row: the 12 flow metrics, then the
+# matcher's
+SUPERVISED_KEYS = 12 + 5
+
+
+def supervised_phase(dp, dev, kernels):
+    """The LNDP evaluation CLI (cli/eval_supervised.py, through its argument
+    parser) on the first 3 pairs of write_4dmatch_suite's default 4DMatch-F
+    stream at config/LNDP.yaml's widths with the landmark model of seed 0;
+    then --resume, one --stage-timers --oracle-filter pass, and
+    bench_lndp_torch.py on 2 pairs, 1 repetition."""
+    import bench_lndp_torch
+    from deformationpyramid_tpu_torch.cli import eval_supervised as ev
+    from deformationpyramid_tpu_torch.data.synthetic import \
+        write_4dmatch_suite
+    from deformationpyramid_tpu_torch.ops.fused_iteration import SYNC_EVERY
+    from deformationpyramid_tpu_torch.utils.config import load_config
+
+    cap = load_config(str(REPO / "config" / "LNDP.yaml")).iters
+    work = REPO / "build" / "chip_smoke" / "supervised"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "split"
+    write_4dmatch_suite(str(root), SUPERVISED_SPLIT, n_pairs=3)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.name: k.launches for k in kernels}, \
+            time.perf_counter() - t0
+
+    def run(tag, *extra, log=None):
+        argv = ["--config", str(REPO / "config" / "LNDP.yaml"),
+                "--data-root", str(root), "--splits", SUPERVISED_SPLIT,
+                "--device", "cuda", "--log-dir", str(work / (log or tag)),
+                *extra]
+        report, launches, dt = counted(lambda: ev.main(argv))
+        r = report[SUPERVISED_SPLIT]
+        check(len(r["scores"]) == SUPERVISED_KEYS
+              and all(np.isfinite(v) for v in r["scores"].values()),
+              f"supervised {tag}: scores {r['scores']}")
+        rows = [json.loads(l) for l in (
+            work / (log or tag) / f"{SUPERVISED_SPLIT}.pairs.jsonl")
+            .read_text().splitlines()]
+        iters = sum(sum(v) for v in r["iters"].values())
+        # C5 launches once an iteration; a level's loop reads the stop flag
+        # every SYNC_EVERY launches, so the launches after the stop, which
+        # hold the state, round each level's count up to that multiple
+        held = sum(min(cap, -(-k // SYNC_EVERY) * SYNC_EVERY)
+                   for v in r["iters"].values() for k in v)
+        if r["pairs"]:
+            check(launches["flash_attention_fwd"] == 8 * r["pairs"],
+                  f"supervised {tag}: C7 launched "
+                  f"{launches['flash_attention_fwd']} times over "
+                  f"{r['pairs']} pairs, expected 8 a pair")
+            check(launches["ldmk_iteration"] == held,
+                  f"supervised {tag}: C5 launched "
+                  f"{launches['ldmk_iteration']} times over {iters} "
+                  f"iterations, expected {held}: one an iteration, each "
+                  f"level's rounded up to a multiple of {SYNC_EVERY}")
+            phase("supervised", f"{tag}: {r['pairs']} pairs in {dt:.3f} s, "
+                  f"{iters} iterations ({dt * 1e3 / iters:.4f} ms/iter "
+                  f"whole), {held} C5 launches, landmarks "
+                  f"{[int(x['n_landmarks']) for x in rows]}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; score "
+                  + " ".join(f"{k} {v:.3f}" for k, v in r["scores"].items()))
+        return dict(report=r, rows=rows, launches=launches, seconds=dt,
+                    iters=iters)
+
+    out = {"main": run("main")}
+    check(out["main"]["report"]["pairs"] == 3,
+          f"supervised: {out['main']['report']['pairs']} pairs")
+    again = run("resume", "--resume", log="main")
+    check(again["report"]["pairs"] == 0
+          and not any(again["launches"].values())
+          and again["report"]["scores"] == out["main"]["report"]["scores"],
+          f"supervised --resume: solved {again['report']['pairs']}, "
+          f"launches {again['launches']}, scores {again['report']['scores']}")
+    phase("supervised", "--resume: 0 pairs solved, no kernel launched, the "
+          "scores reproduced")
+    st = out["timed"] = run("timed", "--stage-timers", "--oracle-filter")
+    for row in st["rows"]:
+        check(all(k in row["stages_ms"] for k in
+                  ("matcher", "oracle", "solve", "metrics", "rtt_pre",
+                   "rtt_post"))
+              and (row["n_landmarks"] == 0 or row["IR"] == 1.0),
+              f"supervised --oracle-filter: row {row}")
+    stages = {k: [round(r["stages_ms"][k], 2) for r in st["rows"]]
+              for k in ("matcher", "oracle", "solve", "rtt_pre")}
+    phase("supervised", f"--stage-timers --oracle-filter: ms a pair {stages}")
+    line, launches, dt = counted(lambda: bench_lndp_torch.main(
+        ["--limit", "2", "--reps", "1", "--data-root", str(root),
+         "--weights", str(work / "no-such.npz"), "--device", "cuda"]))
+    check(line["weights"] == "random" and line["pairs"] == 2
+          and line["value"] > 0 and line["per_pair_best_s"] > 0
+          and launches["flash_attention_fwd"] == 16,
+          f"supervised bench_lndp_torch: {line}, launches {launches}")
+    out["bench"] = dict(line=line, launches=launches, seconds=dt)
+    phase("supervised", f"bench_lndp_torch.py --limit 2 --reps 1: "
+          f"{line['value']} pairs/s, best pair {line['per_pair_best_s']} s; "
+          f"{dt:.3f} s")
+    return out
+
+
+def threedmatch_phase(dp, dev, kernels):
+    """The 3DMatch rigid evaluation (cli/eval_3dmatch.py through its
+    argument parser) on 4 fragment pairs of write_3dmatch_suite at its
+    defaults (9000-point scenes, 6300-point fragments) with the landmark
+    model of seed 0 at config/LNDP.yaml's widths: with NeCo and with
+    --no-reject-outliers."""
+    from deformationpyramid_tpu_torch.cli import eval_3dmatch as ev
+    from deformationpyramid_tpu_torch.data.synthetic import \
+        write_3dmatch_suite
+
+    work = REPO / "build" / "chip_smoke" / "threedmatch"
+    shutil.rmtree(work, ignore_errors=True)
+    info = write_3dmatch_suite(str(work / "split"), "3DMatch", n_pairs=4)
+    out = {}
+    for tag, extra in (("neco", []), ("ransac_only",
+                                      ["--no-reject-outliers"])):
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        summary = ev.main(["--config", str(REPO / "config" / "LNDP.yaml"),
+                           "--info", info, "--base-dir", str(work / "split"),
+                           "--device", "cuda", "--log-dir", str(work / tag),
+                           *extra])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        rows = [json.loads(l) for l in (work / tag / "3DMatch.pairs.jsonl")
+                .read_text().splitlines()]
+        check(len(rows) == 4 and all(
+            np.isfinite(v) for r in rows for k, v in r.items()
+            if k != "name"), f"threedmatch {tag}: rows {rows}")
+        check(0.0 <= summary["value"] <= 1.0 and summary["pairs"] == 4,
+              f"threedmatch {tag}: {summary}")
+        check(launches["flash_attention_fwd"] == 8 * 4,
+              f"threedmatch {tag}: C7 launched "
+              f"{launches['flash_attention_fwd']} times over 4 pairs")
+        out[tag] = dict(summary=summary, launches=launches, seconds=dt,
+                        matches=[r["n_matches"] for r in rows])
+        phase("threedmatch", f"{tag}: recall {summary['value']}, IR "
+              f"{summary['IR']}, RRE {summary['RRE_deg']} deg, RTE "
+              f"{summary['RTE']} m; matches {out[tag]['matches']}; "
+              f"{dt:.3f} s (matcher {summary['matcher_s']:.3f} s, host "
+              f"RANSAC {summary['ransac_s']:.3f} s); launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+    return out
 
 
 def small_phase(dp, dev):
@@ -3877,6 +4049,9 @@ def main() -> None:
           f"{statistics.mean(ed['nicp']['solve_ms_per_iter']):.4f} ms/iter; "
           f"C14 {ed['c14']['ms']:.4f} ms at {ed['c14']['shape']}; {smi}")
 
+    supervised = supervised_phase(dp, dev, kernels)
+    threedmatch = threedmatch_phase(dp, dev, kernels)
+
     small_phase(dp, dev)
     small_landmark_phase(dev)
 
@@ -4002,7 +4177,12 @@ def main() -> None:
         for key in ("at_4096_2836", "at_1024_900"):
             if key in measured[k.name]:
                 row[key] = measured[k.name][key]
+        if k.name in ("flash_attention_fwd", "ldmk_iteration"):
+            row["eval_supervised_launches"] = \
+                supervised["main"]["launches"][k.name]
         if k.name == "flash_attention_fwd":
+            row["eval_3dmatch_launches"] = \
+                threedmatch["neco"]["launches"][k.name]
             row["at_path_shape"] = lndp["flash_at_path_shape"]
             row["at_train_shape"] = train["at_path_shape"][k.name]
         elif k.name in train["at_path_shape"]:
@@ -4023,7 +4203,10 @@ def main() -> None:
                   if k != "at_path_shape"},
         "nolearned": nolearned,
         "optin": optin,
-        "ed": {k: v for k, v in ed.items() if k != "c14"}}), flush=True)
+        "ed": {k: v for k, v in ed.items() if k != "c14"},
+        "supervised": {tag: {k: v for k, v in r.items() if k != "rows"}
+                       for tag, r in supervised.items()},
+        "threedmatch": threedmatch}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

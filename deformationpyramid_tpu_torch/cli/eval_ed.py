@@ -22,8 +22,6 @@ not ported.
 from __future__ import annotations
 
 import argparse
-import dataclasses
-import os
 import time
 
 import numpy as np
@@ -159,24 +157,11 @@ def make_landmark_fn(cfg, weights: str | None = None,
                                 calibrate_neighborhood_limits, pow2_cap,
                                 pyramid_to_device)
     from ..match.backbone import KPFCN_ARCHITECTURE
-    from ..match.landmark import (LandmarkConfig, init_landmark_model,
-                                  landmark_inference)
+    from ..match.landmark import init_landmark_model, landmark_inference
     from ..utils.checkpoint import load_pytree
+    from .eval_supervised import landmark_config
 
-    ldmk_yaml = cfg.get("ldmk_config")
-    if ldmk_yaml and os.path.exists(ldmk_yaml):
-        from ..match.config_loader import landmark_config_from_yaml
-
-        lcfg = landmark_config_from_yaml(
-            ldmk_yaml, inlier_thr=cfg.get("inlier_thr", 0.5),
-            reject_outliers=cfg.get("reject_outliers", True))
-    else:
-        lcfg = LandmarkConfig(inlier_thr=cfg.get("inlier_thr", 0.5),
-                              reject_outliers=cfg.get("reject_outliers", True))
-    m = lcfg.matcher
-    lcfg = dataclasses.replace(lcfg, matcher=dataclasses.replace(
-        m, transformer=dataclasses.replace(m.transformer,
-                                           attention_impl="flash")))
+    lcfg = landmark_config(cfg, inlier_thr=cfg.get("inlier_thr", 0.5))
     params = init_landmark_model(torch.Generator().manual_seed(0), lcfg,
                                  device=device)
     if weights:

@@ -13,10 +13,14 @@ Usage:
   python -m deformationpyramid_tpu_torch.cli.train_matcher \
       --config config/LNDP.yaml [--data-root data/split] [--epochs 20] \
       [--limit N] [--lr 1e-4] [--device cuda]
+
+The transformer's attention runs on kernels C7 (forward), C8 and C9
+(backward), where the yaml's route is einsum (as in the JAX package).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
@@ -107,18 +111,28 @@ def make_matcher_batch_stream(ds: FourDMatchDataset, lcfg: LandmarkConfig,
     return stream
 
 
+def with_flash(lcfg: LandmarkConfig) -> LandmarkConfig:
+    """``lcfg`` with the transformer's attention on kernel C7 (with C8 / C9
+    as its backward)."""
+    m = lcfg.matcher
+    return dataclasses.replace(lcfg, matcher=dataclasses.replace(
+        m, transformer=dataclasses.replace(m.transformer,
+                                           attention_impl="flash")))
+
+
 def landmark_config(cfg) -> LandmarkConfig:
     """The landmark model's configuration that a top-level config names
-    (``ldmk_config``), or the defaults where it names none."""
+    (``ldmk_config``), or the defaults where it names none, with the
+    attention on kernel C7."""
     ldmk_yaml = cfg.get("ldmk_config")
     if ldmk_yaml and os.path.exists(ldmk_yaml):
         from ..match.config_loader import landmark_config_from_yaml
 
-        return landmark_config_from_yaml(ldmk_yaml)
-    return LandmarkConfig()
+        return with_flash(landmark_config_from_yaml(ldmk_yaml))
+    return with_flash(LandmarkConfig())
 
 
-def main():
+def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--data-root", default=None)
@@ -130,7 +144,7 @@ def main():
                     help="matcher npz to continue from")
     ap.add_argument("--snapshot-dir", default="snapshot/matcher")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = load_config(args.config)
     data_root = args.data_root or cfg.get("data_root")

@@ -85,7 +85,7 @@ def make_batch_stream(ds: FourDMatchDataset, lcfg: LandmarkConfig, limits,
     return stream
 
 
-def main():
+def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
     ap.add_argument("--data-root", default=None)
@@ -114,7 +114,7 @@ def main():
                          "(what landmark_inference takes, through "
                          "load_pytree)")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = load_config(args.config)
     data_root = args.data_root or cfg.get("data_root")

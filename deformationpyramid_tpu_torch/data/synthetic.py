@@ -1,6 +1,7 @@
 """Synthetic deformed point-cloud pairs for tests and benchmarks.
 
-A copy of ``make_pair``, ``make_batch`` and ``write_4dmatch_suite`` from
+A copy of ``make_pair``, ``make_batch``, ``write_4dmatch_suite``,
+``write_3dmatch_suite`` and ``write_3dmatch_train_suite`` from
 ``deformationpyramid_tpu/data/synthetic.py``: importing any module of the
 JAX package imports JAX, so the port keeps its own numpy generators. The
 parity tests hold the two copies bit-identical.
@@ -122,5 +123,130 @@ def write_4dmatch_suite(root: str, split: str, n_pairs: int = 100,
         np.savez(path, rot=rot, trans=trans, s2t_flow=flow, s_pc=src,
                  t_pc=tgt[keep_t], correspondences=corr,
                  metric_index=rng.permutation(n)[:500])
+        paths.append(path)
+    return paths
+
+
+def write_3dmatch_suite(root: str, split: str = "3DMatch", n_pairs: int = 20,
+                        n_scene: int = 9000, keep: float = 0.7,
+                        noise: float = 0.002, seed: int = 0) -> str:
+    """Fabricate a 3DMatch-style rigid fragment-pair suite.
+
+    Mirrors the reference info-file layout consumed by ``_3DMatch``
+    (``correspondence/datasets/_3dmatch.py``): an info npz
+    with rot [P,3,3] / trans [P,3,1] / src [P] / tgt [P] path arrays plus
+    per-pair ``gt_cov`` [P,6,6] covariances (identity here — the real
+    suite's covariances come from redwood-data; identity makes the
+    registration-recall error ``||(t, q_xyz)||^2`` in metric units), and
+    per-fragment ``.npy`` clouds. Each pair: one synthetic scene surface,
+    two spatially-coherent half-space crops (fragments) with ``keep``
+    fraction each, the target fragment moved by a random SE(3) so
+    ``R @ src + t`` aligns it — the convention ``ThreeDMatchDataset``
+    (and the reference ``:92``) expects.
+
+    Returns the info-file path (``root/split/test_info.npz``).
+    """
+    import os
+
+    rng = np.random.default_rng(seed)
+    frag_dir = os.path.join(root, split, "frags")
+    os.makedirs(frag_dir, exist_ok=True)
+    rots, transs, src_paths, tgt_paths, covs = [], [], [], [], []
+    for i in range(n_pairs):
+        scene, _, _ = make_pair(n=n_scene, seed=seed * 500 + i, deform=0.0)
+        n_keep = int(n_scene * keep)
+        # two coherent half-space crops with guaranteed overlap: opposite
+        # quantile cuts along nearby directions keep the middle band shared
+        d1 = rng.normal(size=3)
+        d1 /= np.linalg.norm(d1)
+        d2 = -d1 + 0.3 * rng.normal(size=3)
+        d2 /= np.linalg.norm(d2)
+        src = scene[np.argsort(scene @ d1)[:n_keep]]
+        frag_b = scene[np.argsort(scene @ d2)[:n_keep]]
+        # random SE(3): moderate rotation (axis-angle <= ~0.6 rad) like
+        # adjacent scan poses; tgt lives in its own frame
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        ang = rng.uniform(0.1, 0.6)
+        K = np.array([[0, -axis[2], axis[1]],
+                      [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        rot = (np.eye(3) + np.sin(ang) * K
+               + (1 - np.cos(ang)) * (K @ K)).astype(np.float32)
+        trans = rng.uniform(-0.3, 0.3, (3, 1)).astype(np.float32)
+        tgt = (rot @ frag_b.T + trans).T.astype(np.float32)
+        src = (src + rng.normal(scale=noise, size=src.shape)).astype(np.float32)
+        tgt = (tgt + rng.normal(scale=noise, size=tgt.shape)).astype(np.float32)
+        sp = os.path.join(split, "frags", f"pair{i:03d}_src.npy")
+        tp = os.path.join(split, "frags", f"pair{i:03d}_tgt.npy")
+        np.save(os.path.join(root, sp), src)
+        np.save(os.path.join(root, tp), tgt)
+        rots.append(rot)
+        transs.append(trans)
+        src_paths.append(sp)
+        tgt_paths.append(tp)
+        covs.append(np.eye(6, dtype=np.float32) * n_keep)
+    info_path = os.path.join(root, split, "test_info.npz")
+    np.savez(info_path, rot=np.stack(rots), trans=np.stack(transs),
+             src=np.array(src_paths), tgt=np.array(tgt_paths),
+             gt_cov=np.stack(covs))
+    return info_path
+
+
+def write_3dmatch_train_suite(root: str, split: str, n_pairs: int = 32,
+                              n_scene: int = 9000, keep: float = 0.7,
+                              noise: float = 0.002, seed: int = 0) -> list[str]:
+    """3DMatch-regime rigid pairs in the 4DMatch npz layout.
+
+    ``write_4dmatch_suite(rigid=True)`` draws z-only rotations <= 0.2 rad
+    with a single-sided target crop, while the ``write_3dmatch_suite``
+    fragments carry arbitrary-axis rotations of 0.1-0.6 rad, double-sided
+    half-space crops (both fragments are partial) and measurement noise.
+    This writer emits training pairs from the same generative process as
+    that suite (the reference dataset's convention ``R @ src + t = tgt``,
+    ``correspondence/datasets/_3dmatch.py:92``), so that ``train_matcher``
+    trains at the regime it is evaluated at. Correspondences are the exact
+    fragment-overlap index map (shared scene points); the flow is zero.
+    """
+    import os
+
+    rng = np.random.default_rng(seed)
+    out_dir = os.path.join(root, split, "seq0")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i in range(n_pairs):
+        scene, _, _ = make_pair(n=n_scene, seed=seed * 700 + i, deform=0.0)
+        n_keep = int(n_scene * keep)
+        d1 = rng.normal(size=3)
+        d1 /= np.linalg.norm(d1)
+        d2 = -d1 + 0.3 * rng.normal(size=3)
+        d2 /= np.linalg.norm(d2)
+        src_idx = np.argsort(scene @ d1)[:n_keep]
+        tgt_idx = np.argsort(scene @ d2)[:n_keep]
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        ang = rng.uniform(0.1, 0.6)
+        K = np.array([[0, -axis[2], axis[1]],
+                      [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        rot = (np.eye(3) + np.sin(ang) * K
+               + (1 - np.cos(ang)) * (K @ K)).astype(np.float32)
+        trans = rng.uniform(-0.3, 0.3, (3, 1)).astype(np.float32)
+        src = (scene[src_idx]
+               + rng.normal(scale=noise, size=(n_keep, 3))).astype(np.float32)
+        tgt = ((rot @ scene[tgt_idx].T + trans).T
+               + rng.normal(scale=noise, size=(n_keep, 3))).astype(np.float32)
+        # overlap correspondences: positions of shared scene points in each
+        # fragment's row order
+        pos_in_tgt = np.full(n_scene, -1, np.int64)
+        pos_in_tgt[tgt_idx] = np.arange(n_keep)
+        shared = pos_in_tgt[src_idx] >= 0
+        corr = np.stack([np.nonzero(shared)[0],
+                         pos_in_tgt[src_idx[shared]]], 1)
+        path = os.path.join(out_dir, f"pair{i:04d}.npz")
+        np.savez(path, rot=rot, trans=trans,
+                 s2t_flow=np.zeros((n_keep, 3), np.float32), s_pc=src,
+                 t_pc=tgt, correspondences=corr,
+                 metric_index=rng.permutation(n_keep)[:500])
         paths.append(path)
     return paths

@@ -238,11 +238,14 @@ def register_pair(key: int | torch.Generator, src: Tensor, tgt: Tensor,
                   tgt_valid: Tensor | None = None,
                   src_ldmk: Tensor | None = None,
                   tgt_ldmk: Tensor | None = None,
-                  ldmk_valid: Tensor | None = None
+                  ldmk_valid: Tensor | None = None,
+                  params: dict | None = None
                   ) -> tuple[Tensor, dict[str, Tensor]]:
     """Register one (padded) pair; returns (warped full source cloud,
     stats). ``key`` seeds the initial weights and the two random subsets
-    (drawn on the CPU, so a seed gives the same draw on every device).
+    (drawn on the CPU, so a seed gives the same draw on every device);
+    given ``params`` (stacked, as ``init_pyramid_params`` makes them), the
+    solve starts from those instead and ``key`` seeds the subsets alone.
     With ``src_ldmk``/``tgt_ldmk`` [L, 3] (and ``ldmk_valid`` [L], padded
     rows False) the solve is landmark-guided (LNDP)."""
     gen = _as_generator(key)
@@ -253,7 +256,8 @@ def register_pair(key: int | torch.Generator, src: Tensor, tgt: Tensor,
     if tgt_valid is None:
         tgt_valid = torch.ones(n_tgt, dtype=torch.bool, device=tgt.device)
 
-    params = init_pyramid_params(gen, pcfg, device=src.device)
+    if params is None:
+        params = init_pyramid_params(gen, pcfg, device=src.device)
     src_mean = _masked_mean(src, src_valid)
     tgt_mean = _masked_mean(tgt, tgt_valid)
     src_c = src - src_mean

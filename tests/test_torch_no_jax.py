@@ -166,6 +166,30 @@ depth, sil = render.render_depth_silhouette(
     x, torch.tensor([[50.0, 0, 32], [0, 50.0, 24], [0, 0, 1]]),
     render.RenderConfig(48, 64))
 assert torch.isfinite(total) and sil.sum() > 0
+# the learned evaluations: LNDP on a fabricated split and 3DMatch on
+# fabricated fragments, with the narrow landmark model
+from deformationpyramid_tpu_torch.cli import eval_3dmatch, eval_supervised
+from deformationpyramid_tpu_torch.data import threedmatch
+from deformationpyramid_tpu_torch.metrics import registration
+from deformationpyramid_tpu_torch.utils.config import AttrDict
+import bench_lndp_torch
+runpy.run_path("scripts/learning_torch.py", run_name="not_main")
+with tempfile.TemporaryDirectory() as root:
+    synthetic.write_4dmatch_suite(root, "4DMatch-F", n_pairs=1,
+                                  size_clusters=(150,), seed=2)
+    scfg = dp.SolverConfig(pyramid=dp.NDPConfig(m=2, width=16), iters=4,
+                           samples=60)
+    rep = eval_supervised.run_eval(AttrDict({"data_root": root}), lcfg,
+                                   params, scfg, ["4DMatch-F"],
+                                   log_dir=root + "/lndp", device="cpu")
+    assert len(rep["4DMatch-F"]["scores"]) == 17
+    info = synthetic.write_3dmatch_suite(root, "3DMatch", n_pairs=1,
+                                         n_scene=300, seed=1)
+    ds3 = threedmatch.ThreeDMatchDataset(info, root)
+    s3 = eval_3dmatch.run_eval_3dmatch(lcfg, params, ds3, ds3.infos["gt_cov"],
+                                       log_dir=root + "/3dm",
+                                       ransac_iters=20, device="cpu")
+    assert 0.0 <= s3["value"] <= 1.0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "deformationpyramid_tpu"
              or m.startswith("deformationpyramid_tpu."))

@@ -224,7 +224,37 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             its argument parser) on 4 fragment pairs of write_3dmatch_suite
             at its defaults (6300-point fragments), the same model, with
             NeCo and with --no-reject-outliers: finite rows, recall in
-            [0, 1], C7 launched 8 times a pair, the host RANSAC's seconds.
+            [0, 1], C7 launched 8 times a pair, the host RANSAC's seconds;
+17. multiview the multiview GAT stack: write_multiview_suite at its defaults
+            (4 sequences x 4 views x 500 points, 12 view pairs each) and
+            cli/train_multiview.py at its defaults (144 wide, 8 heads, 3
+            layers, k 64, 12 pairs, 16384 edges, 10 epochs) on the card:
+            every value finite, the loss falls from the first epoch to the
+            last, IR after > IR before at the last, history.jsonl as the
+            run, both checkpoints read back bit-equal; ms a step and
+            seconds an epoch; apply_multiview_neco on one batch at those
+            widths and apply_nonlocalnet at its defaults (6 x 128) on
+            K = 1024 matches, the card against the CPU with the same
+            weights (1e-4 of the max: index_add_ adds by atomics on the
+            card); port_matcher / port_neco on reference-layout state dicts
+            fabricated at full width (every leaf mapped, only the dead
+            tgt_proj weights skipped), then landmark_inference on the card
+            with the ported weights (C7 8 launches);
+18. parallel parallel/ on the one card: a world of 1 under NCCL
+            (init_process_group with a local address) and a (1, 1) mesh:
+            register_sharded on 2 bench pairs (iteration cap cut to 100 a
+            level) bit-equal to register_batch with C1-C4 and C6 counted,
+            aggregate_metrics_sharded equal to metric_sums, sharded_nn_min
+            at 6000 x 6000 bit-equal to one C14 call, one
+            neco_train_step_sharded step at full width on 2 pairs (finite,
+            C7 16 launches), eval_nolearned on one fabricated pair under
+            torchrun's variables for a world of 1 writing the plain run's
+            ledger row; then two ranks on the same card under gloo (NCCL
+            takes one rank a card; gloo takes the collectives' CUDA
+            tensors): register_sharded one pair a rank and sharded_nn_min
+            over a model axis of 2, bit-equal to the one-process results,
+            the metric sums within 1e-6, C1-C4, C6 and C14 launched on each
+            rank.
 
 Then one JSON line with every kernel's launches, error, times and bound,
 the nvidia-smi line, and last the JSON result line. The script needs a CUDA
@@ -3898,6 +3928,533 @@ def c2_c5_digests(dev) -> dict:
     return out
 
 
+MV_REL_TOL = 1e-4        # the card against the CPU (index_add's atomics)
+
+
+def reference_state_dict(matcher: dict, neco: dict, layer_types,
+                         seed: int) -> dict[str, np.ndarray]:
+    """State dicts in the reference's layout (Lepard ``Pipeline`` and NeCo
+    ``Outlier_Rejection``) with a name for every leaf of the port's trees
+    and the matcher's dead ``tgt_proj`` weights, random values from a
+    seed: nn.Linear weights [out, in], Conv1d [out, in, 1]."""
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape):
+        return rng.normal(scale=0.05, size=shape).astype(np.float32)
+
+    def lin(t):
+        return arr(t.shape[1], t.shape[0])
+
+    def attention(prefix, layer):
+        return {f"{prefix}.q_proj.weight": lin(layer["q"]),
+                f"{prefix}.k_proj.weight": lin(layer["k"]),
+                f"{prefix}.v_proj.weight": lin(layer["v"]),
+                f"{prefix}.merge.weight": lin(layer["merge"]),
+                f"{prefix}.mlp.0.weight": lin(layer["mlp1"]),
+                f"{prefix}.mlp.2.weight": lin(layer["mlp2"]),
+                f"{prefix}.norm1.weight": 1.0 + arr(*layer["ln1"]["g"].shape),
+                f"{prefix}.norm1.bias": arr(*layer["ln1"]["b"].shape),
+                f"{prefix}.norm2.weight": 1.0 + arr(*layer["ln2"]["g"].shape),
+                f"{prefix}.norm2.bias": arr(*layer["ln2"]["b"].shape)}
+
+    msd = {}
+    for i, blk in enumerate(matcher["backbone"]["encoder"]):
+        pfx = f"backbone.encoder_blocks.{i}"
+        msd[f"{pfx}.KPConv.weights"] = arr(*blk["kpconv"]["weights"].shape)
+        # the kernel points are the reference's fixed dispositions: keep
+        msd[f"{pfx}.KPConv.kernel_points"] = \
+            blk["kpconv"]["kernel_points"].cpu().numpy()
+        if "offset_conv" in blk["kpconv"]:
+            off = blk["kpconv"]["offset_conv"]
+            msd[f"{pfx}.KPConv.offset_conv.weights"] = arr(
+                *off["weights"].shape)
+            msd[f"{pfx}.KPConv.offset_conv.kernel_points"] = \
+                off["kernel_points"].cpu().numpy()
+            msd[f"{pfx}.KPConv.offset_bias"] = arr(
+                *blk["kpconv"]["offset_bias"].shape)
+        for ours, theirs in (("unary1", "unary1"), ("unary2", "unary2"),
+                             ("shortcut", "unary_shortcut")):
+            if ours in blk:
+                msd[f"{pfx}.{theirs}.mlp.weight"] = lin(blk[ours]["w"])
+    for i, blk in enumerate(matcher["backbone"]["decoder"]):
+        if blk:
+            msd[f"backbone.decoder_blocks.{i}.mlp.weight"] = lin(blk["w"])
+    for name in ("coarse_out", "fine_out"):
+        w = matcher["backbone"][name]["w"]
+        msd[f"backbone.{name}.weight"] = lin(w)[..., None]
+        msd[f"backbone.{name}.bias"] = arr(w.shape[1])
+    for i, lt in enumerate(layer_types):
+        pfx = f"coarse_transformer.layers.{i}"
+        layer = matcher["transformer"]["layers"][i]
+        if lt in ("self", "cross"):
+            msd.update(attention(pfx, layer))
+        elif "src_proj" in layer:
+            msd[f"{pfx}.0.src_proj.weight"] = lin(layer["src_proj"])
+            msd[f"{pfx}.0.tgt_proj.weight"] = lin(layer["src_proj"])
+            if "bin_score" in layer:
+                msd[f"{pfx}.0.bin_score"] = arr()
+    msd["coarse_matching.src_proj.weight"] = lin(matcher["matching"]
+                                                 ["src_proj"])
+    msd["coarse_matching.tgt_proj.weight"] = lin(matcher["matching"]
+                                                 ["src_proj"])
+    if "bin_score" in matcher["matching"]:
+        msd["coarse_matching.bin_score"] = arr()
+    nsd = {"in_proj.weight": lin(neco["in_proj"]["w"]),
+           "in_proj.bias": arr(*neco["in_proj"]["b"].shape)}
+    for i, layer in enumerate(neco["layers"]):
+        nsd.update(attention(f"_6D_geometry_layers.{i}", layer))
+    for ours, theirs in (("cls1", "classification.0"),
+                         ("cls2", "classification.2"),
+                         ("cls3", "classification.4")):
+        nsd[f"{theirs}.weight"] = lin(neco[ours]["w"])
+        nsd[f"{theirs}.bias"] = arr(*neco[ours]["b"].shape)
+    return msd, nsd
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.cpu() - ref.cpu()).abs().max()) / max(
+        float(ref.abs().max()), 1e-30)
+
+
+def multiview_phase(dp, dev, kernels):
+    """The multiview GAT stack at cli/train_multiview.py's defaults, the
+    card against the CPU, and the reference-checkpoint converters at full
+    width."""
+    from deformationpyramid_tpu_torch.cli import train_multiview as tm
+    from deformationpyramid_tpu_torch.data.collate import (
+        build_pair_pyramid, calibrate_neighborhood_limits, pow2_cap,
+        pyramid_to_device)
+    from deformationpyramid_tpu_torch.data.fourdmatch_multiview import \
+        FourDMatchMultiview
+    from deformationpyramid_tpu_torch.data.synthetic import (
+        make_pair, write_multiview_suite)
+    from deformationpyramid_tpu_torch.match import landmark as lm
+    from deformationpyramid_tpu_torch.match import multiview as mv
+    from deformationpyramid_tpu_torch.match import port_torch
+    from deformationpyramid_tpu_torch.match.backbone import KPFCN_ARCHITECTURE
+    from deformationpyramid_tpu_torch.match.outlier_rejection import \
+        NeCoConfig
+    from deformationpyramid_tpu_torch.models.pyramid import (tree_leaves,
+                                                             tree_map)
+    from deformationpyramid_tpu_torch.utils.checkpoint import (load_pytree,
+                                                               save_pytree)
+
+    work = REPO / "build" / "chip_smoke" / "multiview"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_multiview_suite(str(work / "split"), "multiview-train")
+    ds = FourDMatchMultiview(str(work / "split"), "multiview-train")
+    check(len(paths) == len(ds) == 4 and ds[0].pcds.shape == (4, 500, 3)
+          and len(ds[0].pcd_pairs) == 12,
+          f"multiview: suite {len(ds)} sequences, {ds[0].pcds.shape}")
+    out = {"suite_s": time.perf_counter() - t0}
+
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rows = tm.main(["--data-root", str(work / "split"), "--device", str(dev),
+                    "--snapshot-dir", str(work / "snap")])
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["launches"] = {k.name: k.launches for k in kernels if k.launches}
+    hist = [json.loads(l) for l in
+            (work / "snap" / "history.jsonl").read_text().splitlines()]
+    check(len(rows) == len(hist) == 10 and all(
+        np.isfinite(r[k]) for r in rows for k in r), f"multiview: {rows}")
+    check(hist == [{k: r[k] for k in h} for r, h in zip(rows, hist)],
+          "multiview: history.jsonl differs from the run")
+    check(rows[-1]["loss"] < rows[0]["loss"],
+          f"multiview: the loss did not fall: {rows[0]['loss']} -> "
+          f"{rows[-1]['loss']}")
+    check(rows[-1]["IR_after"] > rows[-1]["IR_before"],
+          f"multiview: IR after {rows[-1]['IR_after']} <= before "
+          f"{rows[-1]['IR_before']}")
+    cfg = mv.MultiviewNeCoConfig(neco=NeCoConfig(feature_dim=144,
+                                                 num_layers=3))
+    like = tree_map(lambda t: t.to(dev), mv.init_multiview_neco(
+        torch.Generator().manual_seed(1), cfg))
+    for name in ("model_best_loss.npz", "model_last.npz"):
+        back = load_pytree(str(work / "snap" / name), like)
+        save_pytree(str(work / f"again_{name}"), back)
+        with np.load(work / "snap" / name) as a, \
+                np.load(work / f"again_{name}") as b:
+            check(sorted(k for k in a.files if not k.startswith("__"))
+                  == sorted(b.files) and all(
+                      np.array_equal(a[k], b[k]) for k in b.files),
+                  f"multiview: {name} does not read back bit-equal")
+    out["epochs"] = rows
+    out["step_ms"] = statistics.median(r["step_ms"] for r in rows[1:])
+    out["epoch_s"] = statistics.median(r["seconds"] for r in rows[1:])
+    phase("multiview", f"train_multiview at its defaults (144 wide, 8 heads, "
+          f"3 layers, k 64, 12 pairs, 16384 edges), 10 epochs x 4 "
+          f"sequences: loss {rows[0]['loss']:.4f} -> {rows[-1]['loss']:.4f}, "
+          f"IR {rows[-1]['IR_before']:.3f} -> {rows[-1]['IR_after']:.3f}; "
+          f"step {out['step_ms']:.3f} ms (median; epoch 0 "
+          f"{rows[0]['step_ms']:.3f}), epoch {out['epoch_s']:.3f} s, "
+          f"{out['train_s']:.3f} s in all; hand kernels launched "
+          f"{out['launches'] or 'none'} (index_add_ and the einsum route)")
+
+    # the card against the CPU on one batch, the same weights
+    batch = tm.make_training_batch(ds[0], 64, 0.4, 12, 16384,
+                                   np.random.default_rng(3),
+                                   cfg.edge_search_radius)
+    params = mv.init_multiview_neco(torch.Generator().manual_seed(2), cfg)
+    on = {d: ([torch.from_numpy(b).to(d) for b in batch],
+              tree_map(lambda t: t.to(d), params)) for d in ("cpu", dev)}
+    conf = {}
+    for d, (b, p) in on.items():
+        conf[d] = mv.apply_multiview_neco(p, b[0], b[1], *b[3:], cfg)
+    err = rel_err(conf[dev], conf["cpu"])
+    check(err <= MV_REL_TOL and bool(torch.isfinite(conf[dev]).all()),
+          f"multiview: apply_multiview_neco card against CPU {err:.3e}")
+    step_ms = cuda_ms(lambda: mv.apply_multiview_neco(
+        on[dev][1], on[dev][0][0], on[dev][0][1], *on[dev][0][3:], cfg),
+        reps=10)
+    out["neco_rel_err"], out["neco_ms"] = err, step_ms
+    nl_cfg = mv.NonLocalNetConfig()
+    rng = np.random.default_rng(4)
+    v6 = torch.from_numpy((rng.normal(size=(1024, 6)) * 0.2).astype(
+        np.float32))
+    m6 = torch.from_numpy(rng.random(1024) < 0.9)
+    nl = mv.init_nonlocalnet(torch.Generator().manual_seed(5), nl_cfg)
+    nl_conf = {d: mv.apply_nonlocalnet(tree_map(lambda t: t.to(d), nl),
+                                       v6.to(d), m6.to(d), nl_cfg)
+               for d in ("cpu", dev)}
+    nl_err = rel_err(nl_conf[dev], nl_conf["cpu"])
+    check(nl_err <= MV_REL_TOL and bool(torch.isfinite(nl_conf[dev]).all()),
+          f"multiview: apply_nonlocalnet card against CPU {nl_err:.3e}")
+    out["nonlocal_rel_err"] = nl_err
+    phase("multiview", f"card against CPU (relative to the max, tolerance "
+          f"{MV_REL_TOL}): apply_multiview_neco [12 x 64, "
+          f"{int(batch[5].sum())} edges] {err:.3e} ({step_ms:.3f} ms on the "
+          f"card), apply_nonlocalnet [6 x 128, K 1024] {nl_err:.3e}")
+
+    # reference checkpoints at full width through the converters, then
+    # landmark_inference on the card with the ported weights
+    lcfg, _ = lndp_config("flash")
+    lparams = lm.init_landmark_model(torch.Generator().manual_seed(0), lcfg,
+                                     device=dev)
+    msd, nsd = reference_state_dict(lparams["matcher"], lparams["neco"],
+                                    lcfg.matcher.transformer.layer_types, 6)
+    t0 = time.perf_counter()
+    matcher, mrep = port_torch.port_matcher(
+        msd, lparams["matcher"], lcfg.matcher.transformer.layer_types)
+    neco, nrep = port_torch.port_neco(nsd, lparams["neco"])
+    port_s = time.perf_counter() - t0
+    check(mrep["missing"] == [] and nrep["missing"] == []
+          and nrep["unused"] == [] and mrep["unused"]
+          and all("tgt_proj" in u for u in mrep["unused"]),
+          f"multiview: port reports {mrep['missing']} {mrep['unused']} "
+          f"{nrep['missing']} {nrep['unused']}")
+    n_leaves = len(tree_leaves(matcher)) + len(tree_leaves(neco))
+    check(len(mrep["used"]) + len(nrep["used"]) == n_leaves,
+          f"multiview: {len(mrep['used']) + len(nrep['used'])} names for "
+          f"{n_leaves} leaves")
+    check(torch.equal(neco["in_proj"]["w"].cpu(),
+                      torch.from_numpy(nsd["in_proj.weight"].T.copy()))
+          and all(t.device == dev for t in tree_leaves(matcher)),
+          "multiview: ported leaves not transposed or not on the card")
+    kp, cl = lcfg.matcher.kpfcn, lcfg.matcher.coarse_level
+    src, tgt, _ = make_pair(n=8000, seed=11, deform=0.08)
+    limits = calibrate_neighborhood_limits([(src, tgt)], kp,
+                                           KPFCN_ARCHITECTURE)
+    pyr = build_pair_pyramid(src, tgt, kp, KPFCN_ARCHITECTURE, limits,
+                             pad_to="pow2")
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    res = lm.landmark_inference(
+        {"matcher": matcher, "neco": neco}, pyramid_to_device(pyr, dev),
+        pyr.src_lengths[cl], pyr.tgt_lengths[cl], lcfg,
+        s_cap=pow2_cap(pyr.src_lengths[cl]),
+        t_cap=pow2_cap(pyr.tgt_lengths[cl]))
+    torch.cuda.synchronize()
+    c7 = kernels[[k.name for k in kernels].index("flash_attention_fwd")]
+    check(c7.launches == 8, f"multiview: C7 launched {c7.launches} times")
+    check(all(bool(torch.isfinite(res[n]).all()) for n in
+              ("conf_matrix_pred", "neco_confidence", "ldmk_s")),
+          "multiview: landmark_inference with ported weights not finite")
+    out["port"] = dict(matcher_names=len(mrep["used"]),
+                       neco_names=len(nrep["used"]),
+                       unused=mrep["unused"], seconds=port_s,
+                       c7_launches=c7.launches,
+                       landmarks=int(res["ldmk_valid"].sum()))
+    phase("multiview", f"port_matcher / port_neco: {len(mrep['used'])} + "
+          f"{len(nrep['used'])} reference names onto every leaf (skipped: "
+          f"{mrep['unused']}) in {port_s:.3f} s; landmark_inference with "
+          f"them: C7 {c7.launches} launches, "
+          f"{out['port']['landmarks']} landmarks")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+PARALLEL_ITERS = 100        # of BENCH_SOLVER's 500 a level: time
+PARALLEL_KERNELS = ("nn_dual", "level_warp_fwd", "scatter_rows",
+                    "level_warp_bwd", "adam_step")
+
+
+def parallel_cfg(dp):
+    return dp.SolverConfig(
+        pyramid=dp.NDPConfig(**BENCH_PYRAMID),
+        **dict(BENCH_SOLVER, iters=PARALLEL_ITERS), use_fused_iteration=True)
+
+
+def _gloo_rank(rank: int, port: int, payload: dict, queue) -> None:
+    """One of two ranks on one card under gloo: register_sharded over a
+    data axis of 2, aggregate_metrics_sharded, and sharded_nn_min over a
+    model axis of 2, with CUDA tensors, against the parent's one-process
+    results."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, str(REPO))
+        import deformationpyramid_tpu_torch as dp
+        from deformationpyramid_tpu_torch.metrics.flow import metric_sums
+        from deformationpyramid_tpu_torch.ops import cuda_lib
+        from deformationpyramid_tpu_torch.parallel import batched, mesh
+
+        dev = torch.device(payload["device"])
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+        data_mesh = mesh.make_mesh()
+        model_mesh = mesh.make_mesh(n_data=1, n_model=2)
+        for k in cuda_lib.KERNELS:
+            k.launches = 0
+        src, tgt = (payload[k].to(dev) for k in ("src", "tgt"))
+        warped, stats = batched.register_sharded(data_mesh, parallel_cfg(dp))(
+            payload["keys"], src, tgt)
+        flow = warped - src
+        sums = batched.aggregate_metrics_sharded(data_mesh)(
+            flow, payload["flow_gt"].to(dev),
+            torch.ones(flow.shape[:2], dtype=torch.bool, device=dev))
+        ref = metric_sums(flow.reshape(-1, 3),
+                          payload["flow_gt"].to(dev).reshape(-1, 3))
+        nn = batched.sharded_nn_min(model_mesh)(payload["x"].to(dev),
+                                                payload["y"].to(dev))
+        torch.cuda.synchronize()
+        queue.put((rank, dict(
+            warped_equal=torch.equal(warped.cpu(), payload["warped"]),
+            iters_equal=torch.equal(stats["iters"].cpu(), payload["iters"]),
+            sums_rel_err=max(rel_err(sums[k], ref[k]) for k in ref),
+            nn_equal=torch.equal(nn.cpu(), payload["nn"]),
+            launches={k.name: k.launches for k in cuda_lib.KERNELS
+                      if k.launches})))
+        dist.destroy_process_group()
+    except Exception:   # the parent fails the phase on any error
+        queue.put((rank, {"error": traceback.format_exc()[-3000:]}))
+
+
+def parallel_phase(dp, dev, kernels):
+    """parallel/ on one card: a world of 1 under NCCL (register_sharded,
+    aggregate_metrics_sharded, sharded_nn_min, neco_train_step_sharded, the
+    eval_nolearned sweep under torchrun's variables), then two ranks on the
+    same card under gloo with CUDA tensors."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from deformationpyramid_tpu_torch.cli import eval_nolearned as ev
+    from deformationpyramid_tpu_torch.data.collate import (
+        build_pair_pyramid, calibrate_neighborhood_limits, pyramid_to_device)
+    from deformationpyramid_tpu_torch.data.synthetic import (
+        make_batch, make_pair, write_4dmatch_suite)
+    from deformationpyramid_tpu_torch.match import landmark as lm
+    from deformationpyramid_tpu_torch.match.backbone import KPFCN_ARCHITECTURE
+    from deformationpyramid_tpu_torch.metrics.flow import metric_sums
+    from deformationpyramid_tpu_torch.models.pyramid import (tree_leaves,
+                                                             tree_map)
+    from deformationpyramid_tpu_torch.ops import knn
+    from deformationpyramid_tpu_torch.parallel import batched, mesh
+
+    out = {}
+    t_phase = time.perf_counter()
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    check(not mesh.initialize_distributed(), "parallel: a world of 1 "
+          "initialised a process group")
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{env['MASTER_PORT']}", world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        m = mesh.make_mesh()
+        check(dist.get_backend() == "nccl" and tuple(m.shape) == (1, 1),
+              f"parallel: mesh {m}")
+        cfg = parallel_cfg(dp)
+        srcs, tgts, flows = make_batch(2, n=2000, seed=300, deform=0.12)
+        src, tgt, flow_gt = (torch.from_numpy(a).to(dev)
+                             for a in (srcs, tgts, flows))
+        keys = [3, 4]
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        warped, stats = batched.register_sharded(m, cfg)(keys, src, tgt)
+        torch.cuda.synchronize()
+        reg_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels if k.launches}
+        for name in PARALLEL_KERNELS:
+            check(launches.get(name, 0) > 0,
+                  f"parallel: register_sharded never launched {name}")
+        ref_w, ref_s = dp.register_batch(keys, src, tgt, cfg)
+        check(torch.equal(warped, ref_w) and all(
+            torch.equal(stats[k], ref_s[k]) for k in ref_s),
+              "parallel: register_sharded differs from register_batch")
+        iters = stats["iters"].cpu()
+        check(bool(((iters >= 1) & (iters <= PARALLEL_ITERS)).all()),
+              f"parallel: iterations {iters.tolist()}")
+        epe = float((warped - src - flow_gt).norm(dim=-1).mean())
+        init = float(flow_gt.norm(dim=-1).mean())
+        check(np.isfinite(epe) and epe < init,
+              f"parallel: EPE {epe} against the initial {init}")
+        sums = batched.aggregate_metrics_sharded(m)(
+            warped - src, flow_gt,
+            torch.ones(2, 2000, dtype=torch.bool, device=dev))
+        ref = metric_sums((warped - src).reshape(-1, 3),
+                          flow_gt.reshape(-1, 3))
+        check(all(torch.equal(sums[k], ref[k]) for k in ref),
+              "parallel: aggregate_metrics_sharded != metric_sums")
+        rng = np.random.default_rng(8)
+        x, y = (torch.from_numpy(rng.normal(size=(6000, 3)).astype(
+            np.float32)).to(dev) for _ in range(2))
+        c14 = kernels[[k.name for k in kernels].index("nn_argmin")]
+        c14.launches = 0
+        nn = batched.sharded_nn_min(m)(x, y)
+        nn_launches = c14.launches
+        check(nn_launches == 1 and torch.equal(nn, knn.nn_argmin(x, y)[0]),
+              "parallel: sharded_nn_min is not bit-equal to one C14 call")
+        out.update(register_s=reg_s, launches=launches,
+                   iters=iters.tolist(), epe=epe, initial_epe=init,
+                   nn_min_c14_launches=nn_launches)
+        phase("parallel", f"NCCL world of 1, mesh (1, 1): register_sharded "
+              f"on 2 bench pairs (cap {PARALLEL_ITERS} iterations a level) "
+              f"bit-equal to register_batch in {reg_s:.3f} s, iterations "
+              f"{iters.tolist()}, EPE {epe:.5f} (initial {init:.5f}), "
+              f"launches {launches}; aggregate_metrics_sharded == "
+              f"metric_sums; sharded_nn_min [6000 x 6000] bit-equal to C14 "
+              f"({nn_launches} launch)")
+
+        # one data-parallel NeCo step at full width on 2 pairs
+        lcfg, _ = lndp_config("flash")
+        kp = lcfg.matcher.kpfcn
+        pairs = [make_pair(n=2000, seed=20 + i, deform=0.08)[:2]
+                 for i in range(2)]
+        limits = calibrate_neighborhood_limits(pairs, kp, KPFCN_ARCHITECTURE)
+        pyrs = [build_pair_pyramid(s, t, kp, KPFCN_ARCHITECTURE, limits,
+                                   pad_to="pow2") for s, t in pairs]
+        pad = [max(len(p.points[l]) for p in pyrs)
+               for l in range(len(pyrs[0].points))]
+        pyrs = [build_pair_pyramid(s, t, kp, KPFCN_ARCHITECTURE, limits,
+                                   pad_to=pad) for s, t in pairs]
+        cl = lcfg.matcher.coarse_level
+        batch = {
+            "pyramid": tree_map(lambda *ts: torch.stack(ts),
+                                *[pyramid_to_device(p, dev) for p in pyrs]),
+            "src_len_c": torch.tensor([p.src_lengths[cl] for p in pyrs],
+                                      dtype=torch.int32, device=dev),
+            "tgt_len_c": torch.tensor([p.tgt_lengths[cl] for p in pyrs],
+                                      dtype=torch.int32, device=dev),
+            "coarse_flow": torch.zeros(2, pad[cl], 3, device=dev),
+            "gt_rot": torch.eye(3, device=dev).repeat(2, 1, 1),
+            "gt_trn": torch.zeros(2, 3, 1, device=dev)}
+        lparams = lm.init_landmark_model(torch.Generator().manual_seed(0),
+                                         lcfg, device=dev)
+        c7 = kernels[[k.name for k in kernels].index("flash_attention_fwd")]
+        c7.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, loss = batched.neco_train_step_sharded(
+            m, lparams["matcher"], lcfg)(lparams["neco"], batch)
+        torch.cuda.synchronize()
+        neco_s = time.perf_counter() - t0
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(tree_leaves(new), tree_leaves(lparams["neco"])))
+        check(np.isfinite(float(loss)) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(new))
+              and moved > 0 and c7.launches == 16,
+              f"parallel: NeCo step loss {float(loss)}, moved {moved}, C7 "
+              f"{c7.launches}")
+        out.update(neco_loss=float(loss), neco_s=neco_s,
+                   neco_c7_launches=c7.launches)
+        phase("parallel", f"neco_train_step_sharded at full width on 2 pairs "
+              f"(coarse pad {pad[cl]}): loss {float(loss):.5f}, the largest "
+              f"move {moved:.3e}, C7 {c7.launches} launches, "
+              f"{neco_s:.3f} s")
+
+        # the sweep under torchrun's variables for a world of 1 against a
+        # plain run: the same ledger row, no .p suffix
+        work = REPO / "build" / "chip_smoke" / "parallel"
+        shutil.rmtree(work, ignore_errors=True)
+        write_4dmatch_suite(str(work / "split"), "4DMatch-F", n_pairs=1)
+        argv = ["--config", str(REPO / "config" / "NDP.yaml"), "--data-root",
+                str(work / "split"), "--splits", "4DMatch-F", "--device",
+                str(dev)]
+        ev.main([*argv, "--log-dir", str(work / "torchrun")])
+    finally:
+        dist.destroy_process_group()
+    for k in env:
+        os.environ.pop(k)
+    ev.main([*argv, "--log-dir", str(work / "plain")])
+    rows = {tag: (work / tag / "4DMatch-F.pairs.jsonl").read_text()
+            for tag in ("torchrun", "plain")}
+    check(rows["torchrun"] == rows["plain"] and rows["plain"].count("\n") == 1
+          and not list((work / "torchrun").glob("*.p0.*")),
+          f"parallel: the world-of-1 sweep's row differs: {rows}")
+    phase("parallel", "eval_nolearned under torchrun's variables (world 1): "
+          "the same ledger row as a plain run, no .p suffix")
+
+    # two ranks on the one card under gloo (NCCL takes one rank a card)
+    payload = dict(device=str(dev), keys=keys, src=src.cpu(), tgt=tgt.cpu(),
+                   flow_gt=flow_gt.cpu(), warped=warped.cpu(),
+                   iters=iters, x=x.cpu(), y=y.cpu(), nn=nn.cpu())
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, port, payload, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        res = dict(queue.get(timeout=600) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+    gloo_s = time.perf_counter() - t0
+    for r in range(2):
+        check("error" not in res[r], f"parallel: gloo rank {r}: "
+              f"{res[r].get('error')}")
+        check(res[r]["warped_equal"] and res[r]["iters_equal"]
+              and res[r]["nn_equal"] and res[r]["sums_rel_err"] <= 1e-6,
+              f"parallel: gloo rank {r}: {res[r]}")
+        for name in PARALLEL_KERNELS + ("nn_argmin",):
+            check(res[r]["launches"].get(name, 0) > 0,
+                  f"parallel: gloo rank {r} never launched {name}")
+    out.update(gloo=res, gloo_s=gloo_s,
+               seconds=time.perf_counter() - t_phase)
+    phase("parallel", f"gloo, 2 ranks on one card, CUDA tensors: "
+          f"register_sharded (one pair a rank) bit-equal to register_batch, "
+          f"sharded_nn_min over a model axis of 2 bit-equal to C14, metric "
+          f"sums within {max(r['sums_rel_err'] for r in res.values()):.1e}; "
+          f"launches rank 0 {res[0]['launches']}, rank 1 "
+          f"{res[1]['launches']}; {gloo_s:.3f} s with the start-up")
+    return out
+
+
 def machine_line() -> str:
     """The card, its driver, power limit and compute capability, the CUDA
     of PyTorch and of nvcc: what ties a failing run to its machine."""
@@ -4055,6 +4612,13 @@ def main() -> None:
     small_phase(dp, dev)
     small_landmark_phase(dev)
 
+    multiview = multiview_phase(dp, dev, kernels)
+    parallel = parallel_phase(dp, dev, kernels)
+    phase("multiview", f"step {multiview['step_ms']:.3f} ms, epoch "
+          f"{multiview['epoch_s']:.3f} s, phase "
+          f"{multiview['train_s'] + multiview['suite_s']:.3f} s of training; "
+          f"parallel phase {parallel['seconds']:.3f} s; {smi}")
+
     sources = {"nn_dual": ("csrc/nn_dual.cu", "ops/knn.py:389"),
                "level_warp_fwd": ("csrc/level_warp.cu",
                                   "ops/fused_iteration.py:139"),
@@ -4177,6 +4741,16 @@ def main() -> None:
         for key in ("at_4096_2836", "at_1024_900"):
             if key in measured[k.name]:
                 row[key] = measured[k.name][key]
+        if k.name in PARALLEL_KERNELS:
+            row["parallel_launches"] = {
+                "register_sharded": parallel["launches"][k.name],
+                "gloo_ranks": [parallel["gloo"][r]["launches"][k.name]
+                               for r in range(2)]}
+        if k.name == "nn_argmin":
+            row["parallel_launches"] = {
+                "sharded_nn_min": parallel["nn_min_c14_launches"],
+                "gloo_ranks": [parallel["gloo"][r]["launches"][k.name]
+                               for r in range(2)]}
         if k.name in ("flash_attention_fwd", "ldmk_iteration"):
             row["eval_supervised_launches"] = \
                 supervised["main"]["launches"][k.name]
@@ -4206,7 +4780,9 @@ def main() -> None:
         "ed": {k: v for k, v in ed.items() if k != "c14"},
         "supervised": {tag: {k: v for k, v in r.items() if k != "rows"}
                        for tag, r in supervised.items()},
-        "threedmatch": threedmatch}), flush=True)
+        "threedmatch": threedmatch,
+        "multiview": multiview,
+        "parallel": parallel}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ Usage:
       [--info data/split/3DMatch/test_info.npz --base-dir data/split] \\
       [--device cpu]
 
-What is not ported raises: ``--visualize`` (``utils/vis.py``).
+``--visualize`` writes each pair's correspondence lines under
+``<log-dir>/vis/``, coloured by the ground-truth inlier test: an edge PLY
+and a PNG (the PNG needs matplotlib).
 """
 from __future__ import annotations
 
@@ -55,9 +57,6 @@ def run_eval_3dmatch(lcfg: LandmarkConfig, params, ds: ThreeDMatchDataset,
     seconds of the matcher and of the host RANSAC (``matcher_s``,
     ``ransac_s``).
     """
-    if visualize:
-        raise NotImplementedError(
-            "--visualize needs utils/vis.py, which is not ported")
     device = torch.device(device)
     os.makedirs(log_dir, exist_ok=True)
     write_run_provenance(log_dir, device=str(device))
@@ -112,6 +111,21 @@ def run_eval_3dmatch(lcfg: LandmarkConfig, params, ds: ThreeDMatchDataset,
             rre = float(np.degrees(np.arccos(cos_a)))
             rte = float(np.linalg.norm(t - pair.trans.reshape(3)))
 
+            if visualize and len(ldmk_s):
+                from ..utils.vis import (export_correspondences_ply,
+                                         visualize_correspondences)
+
+                vdir = os.path.join(log_dir, "vis")
+                os.makedirs(vdir, exist_ok=True)
+                base = os.path.join(
+                    vdir, os.path.basename(pair.name).replace("/", "_"))
+                gt_inl = np.linalg.norm(warped - ldmk_t, axis=1) < 0.04
+                export_correspondences_ply(base + "_corr.ply", ldmk_s,
+                                           ldmk_t, inlier=gt_inl)
+                visualize_correspondences(ldmk_s, ldmk_t, inlier=gt_inl,
+                                          src_pcd=pair.src, tgt_pcd=pair.tgt,
+                                          save_path=base + "_corr.png")
+
             row = {"recall_ok": float(err < recall_thr),
                    "trans_err": float(err), "IR": ir, "RRE_deg": rre,
                    "RTE": rte, "n_matches": float(ldmk_valid.sum()),
@@ -158,7 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-reject-outliers", dest="reject_outliers",
                     action="store_false")
     ap.add_argument("--visualize", action="store_true",
-                    help="not ported (needs utils/vis.py): raises")
+                    help="save per-pair correspondence-line renders "
+                         "(ground-truth-inlier PNG + edge PLY) under "
+                         "<log-dir>/vis/")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the landmark model (default cuda)")
 
@@ -168,9 +184,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     """Run the evaluation; returns :func:`run_eval_3dmatch`'s summary."""
     args = build_parser().parse_args(argv)
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize needs utils/vis.py, which is not ported")
     cfg = load_config(args.config)
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -196,7 +209,8 @@ def main(argv: list[str] | None = None) -> dict:
         gt_covs = gt_covs[: args.limit]
     return run_eval_3dmatch(lcfg, params, ds, gt_covs, log_dir=args.log_dir,
                             ransac_iters=args.ransac_iters,
-                            ransac_thr=args.ransac_thr, device=device)
+                            ransac_thr=args.ransac_thr,
+                            visualize=args.visualize, device=device)
 
 
 if __name__ == "__main__":

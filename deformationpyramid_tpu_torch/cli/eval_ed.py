@@ -16,12 +16,13 @@ Usage:
 Pairs without ``depth_paths`` and ``cam_intrin`` are skipped (the suites
 that ``data.synthetic.write_4dmatch_suite`` writes have none). Everything
 runs on ``--device`` (``cuda`` by default); pair i of a split is solved
-from seed i. ``--visualize`` raises: it needs ``utils/vis.py``, which is
-not ported.
+from seed i. ``--visualize`` writes each pair's deformation graph under
+``<log-dir>/vis/``: an edge PLY and a PNG (the PNG needs matplotlib).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -75,9 +76,6 @@ def evaluate_pair_ed(pair, cfg, scfg: EDSolverConfig,
     solve's seconds and stats, the warped source vertices and the landmark
     indices.
     """
-    if vis_dir is not None:
-        raise NotImplementedError(
-            "--visualize needs utils/vis.py, which is not ported")
     # The source depth is read in mm (the graph build divides by 1000);
     # the target in m, as the JAX package and the reference read them.
     src_depth = _read_depth(pair.depth_paths[0])
@@ -93,6 +91,19 @@ def evaluate_pair_ed(pair, cfg, scfg: EDSolverConfig,
         remove_sparse_nodes=cfg.get(
             "REMOVE_NODES_WITH_NOT_ENOUGH_NEIGHBORS", True),
         seconds=graph_s)
+
+    if vis_dir is not None:
+        # deformation-graph render (nodes + kNN edges over the eroded
+        # source surface), edge PLY + PNG: the ED path's debugging view
+        # (reference utils/vis.py node_o3d_spheres + graph draws)
+        from ..utils.vis import export_graph_ply, visualize_graph
+
+        os.makedirs(vis_dir, exist_ok=True)
+        base = os.path.join(vis_dir, pair.name.replace("/", "_"))
+        export_graph_ply(base + "_graph.ply", g.nodes, g.edges,
+                         edges_valid=g.edges_valid)
+        visualize_graph(g.nodes, g.edges, edges_valid=g.edges_valid,
+                        pcd=g.vertices, save_path=base + "_graph.png")
 
     tgt_pc_img = depth_to_pointcloud(tgt_depth, K)
     tgt_mask = tgt_depth > 0
@@ -210,7 +221,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--weights", default=None,
                     help="npz checkpoint of the landmark model")
     ap.add_argument("--visualize", action="store_true",
-                    help="not ported (needs utils/vis.py): raises")
+                    help="save per-pair deformation-graph renders "
+                         "(PNG + edge PLY) under <log-dir>/vis/")
+    ap.add_argument("--log-dir", default="snapshot/ed")
     return ap
 
 
@@ -220,9 +233,6 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
     time, "iters": {pair name: solver iterations}, "info": [per-pair
     info of evaluate_pair_ed, the warp left out]}``."""
     args = build_parser().parse_args(argv)
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize needs utils/vis.py, which is not ported")
     cfg = load_config(args.config)
     if args.data_root is not None:
         cfg["data_root"] = args.data_root
@@ -254,6 +264,8 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
             timers.tic("graph+registration")
             flow, flow_gt, overlap = evaluate_pair_ed(
                 pair, cfg, scfg, i, landmark_fn=landmark_fn,
+                vis_dir=(os.path.join(args.log_dir, "vis")
+                         if args.visualize else None),
                 device=device, info=info)
             timers.toc("graph+registration")
             m = compute_flow_metrics(torch.from_numpy(flow),

@@ -22,9 +22,19 @@ metrics pass over the full cloud at a power-of-two bucket, and fetches the
 12 metrics of a pair as one vector; ``--no-fast`` solves padded bucket
 batches pair by pair through ``register_pair`` and its siblings
 (Sinkhorn's only path: it scores the moved subset). Everything runs on
-``--device`` (``cuda`` by default). What is not ported raises:
-``--visualize`` (``utils/vis.py``) and the multi-host shard
-(``parallel/mesh.py``).
+``--device`` (``cuda`` by default). ``--visualize`` renders each pair's
+source, target and warped source to ``<log-dir>/<split>-NNNN.png`` (needs
+matplotlib).
+
+Several cards sweep one split under ``torchrun``:
+
+  torchrun --nproc-per-node N \
+      -m deformationpyramid_tpu_torch.cli.eval_nolearned --config ...
+
+Rank r of a world of W solves pairs r, r + W, r + 2W, ... of the split on
+``cuda:LOCAL_RANK`` and writes its own ``<split>.p<r>.log`` / ``.done`` /
+``.pairs.jsonl``, as the JAX package's multi-host sweep does; a world of
+one writes the plain names.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.fourdmatch import BucketBatcher, FourDMatchDataset, _bucket_size
 from ..metrics.flow import compute_flow_metrics
@@ -44,6 +55,7 @@ from ..models.baselines import (init_nerfies_params, init_nsfp_params,
                                 nerfies_warp)
 from ..models.pyramid import (NDPConfig, init_pyramid_params, params_to_numpy,
                               warp, warp_numpy)
+from ..parallel.mesh import initialize_distributed, local_device
 from ..solve.baselines import (NSFPSolverConfig, NerfiesSolverConfig,
                                SinkhornSolverConfig, nerfies_net, nsfp_warp,
                                optimize_nerfies, optimize_nsfp,
@@ -332,7 +344,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--depth", type=int, default=16,
                     help="pairs whose metric vector may wait unfetched")
     ap.add_argument("--visualize", action="store_true",
-                    help="not ported (needs utils/vis.py): raises")
+                    help="render each pair's source, target and warped "
+                         "source to <log-dir>/<split>-NNNN.png (matplotlib)")
     ap.add_argument("--no-fast", dest="fast", action="store_false",
                     help="disable the fixed-shape fast path (NDP / NSFP / "
                          "Nerfies) and solve padded bucket batches")
@@ -376,33 +389,37 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
         if args.visualize:
             ed_argv.append("--visualize")
         return eval_ed.main(ed_argv)
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize needs utils/vis.py, which is not ported")
     if int(os.environ.get("JAX_NUM_PROCESSES", "1")) > 1 \
-            or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "the multi-host shard of the pair list (parallel/mesh.py) is "
-            "not ported: run one process")
-    device = torch.device(args.device)
+            and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        raise RuntimeError(
+            "JAX_NUM_PROCESSES > 1 without a torch.distributed world: start "
+            "the ranks with torchrun (WORLD_SIZE, RANK, LOCAL_RANK, "
+            "MASTER_ADDR, MASTER_PORT)")
+    # multi-process sweep: each rank takes a strided share of the pairs
+    created = not dist.is_initialized()
+    multi = initialize_distributed(args.device)
+    rank, world = ((dist.get_rank(), dist.get_world_size()) if multi
+                   else (0, 1))
+    suffix = f".p{rank}" if multi else ""
+    device = local_device(args.device)
     if device.type == "cuda":
         # the kernels launch on the current device: make it the one asked for
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
 
     snap_dir = args.log_dir or os.path.join(
         "snapshot", str(cfg.get("folder", "eval")),
         str(cfg.get("exp_dir", "run")))
     os.makedirs(snap_dir, exist_ok=True)
-    write_run_provenance(snap_dir, args.config, device=str(device))
+    if rank == 0:
+        write_run_provenance(snap_dir, args.config, device=str(device))
 
     scfg, run_batch, flow_scope = solver_from_config(cfg, device)
     timers = Timers()
     use_fast = args.fast and model in FAST_MODELS
     host_metrics = False
     if use_fast:
-        solve_fixed, warp_metrics, _ = make_fast_solver(model, scfg, device)
+        solve_fixed, warp_metrics, warp_bucket = make_fast_solver(
+            model, scfg, device)
         host_metrics = args.host_metrics and model == "NDP"
         if args.host_metrics and not host_metrics:
             print("[warn] --host-metrics is NDP-only; using device metrics")
@@ -415,16 +432,17 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
             continue
         if args.limit is not None:
             ds.entries = ds.entries[: args.limit]
+        ds.entries = ds.entries[rank::world]
         n_total = len(ds)  # before resume filtering, for an honest done/total
-        logger = Logger(os.path.join(snap_dir, split + ".log"))
+        logger = Logger(os.path.join(snap_dir, split + suffix + ".log"))
         meters: dict[str, AverageMeter] = {}
         n_done = 0
 
         # Resume: the .pairs.jsonl ledger records every finished pair's
         # metrics, so a resumed sweep both skips finished pairs and
         # recovers their share of the final means.
-        done_path = os.path.join(snap_dir, split + ".done")
-        ledger_path = os.path.join(snap_dir, split + ".pairs.jsonl")
+        done_path = os.path.join(snap_dir, split + suffix + ".done")
+        ledger_path = os.path.join(snap_dir, split + suffix + ".pairs.jsonl")
         if args.resume and os.path.exists(done_path):
             with open(done_path) as f:
                 finished = set(f.read().split())
@@ -448,15 +466,23 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
         stamps: list[float] = []   # harvest times -> the per-pair summary
         iters_done: dict[str, list[int]] = {}
 
-        def record(name: str, vals) -> None:
+        def record(name: str, vals, vis=None) -> None:
             """Fold one pair's fetched vector (the 12 metrics, then the
-            solver's iteration counts) into the meters and the ledger."""
+            solver's iteration counts) into the meters and the ledger;
+            ``vis`` (source, target, warped source) renders the pair."""
             nonlocal n_done
             iters_done[name] = [int(v) for v in vals[len(METRIC_KEYS):]]
             row = dict(zip(METRIC_KEYS, (float(v) for v in vals)))
             for k2, v in row.items():
                 meters.setdefault(k2, AverageMeter()).update(v)
             n_done += 1
+            if vis is not None:
+                from ..utils.vis import visualize_pcds
+                src_v, tgt_v, warped_v = vis
+                visualize_pcds(
+                    os.path.join(snap_dir, f"{split}{suffix}-"
+                                 f"{n_done:04d}.png"),
+                    src_pcd=src_v, tgt_pcd=tgt_v, warped_pcd=warped_v)
             ledger_fw.write(json.dumps(dict(row, name=name)) + "\n")
             ledger_fw.flush()
             done_fw.write(name + "\n")
@@ -482,6 +508,7 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
             flow_gt, overlap = dev(batch.flow_gt), dev(batch.overlap)
             vecs = []
             for j, name in enumerate(names):
+                ns = int(batch.src_valid[rows[j]].sum())
                 if flow_scope == "subset":
                     # Sinkhorn is scored on the moved sample subset
                     # (reference eval_nolearned.py:105-108)
@@ -489,19 +516,28 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
                     sel = s_idx[j][s_valid[j]]
                     vec = metric_vector(moved[j][s_valid[j]] - src[j][sel],
                                         flow_gt[j][sel], overlap[j][sel])
+                    warped = moved[j][s_valid[j]]
                 else:
                     vec = metric_vector(out[0][j] - src[j], flow_gt[j],
                                         overlap[j], valid[j])
-                vecs.append((name, _with_iters(vec, out[-1], j)))
+                    warped = out[0][j, :ns]
+                vis = None
+                if args.visualize:
+                    nt = int(batch.tgt_valid[rows[j]].sum())
+                    vis = (batch.src[rows[j], :ns], batch.tgt[rows[j], :nt],
+                           warped)
+                vecs.append((name, _with_iters(vec, out[-1], j), vis))
             return vecs
 
         def harvest(vecs) -> None:
             """Fetch one dispatched batch's metric vectors (one transfer)
             and fold its pairs into the meters. One wait covered the whole
             batch, so the stamps are amortised: k equal intervals."""
-            vals = torch.stack([v for _, v in vecs]).cpu().numpy()
-            for (name, _), row in zip(vecs, vals):
-                record(name, row)
+            vals = torch.stack([v for _, v, _ in vecs]).cpu().numpy()
+            for (name, _, vis), row in zip(vecs, vals):
+                if vis is not None:
+                    vis = (vis[0], vis[1], vis[2].cpu().numpy())
+                record(name, row, vis)
             now = time.perf_counter()
             prev, k = stamps[-1], len(vecs)
             stamps.extend(prev + (now - prev) * (j + 1) / k for j in range(k))
@@ -509,7 +545,7 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
         def harvest_fast(item) -> None:
             """Fetch one solved pair (its vector, or with --host-metrics
             its solver state) and fold it into the meters."""
-            name, out, host_data = item
+            name, out, host_data, vis = item
             if host_data is not None:
                 # --host-metrics: fetch the parameters, warp the true rows
                 # and score on the host; padded rows keep zero flow
@@ -527,7 +563,15 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
                     {"iters": stats["iters"].cpu()}).numpy()
             else:
                 vals = out.cpu().numpy()   # the one fetch of this pair
-            record(name, vals)
+            if vis is not None:
+                # the warp is target-centred: add the target's mean back
+                pair, warped_c, ns_v = vis
+                if warped_c is None:       # --host-metrics: the host warp
+                    warped_c = warped
+                vis = (pair.src, pair.tgt, np.asarray(
+                    warped_c.cpu() if isinstance(warped_c, Tensor)
+                    else warped_c)[:ns_v] + pair.tgt.mean(0))
+            record(name, vals, vis)
             stamps.append(time.perf_counter())
 
         t_split = time.perf_counter()
@@ -544,8 +588,8 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
                         pair, pid, args.seed, scfg.samples)
                     st_dev = torch.from_numpy(st_packed).to(device)
                     if host_metrics:   # the big block never goes to the device
-                        return pair.name, pid, st_dev, packed, ns, delta
-                    return (pair.name, pid, st_dev,
+                        return pair, pid, st_dev, packed, ns, delta
+                    return (pair, pid, st_dev,
                             torch.from_numpy(packed).to(device), ns,
                             torch.from_numpy(delta).to(device))
 
@@ -557,18 +601,23 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
                             for i in range(min(look_ahead, n_entries))]
                     for i in range(n_entries):
                         timers.tic("dispatch")
-                        name, pid, st_packed, packed, ns, delta = \
+                        pair, pid, st_packed, packed, ns, delta = \
                             futs.pop(0).result()
                         if i + look_ahead < n_entries:
                             futs.append(pool.submit(prep, i + look_ahead))
                         state = solve_fixed(pair_seed(pid, args.seed),
                                             st_packed)
+                        vis = None
+                        if args.visualize:
+                            vis = (pair, None if host_metrics
+                                   else warp_bucket(state, packed), ns)
                         if host_metrics:
-                            pending.append((name, state, (packed, delta, ns)))
+                            pending.append((pair.name, state,
+                                            (packed, delta, ns), vis))
                         else:
-                            pending.append((name, _with_iters(
+                            pending.append((pair.name, _with_iters(
                                 warp_metrics(state, packed, delta), state[1]),
-                                None))
+                                None, vis))
                         timers.toc("dispatch")
                         if len(pending) > args.depth:
                             with timers.span("harvest"):
@@ -618,6 +667,8 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
     print("time cost average")
     for line in timers.get_strings():
         print(line)
+    if multi and created:
+        dist.destroy_process_group()
     return report
 
 

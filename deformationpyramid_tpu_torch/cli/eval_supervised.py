@@ -15,8 +15,10 @@ Usage:
 
 Without --weights the landmark model runs with the weights of seed 0
 (pipeline validation only). The per-split ledgers (``<split>.log``,
-``.pairs.jsonl``, ``.done``) have the JAX package's format. What is not
-ported raises: ``--visualize`` (``utils/vis.py``).
+``.pairs.jsonl``, ``.done``) have the JAX package's format.
+``--visualize`` writes each pair's correspondence lines under
+``<log-dir>/vis/``: a PNG coloured by NeCo's confidence (needs matplotlib)
+and an edge PLY coloured by the ground-truth inlier test.
 """
 from __future__ import annotations
 
@@ -103,6 +105,25 @@ def _pad_rows(a: np.ndarray, rows: int, dtype) -> np.ndarray:
     return out
 
 
+def write_correspondence_vis(log_dir: str, pair, ldmk_s: np.ndarray,
+                             ldmk_t: np.ndarray, confidence: np.ndarray,
+                             inlier: np.ndarray) -> None:
+    """``<log_dir>/vis/<pair>_corr.ply`` (the edges coloured by ``inlier``)
+    and ``_corr.png`` (coloured by ``confidence``, over the two clouds).
+    The PLY is written first: it needs no matplotlib."""
+    from ..utils.vis import (export_correspondences_ply,
+                             visualize_correspondences)
+
+    vdir = os.path.join(log_dir, "vis")
+    os.makedirs(vdir, exist_ok=True)
+    base = os.path.join(vdir, pair.name.replace("/", "_"))
+    export_correspondences_ply(base + "_corr.ply", ldmk_s, ldmk_t,
+                               inlier=inlier)
+    visualize_correspondences(ldmk_s, ldmk_t, confidence=confidence,
+                              src_pcd=pair.src, tgt_pcd=pair.tgt,
+                              save_path=base + "_corr.png")
+
+
 def run_eval(cfg, lcfg: LandmarkConfig, params, scfg: SolverConfig,
              splits, batch_limit=None, seed=0, log_dir="snapshot/lndp",
              stream_depth: int = 4, resume: bool = False,
@@ -119,9 +140,6 @@ def run_eval(cfg, lcfg: LandmarkConfig, params, scfg: SolverConfig,
     name and ``seed``, so that a resumed sweep seeds a pair as the first
     run did; its initial pyramid comes from :func:`initial_params`.
     """
-    if visualize:
-        raise NotImplementedError(
-            "--visualize needs utils/vis.py, which is not ported")
     device = torch.device(device)
     timers = Timers()
     write_run_provenance(log_dir, device=str(device))
@@ -290,9 +308,10 @@ def run_eval(cfg, lcfg: LandmarkConfig, params, scfg: SolverConfig,
             # matcher-side metrics on the host: IR @ 0.04 m on the landmark
             # pairs; NRFMR over the metric-index sample (4DLoMatch) or the
             # overlap
+            ldmk_flow_gt = interp(ldmk_s.numpy())
             m["IR"] = float(inlier_ratio(
                 ldmk_s, ldmk_t, ldmk_valid, rot, trn,
-                torch.from_numpy(interp(ldmk_s.numpy()))))
+                torch.from_numpy(ldmk_flow_gt)))
             # pre-NeCo IR over the raw mutual-max match set (reference
             # outlier_rejection/loss.py:30-60): IR - IR_pre is NeCo's effect
             v6 = data["vec_6d"].cpu().numpy()
@@ -313,6 +332,18 @@ def run_eval(cfg, lcfg: LandmarkConfig, params, scfg: SolverConfig,
                     torch.from_numpy(np.ascontiguousarray(pair.src[mi])),
                     torch.from_numpy(np.ascontiguousarray(
                         pair.flow_gt[mi]))))
+            if visualize and bool(ldmk_valid.any()):
+                # correspondence lines: NeCo-confidence PNG and ground-truth
+                # inlier edge PLY (reference utils/vis.py correspondence
+                # toggles), as the JAX CLI writes them
+                sel = ldmk_valid.numpy().astype(bool)
+                s_np, t_np = ldmk_s.numpy()[sel], ldmk_t.numpy()[sel]
+                warped = ((pair.rot @ (s_np + ldmk_flow_gt[sel]).T).T
+                          + pair.trans.reshape(3))
+                inl = np.linalg.norm(warped - t_np, axis=1) < 0.04
+                write_correspondence_vis(
+                    log_dir, pair, s_np, t_np,
+                    data["neco_confidence"].cpu().numpy()[sel], inl)
             row = {k2: float(v) for k2, v in m.items()}
             for k2, v in row.items():
                 meters.setdefault(k2, AverageMeter()).update(v)
@@ -469,7 +500,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(outlier_rejection/loss.py:162-190 at 4 cm): the "
                          "outlier rejection's ceiling (uses the ground truth)")
     ap.add_argument("--visualize", action="store_true",
-                    help="not ported (needs utils/vis.py): raises")
+                    help="save per-pair correspondence-line renders "
+                         "(NeCo-confidence PNG + ground-truth-inlier edge "
+                         "PLY) under <log-dir>/vis/")
     ap.add_argument("--stage-timers", action="store_true",
                     help="synchronise between the matcher, NeCo and solver "
                          "stages and record each pair's ms per stage (slower "
@@ -480,9 +513,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict[str, dict]:
     """Run the sweep; returns :func:`run_eval`'s report."""
     args = build_parser().parse_args(argv)
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize needs utils/vis.py, which is not ported")
     cfg = load_config(args.config)
     if args.data_root is not None:
         cfg["data_root"] = args.data_root
@@ -508,7 +538,8 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
                     stream_depth=args.depth,
                     resume=args.resume, log_dir=args.log_dir,
                     stage_timers=args.stage_timers,
-                    oracle_filter=args.oracle_filter, device=device)
+                    oracle_filter=args.oracle_filter,
+                    visualize=args.visualize, device=device)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Synthetic deformed point-cloud pairs for tests and benchmarks.
 
 A copy of ``make_pair``, ``make_batch``, ``write_4dmatch_suite``,
-``write_3dmatch_suite`` and ``write_3dmatch_train_suite`` from
+``write_3dmatch_suite``, ``write_3dmatch_train_suite`` and
+``write_multiview_suite`` from
 ``deformationpyramid_tpu/data/synthetic.py``: importing any module of the
 JAX package imports JAX, so the port keeps its own numpy generators. The
 parity tests hold the two copies bit-identical.
@@ -248,5 +249,52 @@ def write_3dmatch_train_suite(root: str, split: str, n_pairs: int = 32,
                  s2t_flow=np.zeros((n_keep, 3), np.float32), s_pc=src,
                  t_pc=tgt, correspondences=corr,
                  metric_index=rng.permutation(n_keep)[:500])
+        paths.append(path)
+    return paths
+
+
+def write_multiview_suite(root: str, split: str, n_seqs: int = 4,
+                          n_views: int = 4, n_pts: int = 500,
+                          deform: float = 0.1, seed: int = 0) -> list[str]:
+    """Fabricate multiview npz sequences in the ``_4DMatch_Multiview``
+    layout (reference ``correspondence/datasets/_4dmatch_multiview.py:61-100``):
+    per-sequence pcds [V,N,3], pcd_pairs [P,2], pairwise_flows [P,N,3],
+    pairwise_overlap [P,2], poses [V,4,4]. Views are progressive smooth
+    deformations of one base cloud, so pairwise flows are consistent by
+    construction.
+    """
+    import os
+
+    rng = np.random.default_rng(seed)
+    out_dir = os.path.join(root, split)
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for s in range(n_seqs):
+        base, _, _ = make_pair(n=n_pts, seed=seed * 100 + s, deform=deform)
+        views = [base]
+        for v in range(1, n_views):
+            disp = deform * np.stack([
+                np.sin((1.0 + 0.3 * v) * base[:, 1] + 0.2 * v),
+                np.cos((1.2 - 0.1 * v) * base[:, 0] + 0.5 * v),
+                0.4 * np.sin(base[:, 0] + 0.6 * v * base[:, 1]),
+            ], -1).astype(np.float32)
+            views.append(base + disp)
+        pcds = np.stack(views)
+        pairs, flows, overlaps = [], [], []
+        for a in range(n_views):
+            for b in range(n_views):
+                if a == b:
+                    continue
+                pairs.append([a, b])
+                flows.append(pcds[b] - pcds[a])
+                overlaps.append([0.9, 0.9])
+        path = os.path.join(out_dir, f"seq{s:03d}.npz")
+        np.savez(path, pcds=pcds, pcd_pairs=np.array(pairs, np.int64),
+                 pairwise_flows=np.stack(flows).astype(np.float32),
+                 pairwise_overlap=np.array(overlaps, np.float32),
+                 _2axis_flow=np.zeros((n_views, n_pts, 3), np.float32),
+                 axis_node=np.zeros((3,), np.int64),
+                 poses=np.tile(np.eye(4, dtype=np.float32),
+                               (n_views, 1, 1)))
         paths.append(path)
     return paths

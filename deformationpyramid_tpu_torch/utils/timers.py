@@ -3,11 +3,14 @@
 Counterpart of ``deformationpyramid_tpu/utils/timers.py``: the same tic /
 toc API on the host clock. PyTorch returns from a CUDA call before the
 device has finished, so a ``toc`` that is to mean device time passes
-``sync=True`` and waits for the current stream first.
+``sync=True`` and waits for the current stream first. For kernel-level
+profiles, :func:`trace` writes a ``torch.profiler`` Chrome trace where the
+JAX package writes a ``jax.profiler`` one.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import torch
@@ -62,3 +65,18 @@ class Timers:
     def get_strings(self) -> list[str]:
         return [f"{k}: avg {v.avg * 1000:.2f} ms over {v.count} calls "
                 f"(total {v.total:.3f} s)" for k, v in self.timers.items()]
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``torch.profiler`` over the block (host ops, and the device's
+    kernels where CUDA is available), written on exit as a Chrome trace,
+    ``<log_dir>/trace.json``. Yields the profiler (``key_averages()`` for
+    sums by kernel)."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -14,6 +14,7 @@ matches: what differs is the matcher's float32 coordinates, ~1e-6).
 import json
 import os
 import zipfile
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -160,7 +161,8 @@ def test_run_eval_3dmatch_matches_jax(runs):
 
 def test_main_flags(runs, tmp_path, monkeypatch):
     """main(): --limit, --no-reject-outliers and --ransac-* reach
-    run_eval_3dmatch; --visualize raises (utils/vis.py is not ported)."""
+    run_eval_3dmatch, --visualize too, which writes a correspondence PLY
+    (an edge a match) and PNG a pair under <log-dir>/vis/."""
     seen = {}
 
     def fake(lcfg, params, ds, gt_covs, **kw):
@@ -178,7 +180,23 @@ def test_main_flags(runs, tmp_path, monkeypatch):
               "--log-dir", str(tmp_path)])
     assert seen["n"] == seen["covs"] == 1 and not seen["reject"]
     assert (seen["ransac_iters"], seen["ransac_thr"]) == (50, 0.1)
-    with pytest.raises(NotImplementedError, match="vis"):
-        tev.main(["--config", "config/LNDP.yaml", "--visualize"])
-    with pytest.raises(NotImplementedError, match="vis"):
-        real(None, None, [], [], visualize=True)
+    assert seen["visualize"] is False
+    tev.main(["--config", "config/LNDP.yaml", "--info",
+              f"{base}/3DMatch/test_info.npz", "--base-dir", base,
+              "--visualize", "--device", "cpu"])
+    assert seen["visualize"] is True
+    tds = ThreeDMatchDataset(f"{base}/3DMatch/test_info.npz", base)
+    tds.infos = {k: v[:1] for k, v in tds.infos.items()}
+    tparams = tdp.params_from_numpy(jax.tree.map(np.asarray,
+                                                 jl.init_landmark_model(
+                                                     jax.random.key(0),
+                                                     landmark_cfg(JMODS))),
+                                    "cpu")
+    real(landmark_cfg(TMODS), tparams, tds, tds.infos["gt_cov"],
+         log_dir=str(tmp_path / "vis"), ransac_iters=20, visualize=True,
+         device="cpu")
+    row = json.loads((tmp_path / "vis" / "3DMatch.pairs.jsonl").read_text())
+    base = tmp_path / "vis" / "vis" / os.path.basename(tds[0].name)
+    ply = Path(str(base) + "_corr.ply").read_text()
+    assert f"element edge {int(row['n_matches'])}\n" in ply
+    assert Path(str(base) + "_corr.png").stat().st_size > 0

@@ -12,6 +12,7 @@ own spread between two keys (on these pairs the reference's own
 trajectories part within a few iterations), and an error against the true
 flow no more than 1% above the worse key's.
 """
+import os
 import sys
 from pathlib import Path
 
@@ -171,11 +172,31 @@ def test_eval_nolearned_delegates_ed_configs(tmp_path, monkeypatch):
 
 
 def test_visualize_raises(tmp_path):
+    """--visualize no longer raises: each pair's deformation graph goes to
+    <vis_dir>/<pair>_graph.ply (the JAX writer's bytes) and .png."""
+    from deformationpyramid_tpu.utils import vis as jvis
+
     jpair, tpair = _synthetic_pair(tmp_path, 20, 24, 40.0,
                                    np.array([0.0, 0.0, 0.01], np.float32))
-    with pytest.raises(NotImplementedError, match="utils/vis.py"):
-        teval.evaluate_pair_ed(tpair, AttrDict(CFG), TCfg(iters=2), 0,
-                               vis_dir=str(tmp_path / "vis"), device="cpu")
-    with pytest.raises(NotImplementedError, match="utils/vis.py"):
-        teval.main(["--config", str(REPO / "config/baselines/NICP.yaml"),
-                    "--visualize", "--device", "cpu"])
+    info = {}
+    teval.evaluate_pair_ed(tpair, AttrDict(CFG), TCfg(iters=2), 0,
+                           vis_dir=str(tmp_path / "vis"), device="cpu",
+                           info=info)
+    base = os.path.join(tmp_path / "vis", tpair.name.replace("/", "_"))
+    assert Path(base + "_graph.png").stat().st_size > 0
+    g = teval.build_deformation_graph_from_depth(
+        teval._read_depth(tpair.depth_paths[0]), tpair.cam_intrin,
+        max_triangle_distance=CFG["max_triangle_distance"],
+        node_coverage=CFG["node_coverage"],
+        n_max_neighbors=CFG.get("num_neighbors", 8),
+        remove_sparse_nodes=CFG.get(
+            "REMOVE_NODES_WITH_NOT_ENOUGH_NEIGHBORS", True))
+    jvis.export_graph_ply(str(tmp_path / "j.ply"), g.nodes, g.edges,
+                          edges_valid=g.edges_valid)
+    assert Path(base + "_graph.ply").read_bytes() == \
+        (tmp_path / "j.ply").read_bytes()
+    rep = teval.main(["--config", str(REPO / "config/baselines/NICP.yaml"),
+                      "--visualize", "--device", "cpu", "--data-root",
+                      str(tmp_path / "none"), "--log-dir",
+                      str(tmp_path / "log")])
+    assert rep == {}

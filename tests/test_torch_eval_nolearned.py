@@ -128,13 +128,20 @@ def test_unknown_and_unported_models_raise(tmp_path, split, capsys):
                 tmp_path / "s") == {}
     out = capsys.readouterr().out
     assert "delegating to cli.eval_ed" in out and "no pairs with depth" in out
-    with pytest.raises(NotImplementedError, match="vis.py"):
-        _run(_yaml(tmp_path, split), tmp_path / "s", "--visualize")
+    # --visualize renders each pair (utils/vis.py, matplotlib)
+    _run(_yaml(tmp_path, split, iters=2), tmp_path / "v", "--limit", "2",
+         "--visualize")
+    assert sorted(p.name for p in (tmp_path / "v").glob("*.png")) == [
+        "4DMatch-F-0001.png", "4DMatch-F-0002.png"]
 
 
 def test_multi_host_raises(tmp_path, split, monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="mesh.py"):
+    """A JAX multi-process launch (JAX_NUM_PROCESSES > 1) without
+    torchrun's world raises and names torchrun; the torchrun sweep itself
+    is tests/test_torch_parallel.py's."""
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         _run(_yaml(tmp_path, split), tmp_path / "s")
 
 

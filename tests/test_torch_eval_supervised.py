@@ -192,7 +192,7 @@ def test_resume_solves_nothing_and_reproduces(sweep, capsys):
     assert len(_rows(log_dir / f"{SPLIT}.pairs.jsonl")) == 2
 
 
-def test_stage_timers_oracle_filter_and_visualize(sweep):
+def test_stage_timers_oracle_filter_and_visualize(sweep, monkeypatch):
     tmp = sweep["tmp"]
     args = (sweep["cfg"], sweep["tcfg"], sweep["tparams"], sweep["tscfg"],
             [SPLIT])
@@ -215,12 +215,23 @@ def test_stage_timers_oracle_filter_and_visualize(sweep):
         assert row["n_landmarks"] <= row["n_matches_pre"]
         if row["n_landmarks"] > 0:
             assert row["IR"] == pytest.approx(1.0)
-    with pytest.raises(NotImplementedError, match="vis"):
-        tev.run_eval(*args, log_dir=str(tmp / "vis"), visualize=True,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="vis"):
-        tev.main(["--config", "config/LNDP.yaml", "--visualize",
-                  "--device", "cpu"])
+    # --visualize: each pair with landmarks gets a correspondence PLY (one
+    # edge a landmark) and PNG under <log_dir>/vis/
+    tev.run_eval(*args, log_dir=str(tmp / "vis"), visualize=True,
+                 device="cpu")
+    for row in _rows(tmp / "vis" / f"{SPLIT}.pairs.jsonl"):
+        base = tmp / "vis" / "vis" / row["name"].replace("/", "_")
+        if row["n_landmarks"] == 0:
+            continue
+        ply = (base.parent / (base.name + "_corr.ply")).read_text()
+        assert f"element edge {int(row['n_landmarks'])}\n" in ply
+        assert (base.parent / (base.name + "_corr.png")).stat().st_size > 0
+    seen = {}
+    monkeypatch.setattr(tev, "run_eval",
+                        lambda *a, **kw: seen.update(kw) or {})
+    tev.main(["--config", "config/LNDP.yaml", "--visualize", "--device",
+              "cpu"])
+    assert seen["visualize"] is True
 
 
 def test_configs_from_the_yaml():

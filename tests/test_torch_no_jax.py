@@ -10,6 +10,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 SCRIPT = """
 import sys
+import numpy as np
 import torch
 import deformationpyramid_tpu_torch as dp
 from deformationpyramid_tpu_torch.data.synthetic import make_pair
@@ -190,6 +191,53 @@ with tempfile.TemporaryDirectory() as root:
                                        log_dir=root + "/3dm",
                                        ransac_iters=20, device="cpu")
     assert 0.0 <= s3["value"] <= 1.0
+# the multiview stack, one narrow training step through the CLI's step
+from deformationpyramid_tpu_torch.cli import train_multiview
+from deformationpyramid_tpu_torch.data import fourdmatch_multiview
+from deformationpyramid_tpu_torch.match import multiview, port_torch
+from deformationpyramid_tpu_torch.parallel import batched, mesh
+from deformationpyramid_tpu_torch.utils import debug, seed, vis
+with tempfile.TemporaryDirectory() as root:
+    synthetic.write_multiview_suite(root, "mv", n_seqs=1, n_views=3,
+                                    n_pts=60)
+    mv = fourdmatch_multiview.FourDMatchMultiview(root, "mv")
+    mcfg = multiview.MultiviewNeCoConfig(neco=outlier_rejection.NeCoConfig(
+        feature_dim=24, n_head=4, num_layers=1))
+    batch = train_multiview.make_training_batch(
+        mv[0], 8, 0.4, 6, 512, np.random.default_rng(0), 0.1)
+    mparams = multiview.init_multiview_neco(seed.setup_seed(0), mcfg)
+    opt = train_multiview.adam(1e-3)
+    _, _, mloss, _ = train_multiview.make_train_step(mcfg, opt)(
+        mparams, opt.init(mparams), *[torch.from_numpy(b) for b in batch])
+    assert torch.isfinite(mloss)
+    err, _ = debug.checkified(lambda: mloss)()
+    err.throw()
+    vis.export_pcds_ply(root + "/p.ply", src_pcd=src)
+    with timers.trace(root + "/trace"):
+        multiview.apply_nonlocalnet(
+            multiview.init_nonlocalnet(seed.setup_seed(1),
+                                       multiview.NonLocalNetConfig(
+                                           num_layers=1, num_channels=16)),
+            torch.from_numpy(batch[0][0]), torch.from_numpy(batch[1][0]),
+            multiview.NonLocalNetConfig(num_layers=1, num_channels=16))
+# sharded_nn_min on a 1-rank gloo mesh
+import socket
+import torch.distributed as tdist
+with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    free = sock.getsockname()[1]
+tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free}",
+                         world_size=1, rank=0)
+x = torch.from_numpy(src[:40])
+got = batched.sharded_nn_min(mesh.make_mesh())(x, torch.from_numpy(tgt))
+assert torch.equal(got, knn.nn_argmin(x, torch.from_numpy(tgt))[0])
+tdist.destroy_process_group()
+# a NeCo checkpoint in the reference's layout
+nd = lcfg.neco.feature_dim
+sd = {"in_proj.weight": np.ones((nd, 6), np.float32),
+      "in_proj.bias": np.zeros(nd, np.float32)}
+ported, rep = port_torch.port_neco(sd, params["neco"])
+assert "in_proj.weight" in rep["used"] and rep["missing"]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "deformationpyramid_tpu"
              or m.startswith("deformationpyramid_tpu."))

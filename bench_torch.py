@@ -23,9 +23,19 @@ routes come from the same environment variables as ``bench.py``'s:
 
 Baseline, as ``bench.py``: the reference's sequential loop at ~1.5 s a pair
 on a desktop GPU, so vs_baseline is against 1 / 1.5 = 0.67 pairs/s.
-``--streaming`` (``bench.py``'s continuous batching, ``solve/streaming.py``)
-is not ported and raises. ``--device cpu`` with a small ``--n`` runs the
-kernels' plain versions: a test of the harness, not a measurement.
+``--device cpu`` with a small ``--n`` runs the kernels' plain versions: a
+test of the harness, not a measurement.
+
+    python bench_torch.py --streaming [--total 16] [--slots 4] [--n 2000]
+                          [--k-inner 100] [--device cuda]
+
+is ``bench.py``'s ``main_streaming``: continuous batching
+(``solve/streaming.py register_stream``, every slot's 1-NN in one launch of
+kernel C1) on ``make_batch(total + slots, n, seed=0, deform=0.12)``, a
+warm-up on the first ``slots`` pairs (generator seed 0), then the other
+``total`` timed (seed 1). One JSON line on stdout: {"metric", "value",
+"unit", "card"} (no vs_baseline, as ``bench_lndp_torch.py``); the pairs'
+EPE against their initial flow, the seconds and the iterations on stderr.
 """
 from __future__ import annotations
 
@@ -36,8 +46,10 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
+from bench_lndp_torch import card_line
 from deformationpyramid_tpu_torch.data.synthetic import make_batch
 from deformationpyramid_tpu_torch.models.pyramid import NDPConfig
 from deformationpyramid_tpu_torch.solve.registration import (SolverConfig,
@@ -72,22 +84,27 @@ CFG = make_cfg()
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--total", type=int, default=32, help="timed pairs")
+    ap.add_argument("--total", type=int, default=None,
+                    help="timed pairs (32; 16 with --streaming)")
     ap.add_argument("--reps", type=int, default=3, help="repetitions")
     ap.add_argument("--n", type=int, default=2000, help="points a cloud")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--streaming", action="store_true",
-                    help="not ported (solve/streaming.py): raises")
+                    help="continuous batching (solve/streaming.py)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="--streaming: slots solved at once")
+    ap.add_argument("--k-inner", type=int, default=100,
+                    help="--streaming: iterations between two host polls")
     args = ap.parse_args(argv)
-    if args.streaming:
-        raise NotImplementedError(
-            "--streaming needs solve/streaming.py (continuous batching), "
-            "which is not ported")
     dev = torch.device(args.device)
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(dev)
+    if args.streaming:
+        return main_streaming(args.total or 16, args.slots, args.n,
+                              args.k_inner, dev)
+    args.total = args.total or 32
 
     def sync():
         if dev.type == "cuda":
@@ -137,6 +154,52 @@ def main(argv: list[str] | None = None) -> dict:
         "vs_baseline": round(pairs_per_sec / BASELINE_PAIRS_PER_SEC, 2),
         "backend": f"torch-{dev.type}",
     }
+    print(json.dumps(line), flush=True)
+    return dict(line, **detail)
+
+
+def main_streaming(total: int, n_slots: int, n_points: int, k_inner: int,
+                   dev: torch.device) -> dict:
+    """``bench.py``'s ``main_streaming``: continuous batching, no lockstep
+    tail. Returns the line with the detail."""
+    from deformationpyramid_tpu_torch.solve.streaming import register_stream
+
+    srcs, tgts, flows = make_batch(total + n_slots, n=n_points, seed=0,
+                                   deform=0.12)
+    pairs = [(torch.from_numpy(srcs[i]).to(dev),
+              torch.from_numpy(tgts[i]).to(dev))
+             for i in range(total + n_slots)]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # warm-up: builds and loads the kernels, fills the allocator
+    register_stream(pairs[:n_slots], CFG, n_slots=n_slots, k_inner=k_inner,
+                    gen=torch.Generator().manual_seed(0), device=dev)
+    sync()
+    t0 = time.perf_counter()
+    warped = register_stream(pairs[n_slots:], CFG, n_slots=n_slots,
+                             k_inner=k_inner,
+                             gen=torch.Generator().manual_seed(1), device=dev)
+    sync()
+    dt = time.perf_counter() - t0
+    epe, epe0 = [], []
+    for i, w in enumerate(warped):
+        src, flow = srcs[n_slots + i], flows[n_slots + i]
+        w = w.cpu().numpy()
+        epe.append(float(np.linalg.norm(w - src - flow, axis=1).mean()))
+        epe0.append(float(np.linalg.norm(flow, axis=1).mean()))
+    detail = {"mode": "streaming", "pairs": total, "slots": n_slots,
+              "k_inner": k_inner, "seconds": dt, "epe": epe,
+              "initial_epe": epe0,
+              "device": (torch.cuda.get_device_name(dev)
+                         if dev.type == "cuda" else "cpu")}
+    print(json.dumps(detail), file=sys.stderr, flush=True)
+    line = {"metric": "ndp_registration_throughput",
+            "value": round(total / dt, 3),
+            "unit": "pairs/s",
+            "card": card_line(dev)}
     print(json.dumps(line), flush=True)
     return dict(line, **detail)
 

@@ -13,7 +13,9 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             at "highest" precision and no TF32 anywhere;
 2. build    nvcc compiles deformationpyramid_tpu_torch/csrc/*.cu for sm_90a,
             one process per source, all at once, into build/torch_kernels/
-            (the time is printed), and ptxas's registers and spill bytes of
+            (the time is printed), and the host C++ compiler the native
+            collate (native/native_ops.cpp) into build/torch_native/, and
+            ptxas's registers and spill bytes of
             C3's 18 instantiations, C5's 9, C10 / C11, and of the kernels
             on the split-database sweep and the bucket pass (C1, C14 with
             one and two slices a warp, C12's two, C6: no spills);
@@ -254,7 +256,30 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
             tensors): register_sharded one pair a rank and sharded_nn_min
             over a model axis of 2, bit-equal to the one-process results,
             the metric sums within 1e-6, C1-C4, C6 and C14 launched on each
-            rank.
+            rank;
+19. streaming the continuous-batching solver (solve/streaming.py) through
+            bench_torch.py --streaming at its defaults (bench.py's
+            main_streaming: 16 timed pairs of 2000 points after a warm-up
+            on 4, 4 slots, 100 iterations between two polls of the done
+            flags): every pair's EPE below 0.6x its initial flow, C1 the
+            one kernel launched (one launch an iteration for all slots),
+            pairs/s; then C1 with its slot axis at the bench's 4 x 2000 x
+            2000 (ragged masks, exact ties, a slot without a valid row):
+            one launch, every slot bit-equal to the one-pair C1, timed
+            against four one-pair launches, the plain version, batched
+            cdist and the bound;
+20. native   the collate of the lndp pair through the port's native C++
+            library (native/, built at first use with the host compiler)
+            and through numpy + cKDTree: points equal at every level,
+            neighbour tables equal as sets up to ties at the cut-off,
+            seconds of each;
+21. bf16     landmark_inference at config/LNDP.yaml's widths with
+            inference_dtype bfloat16 against float32 (flash route, weights
+            from seed 0, the lndp pair): every output finite, the
+            confidence matrices within 2^-5 of the float32 one's max,
+            matches and landmarks counted, the match sets' overlap, ms of
+            each; the bf16 products in the 'out_dtype' form, held to the
+            upcast form within their summation bound.
 
 Then one JSON line with every kernel's launches, error, times and bound,
 the nvidia-smi line, and last the JSON result line. The script needs a CUDA
@@ -4455,6 +4480,383 @@ def parallel_phase(dp, dev, kernels):
     return out
 
 
+C1_SLOTS = 4             # bench_torch.py --streaming's slots
+STREAM_EPE_RATIO = 0.6   # tests/test_streaming.py's bound on every pair
+
+
+def c1_slots_case(dev) -> dict:
+    """C1 with a slot axis, the streaming solver's launch, at its shapes:
+    4 slots of 2000 x 2000 (slot 1 a third of each cloud masked out, slot
+    2 on a grid of 1/32 with exact ties, slot 3 without a valid database
+    row), made with numpy. One launch; every slot's four outputs bit-equal
+    to the one-pair C1 on that slot; distances 1e-5 of the batched plain
+    version and indices equal up to near-ties; the time against four
+    one-pair launches, the plain version, the library call (batched cdist
+    both ways) and the bound (8 flops a pair of points, B x N x M pairs;
+    the points, masks and outputs once)."""
+    from deformationpyramid_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(2027)
+    b, n, m = C1_SLOTS, 2000, 2000
+    x = rng.normal(0.0, 0.3, (b, n, 3)).astype(np.float32)
+    y = rng.normal(0.0, 0.3, (b, m, 3)).astype(np.float32)
+    x[2], y[2] = np.round(x[2] * 32) / 32, np.round(y[2] * 32) / 32
+    xv, yv = np.ones((b, n), bool), np.ones((b, m), bool)
+    xv[1], yv[1] = rng.random(n) > 1 / 3, rng.random(m) > 1 / 3
+    yv[3] = False
+    x, y, xv, yv = (torch.from_numpy(a).to(dev) for a in (x, y, xv, yv))
+    before = knn.NN_DUAL.launches
+    got = knn.nn_argmin_dual(x, y, xv, yv)
+    torch.cuda.synchronize()
+    check(knn.NN_DUAL.launches == before + 1,
+          "C1 slots: not one launch for the 4 slots")
+    for slot in range(b):
+        one = knn.nn_argmin_dual(x[slot], y[slot], xv[slot], yv[slot])
+        for name, a, c in zip(("d_xy", "i_xy", "d_yx", "i_yx"), got, one):
+            check(torch.equal(a[slot], c), f"C1 slots: slot {slot} {name} "
+                  "differs from the one-pair launch")
+    ref = knn.nn_argmin_dual_plain(x, y, xv, yv)
+    err = 0.0
+    for slot in range(b):
+        for q, db, (d, i), (rd, ri) in (
+                (x[slot], y[slot], (got[0][slot], got[1][slot]),
+                 (ref[0][slot], ref[1][slot])),
+                (y[slot], x[slot], (got[2][slot], got[3][slot]),
+                 (ref[2][slot], ref[3][slot]))):
+            fin = torch.isfinite(rd)
+            check(torch.equal(torch.isfinite(d), fin),
+                  f"C1 slots: slot {slot} +inf rows differ from plain")
+            if bool(fin.any()):
+                err = max(err, float((d[fin] - rd[fin]).abs().max()))
+                near_ties(q[fin], db, i[fin], ri[fin], "C1 slots")
+    check(err <= 1e-5, f"C1 slots: distance err {err} > 1e-5")
+
+    def library():
+        d = torch.cdist(x, y, compute_mode="donot_use_mm_for_euclid_dist")
+        return d.min(-1), d.min(-2)
+
+    def one_pair_launches():
+        for slot in range(b):
+            knn.nn_argmin_dual(x[slot], y[slot], xv[slot], yv[slot])
+
+    return dict(
+        err=err, shape=f"{b} x {n} x {m}",
+        ms=cuda_ms(lambda: knn.nn_argmin_dual(x, y, xv, yv)),
+        one_pair_x4_ms=cuda_ms(one_pair_launches),
+        plain_ms=cuda_ms(lambda: knn.nn_argmin_dual_plain(x, y, xv, yv)),
+        library_ms=cuda_ms(library),
+        **bound(b * (n + m) * (12 + 1 + 4 + 8), 8.0 * b * n * m),
+        tol="each slot bit-equal to the one-pair C1; distances 1e-5 of "
+            "plain, indices equal up to near-ties")
+
+
+def stream_step_reads_nothing(dev, k_inner: int = 3) -> int:
+    """``multi_step`` of solve/streaming.py at the bench configuration on 4
+    slots of bench pairs, once to warm up, then again with the device's
+    synchronising calls turned into errors: the iterations read nothing
+    back to the host. Returns the iterations checked."""
+    import bench_torch
+    from deformationpyramid_tpu_torch.data.synthetic import make_batch
+    from deformationpyramid_tpu_torch.solve import streaming
+
+    srcs, tgts, _ = make_batch(C1_SLOTS, n=2000, seed=0, deform=0.12)
+    multi_step, _, _, init_one = streaming.make_stream_fns(bench_torch.CFG,
+                                                           k_inner)
+    gen = torch.Generator().manual_seed(0)
+    state = streaming.stack_states([
+        init_one(gen, torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev))
+        for s, t in zip(srcs, tgts)])
+    state = multi_step(state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = multi_step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(int(state["total_iters"].min()) == 2 * k_inner,
+          f"streaming: total_iters {state['total_iters'].tolist()}")
+    return k_inner
+
+
+def streaming_phase(dev, kernels) -> dict:
+    """bench_torch.py --streaming at its defaults (16 timed pairs after a
+    warm-up on 4, 4 slots, 2000 points, 100 iterations between polls):
+    every pair's EPE below 0.6x its initial flow, C1 the one kernel
+    launched, pairs/s; then the slot-batched C1 at the bench's shapes."""
+    import bench_torch
+    from deformationpyramid_tpu_torch.solve import streaming
+
+    # every iteration of every multi_step, warm-up included, is one C1
+    # launch for all slots: count the iterations the solver ran
+    iterations = [0]
+    make = streaming.make_stream_fns
+
+    def counting(cfg, k_inner=50):
+        multi_step, *rest = make(cfg, k_inner)
+
+        def counted(state):
+            iterations[0] += k_inner
+            return multi_step(state)
+        return (counted, *rest)
+
+    for k in kernels:
+        k.launches = 0
+    streaming.make_stream_fns = counting
+    try:
+        t0 = time.perf_counter()
+        out = bench_torch.main(["--streaming"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        streaming.make_stream_fns = make
+    launches = {k.name: k.launches for k in kernels}
+    check(launches["nn_dual"] > 0 and launches["nn_dual"] == iterations[0],
+          f"streaming: {launches['nn_dual']} C1 launches, not one for each "
+          f"of the {iterations[0]} slot-batched iterations")
+    check(all(v == 0 for k, v in launches.items() if k != "nn_dual"),
+          f"streaming: kernels other than C1 launched: {launches}")
+    for i, (e, e0) in enumerate(zip(out["epe"], out["initial_epe"])):
+        check(np.isfinite(e) and e < STREAM_EPE_RATIO * e0,
+              f"streaming: pair {i} EPE {e} against initial {e0}")
+    phase("streaming", f"bench_torch.py --streaming: {out['value']} pairs/s "
+          f"({out['pairs']} pairs, {out['slots']} slots, k_inner "
+          f"{out['k_inner']}, {out['seconds']:.3f} s timed, {secs:.3f} s "
+          f"with the warm-up); EPE / initial max "
+          f"{max(e / e0 for e, e0 in zip(out['epe'], out['initial_epe'])):.4f}"
+          f"; C1 launches {launches['nn_dual']}, one an iteration of all "
+          f"slots; {out['card']}")
+    no_sync = stream_step_reads_nothing(dev)
+    phase("streaming", f"multi_step (4 slots, {no_sync} iterations) under "
+          "torch.cuda.set_sync_debug_mode('error'): no host read")
+    slots = c1_slots_case(dev)
+    phase("kernels", f"nn_dual [{slots['shape']}, one launch]: slots "
+          f"bit-equal to one-pair launches, max_abs_err {slots['err']:.3e}; "
+          f"{slots['ms']:.4f} ms against four one-pair launches "
+          f"{slots['one_pair_x4_ms']:.4f} ms, plain {slots['plain_ms']:.4f}, "
+          f"library {slots['library_ms']:.4f}, bound {slots['bound_ms']:.4f} "
+          f"({slots['bound_by']})")
+    return dict(out, launches=launches, phase_s=secs, c1_slots=slots)
+
+
+def _tie_ok(pts_q, pts_s, a, b, radius) -> int:
+    """Rows of two neighbour tables that differ as sets only by members
+    at the cut-off: equidistant with the row's farthest kept neighbour, or
+    at the radius (1e-5 relative, the two paths compute the distance in
+    float32 and float64). Returns the number of such rows; anything else
+    fails."""
+    n_s = len(pts_s)
+    rows = np.nonzero((np.sort(a, 1) != np.sort(b, 1)).any(1))[0]
+    for r in rows:
+        ka, kb = set(a[r][a[r] < n_s]), set(b[r][b[r] < n_s])
+        kept = np.array(sorted(ka | kb), np.int64)
+        d = np.sqrt(((pts_s[kept].astype(np.float64)
+                      - pts_q[r].astype(np.float64)) ** 2).sum(-1))
+        dist = dict(zip(kept.tolist(), d))
+        cut = max(max((dist[j] for j in ka), default=0.0),
+                  max((dist[j] for j in kb), default=0.0))
+        for j in ka ^ kb:
+            check(abs(dist[j] - cut) <= 1e-5 * cut
+                  or abs(dist[j] - radius) <= 1e-5 * radius,
+                  f"native: row {r} member {j} at {dist[j]} is no tie "
+                  f"(cut-off {cut}, radius {radius})")
+    return len(rows)
+
+
+def native_phase(dev) -> dict:
+    """The collate of the lndp pair (make_pair(n=8000, seed=400)) through
+    the native library (the default) and through numpy + cKDTree: every
+    level's points equal, neighbour, pool and upsample tables equal as
+    sets up to ties at the cut-off; seconds a pair of each (calibration +
+    pyramid, host clock, the better of 3)."""
+    from deformationpyramid_tpu_torch import native
+    from deformationpyramid_tpu_torch.data import collate
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.match.backbone import KPFCN_ARCHITECTURE
+
+    lib = native.load()
+    lcfg, _ = lndp_config("flash")
+    kp = lcfg.matcher.kpfcn
+    src, tgt, _ = make_pair(n=8000, seed=400, deform=0.08)
+
+    def run():
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            limits = collate.calibrate_neighborhood_limits(
+                [(src, tgt)], kp, KPFCN_ARCHITECTURE)
+            pyr = collate.build_pair_pyramid(src, tgt, kp, KPFCN_ARCHITECTURE,
+                                             limits, pad_to="pow2")
+            times.append(time.perf_counter() - t0)
+        return pyr, limits, min(times)
+
+    nat_pyr, nat_limits, nat_s = run()
+    hook = collate._native
+    collate._native = lambda: None
+    try:
+        np_pyr, np_limits, np_s = run()
+    finally:
+        collate._native = hook
+    check(collate._native() is native, "native: the collate's default is "
+          "not the native library")
+    check(nat_limits == np_limits, f"native: neighbourhood limits "
+          f"{nat_limits} against numpy {np_limits}")
+    tie_rows, rows = 0, 0
+    r_normal = kp.first_subsampling_dl * kp.conv_radius
+    for lvl, (pa, pb) in enumerate(zip(nat_pyr.points, np_pyr.points)):
+        check(np.array_equal(pa, pb), f"native: level {lvl} points differ")
+        r = r_normal * 2 ** lvl      # KPFCN has no deformable block
+        tables = [(nat_pyr.neighbors[lvl], np_pyr.neighbors[lvl], pa, pa, r)]
+        if lvl < len(nat_pyr.pools):
+            nxt = nat_pyr.points[lvl + 1]
+            tables += [(nat_pyr.pools[lvl], np_pyr.pools[lvl], nxt, pa, r),
+                       (nat_pyr.upsamples[lvl], np_pyr.upsamples[lvl], pa,
+                        nxt, 2 * r)]
+        for a, b, q, sup, radius in tables:
+            check(a.shape == b.shape, f"native: level {lvl} table shapes "
+                  f"{a.shape} / {b.shape}")
+            # the padded rows and the shadow rows are the same on both
+            n_sup = len(sup)
+            a = np.where(a >= n_sup, n_sup, a)
+            b = np.where(b >= n_sup, n_sup, b)
+            rows += len(a)
+            tie_rows += _tie_ok(q, sup[:n_sup], a, b, radius)
+    phase("native", f"collate of the lndp pair ({len(src)} + {len(tgt)} "
+          f"points): native {nat_s:.4f} s against numpy + cKDTree "
+          f"{np_s:.4f} s (the better of 3; {Path(lib._name).name}); "
+          f"points equal at every level, "
+          f"neighbour tables equal as sets on {rows - tie_rows} of {rows} "
+          f"rows, the other {tie_rows} differ only by ties at the cut-off")
+    return dict(native_s=nat_s, numpy_s=np_s, rows=rows,
+                tie_rows=tie_rows, limits=nat_limits)
+
+
+BF16_CONF_REL = 2.0 ** -5   # tests/test_torch_bf16_inference.py's bound
+
+
+def bf16_matmul_check(dev, rows: int = 2900, k: int = 528) -> dict:
+    """``matmul_f32acc``'s bf16 product on the card, which must take the
+    'out_dtype' form (``torch.mm(a_bf16, b_bf16, out_dtype=float32)``; a
+    failed probe fails here), against its upcast form (the bf16-rounded
+    operands in a float32 product, TF32 off) on the same inputs at the
+    transformer's widths ([rows, 528] x [528, 528]). A product of two bf16
+    values is exact in float32, so the forms differ only in how the K terms
+    are summed: each sum lies within K u of sum |a||b|, u = 2^-24 where it
+    rounds and up to 2^-23 where the tensor cores truncate, so every
+    element is held within K 2^-22 of (|a| @ |b|)."""
+    from deformationpyramid_tpu_torch.match.attention import (
+        _round_bf16, bf16_matmul_form, matmul_f32acc)
+
+    form = bf16_matmul_form(dev)
+    check(form == "out_dtype", f"bf16: the product form on torch "
+          f"{torch.__version__} is {form!r}, not 'out_dtype'")
+    gen = torch.Generator().manual_seed(18)
+    a = torch.randn(rows, k, generator=gen).to(dev)
+    b = (torch.randn(k, k, generator=gen) * k ** -0.5).to(dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = matmul_f32acc(a, b, True)
+        ref = _round_bf16(a) @ _round_bf16(b)
+        scale = _round_bf16(a).abs() @ _round_bf16(b).abs()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(got.dtype == torch.float32 and got.shape == ref.shape,
+          f"bf16: out_dtype product {got.dtype} {tuple(got.shape)}")
+    ratio = float(((got - ref).abs()
+                   / (k * 2.0 ** -22 * scale.clamp_min(1e-30))).max())
+    err = float((got - ref).abs().max())
+    check(ratio <= 1.0, f"bf16: out_dtype product {err:.3e} from the "
+          f"upcast form, {ratio:.3f} of its bound K 2^-22 |a||b|")
+    return dict(form=form, err=err, rel_err=err / float(ref.abs().max()),
+                ratio=ratio)
+
+
+def bf16_phase(dev) -> dict:
+    """landmark_inference at config/LNDP.yaml's widths (weights from seed
+    0, the flash route) with inference_dtype bfloat16 (compute_dtype of
+    the transformer and the matching) against float32, on the lndp pair
+    (make_pair(n=8000, seed=400)): every output finite, the confidence
+    matrices within 2^-5 of the float32 one's max (the bound of
+    tests/test_torch_bf16_inference.py's narrow landmark model), matches
+    and landmarks counted, the overlap of the two match sets; ms a call
+    (host clock, the median of 5 after a warm-up); then
+    :func:`bf16_matmul_check`."""
+    from deformationpyramid_tpu_torch.data.collate import (
+        build_pair_pyramid, calibrate_neighborhood_limits, pow2_cap,
+        pyramid_to_device)
+    from deformationpyramid_tpu_torch.data.synthetic import make_pair
+    from deformationpyramid_tpu_torch.match import landmark as lm
+    from deformationpyramid_tpu_torch.match.attention import bf16_matmul_form
+    from deformationpyramid_tpu_torch.match.backbone import KPFCN_ARCHITECTURE
+
+    lcfg, _ = lndp_config("flash")
+    m = lcfg.matcher
+    mc = dataclasses.replace(m.matching, compute_dtype="bfloat16")
+    tr = dataclasses.replace(m.transformer, compute_dtype="bfloat16",
+                             matching=mc)
+    lcfg_bf = dataclasses.replace(lcfg, matcher=dataclasses.replace(
+        m, transformer=tr, matching=mc))
+    kp, cl = m.kpfcn, m.coarse_level
+    params = lm.init_landmark_model(torch.Generator().manual_seed(0), lcfg,
+                                    device=dev)
+    src, tgt, _ = make_pair(n=8000, seed=400, deform=0.08)
+    limits = calibrate_neighborhood_limits([(src, tgt)], kp,
+                                           KPFCN_ARCHITECTURE)
+    pyr = build_pair_pyramid(src, tgt, kp, KPFCN_ARCHITECTURE, limits,
+                             pad_to="pow2")
+    pyrd = pyramid_to_device(pyr, dev)
+    caps = dict(s_cap=pow2_cap(pyr.src_lengths[cl]),
+                t_cap=pow2_cap(pyr.tgt_lengths[cl]))
+    lens = (torch.tensor(pyr.src_lengths[cl], device=dev),
+            torch.tensor(pyr.tgt_lengths[cl], device=dev))
+    res = {}
+    for tag, cfg in (("float32", lcfg), ("bfloat16", lcfg_bf)):
+        out = lm.landmark_inference(params, pyrd, *lens, cfg, **caps)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = lm.landmark_inference(params, pyrd, *lens, cfg, **caps)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        for name in ("conf_matrix_pred", "src_feats", "tgt_feats", "ldmk_s",
+                     "ldmk_t", "match_conf", "R_s2t_pred", "condition"):
+            check(bool(torch.isfinite(out[name]).all()),
+                  f"bf16: {tag} {name} is not finite")
+        idx = out["match_idx"][out["match_valid"]].cpu().numpy()
+        res[tag] = dict(ms=statistics.median(times), ms_all=times,
+                        matches={tuple(r) for r in idx.tolist()},
+                        landmarks=int(out["ldmk_valid"].sum()),
+                        conf=out["conf_matrix_pred"])
+    a, b = res["float32"], res["bfloat16"]
+    overlap = len(a["matches"] & b["matches"]) / max(len(a["matches"]), 1)
+    conf_err = float((a["conf"] - b["conf"]).abs().max())
+    conf_max = float(a["conf"].abs().max())
+    check(conf_err <= BF16_CONF_REL * conf_max, f"bf16: confidence "
+          f"matrices {conf_err:.3e} apart, above 2^-5 of the float32 "
+          f"matrix's max {conf_max:.3e}")
+    check(np.isfinite(overlap), f"bf16: match overlap {overlap}")
+    mm = bf16_matmul_check(dev)
+    out = dict(form=bf16_matmul_form(dev), conf_max_abs_diff=conf_err,
+               conf_max=conf_max, matmul=mm,
+               match_overlap=overlap, caps=[caps["s_cap"], caps["t_cap"]],
+               **{f"{tag}_{k}": (len(r[k]) if k == "matches" else r[k])
+                  for tag, r in res.items()
+                  for k in ("ms", "ms_all", "matches", "landmarks")})
+    phase("bf16", f"landmark_inference at config/LNDP.yaml's widths, caps "
+          f"{out['caps']}: bfloat16 {b['ms']:.3f} ms against float32 "
+          f"{a['ms']:.3f} ms (median of 5; bf16 products by "
+          f"'{out['form']}'); matches {len(b['matches'])} / "
+          f"{len(a['matches'])}, overlap {overlap:.4f} of the float32 set; "
+          f"landmarks {b['landmarks']} / {a['landmarks']}; confidence "
+          f"matrices max abs diff {conf_err:.3e} (max {conf_max:.3e}, "
+          f"bound 2^-5 of it); the out_dtype product at [2900, 528] x "
+          f"[528, 528] {mm['err']:.3e} from the upcast form, "
+          f"{mm['ratio']:.4f} of its bound")
+    return out
+
+
 def machine_line() -> str:
     """The card, its driver, power limit and compute capability, the CUDA
     of PyTorch and of nvcc: what ties a failing run to its machine."""
@@ -4503,6 +4905,11 @@ def main() -> None:
     path, secs = cuda_lib.build()
     cuda_lib.load()
     phase("build", f"nvcc {secs:.1f} s -> {path.relative_to(REPO)}")
+    from deformationpyramid_tpu_torch import native
+    path, secs = native.build()
+    native.load()
+    phase("build", f"the native collate: c++ {secs:.1f} s -> "
+          f"{path.relative_to(REPO)}")
     c3_regs, c5_regs = c3_ptxas(), c5_ptxas()
     check(len(c3_regs) == 18, f"ptxas reported {len(c3_regs)} C3 "
           "instantiations, not 18")
@@ -4614,6 +5021,10 @@ def main() -> None:
 
     multiview = multiview_phase(dp, dev, kernels)
     parallel = parallel_phase(dp, dev, kernels)
+    streaming = streaming_phase(dev, kernels)
+    measured["nn_dual"]["slots"] = streaming["c1_slots"]
+    native = native_phase(dev)
+    bf16 = bf16_phase(dev)
     phase("multiview", f"step {multiview['step_ms']:.3f} ms, epoch "
           f"{multiview['epoch_s']:.3f} s, phase "
           f"{multiview['train_s'] + multiview['suite_s']:.3f} s of training; "
@@ -4735,7 +5146,8 @@ def main() -> None:
                         for key in ("at_6000", "one_row")})
         if k.name == "nn_dual":
             row.update({key: measured[k.name][key]
-                        for key in ("at_6000", "digests")})
+                        for key in ("at_6000", "digests", "slots")})
+            row["streaming_launches"] = streaming["launches"]["nn_dual"]
         if k.name == "level_warp_fwd":
             row["err_mlp_scale_1"] = measured[k.name]["err_mlp_scale_1"]
         for key in ("at_4096_2836", "at_1024_900"):
@@ -4782,7 +5194,11 @@ def main() -> None:
                        for tag, r in supervised.items()},
         "threedmatch": threedmatch,
         "multiview": multiview,
-        "parallel": parallel}), flush=True)
+        "parallel": parallel,
+        "streaming": {k: v for k, v in streaming.items()
+                      if k != "c1_slots"},
+        "native": native,
+        "bf16": bf16}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,11 @@ the reference. Module names mirror the JAX package's:
   losses/    landmark, ARAP (arap_cost), Nerfies' elastic term, BCE
   solve/     Adam with the device-side early stop (lr_decay, a random
              stream for resampling losses), the registration engine, the
-             baselines (NSFP, Nerfies, Sinkhorn, ED / N-ICP register_ed)
+             baselines (NSFP, Nerfies, Sinkhorn, ED / N-ICP register_ed),
+             the continuous-batching stream (streaming: every slot's 1-NN
+             one launch of C1)
+  native/    the C++ collate (voxel barycentres, radius neighbours), built
+             with the host compiler at first use
   match/     the learned landmark model of LNDP: KPFCN backbone,
              repositioning transformer (attention on kernel C7, its
              backward on C8 / C9), dual-softmax matching, soft Procrustes,

@@ -24,6 +24,14 @@
 // The warps' (min, argmin) partials are then merged through shared memory.
 // No atomics and no second launch: the result is deterministic.
 //
+// Slots (the counterpart of the vmapped Pallas 1-NN of the continuous-
+// batching solver, solve/streaming.py _pair_step): B independent pairs of
+// the same shapes, x [B, N, 3] and y [B, M, 3] with masks [B, N], [B, M],
+// in one launch; the grid's y axis is the slot, and each block offsets
+// every pointer by its slot and runs the one-pair sweep unchanged, so a
+// slot's result is bit-equal to a one-pair launch on that slot's inputs.
+// The one-pair entry is the launch at B = 1.
+//
 // Semantics (bit-equal to the one-query-a-thread sweep it replaced, on
 // every input; the sweep and its merge are nn_sweep.cuh's, shared with C14
 // and C12): the distance is the exact difference form
@@ -50,6 +58,15 @@ nn_dual_kernel(const float* __restrict__ x, const float* __restrict__ y,
                float* __restrict__ d_yx, long long* __restrict__ i_yx) {
   __shared__ C1Sweep::Smem sm;
 
+  const size_t slot = blockIdx.y;
+  x += slot * n * 3;
+  y += slot * m * 3;
+  x_valid += slot * n;
+  y_valid += slot * m;
+  d_xy += slot * n;
+  i_xy += slot * n;
+  d_yx += slot * m;
+  i_yx += slot * m;
   const int bx = (n + C1Sweep::Q - 1) / C1Sweep::Q;
   const bool xdir = blockIdx.x < (unsigned)bx;
   const float* q = xdir ? x : y;
@@ -80,13 +97,17 @@ nn_dual_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// b slots of n and m points each (b = 1: one pair); the slots lie one
+// after another in every array.
 extern "C" int dp_nn_dual(const void* x, const void* y, const void* x_valid,
-                          const void* y_valid, int n, int m, void* d_xy,
-                          void* i_xy, void* d_yx, void* i_yx, void* stream) {
+                          const void* y_valid, int b, int n, int m,
+                          void* d_xy, void* i_xy, void* d_yx, void* i_yx,
+                          void* stream) {
   const int blocks = (n + C1Sweep::Q - 1) / C1Sweep::Q
                      + (m + C1Sweep::Q - 1) / C1Sweep::Q;
-  if (blocks > 0) {
-    nn_dual_kernel<<<blocks, NN_WARPS * 32, 0, (cudaStream_t)stream>>>(
+  if (blocks > 0 && b > 0) {
+    nn_dual_kernel<<<dim3(blocks, b), NN_WARPS * 32, 0,
+                     (cudaStream_t)stream>>>(
         (const float*)x, (const float*)y, (const unsigned char*)x_valid,
         (const unsigned char*)y_valid, n, m, (float*)d_xy, (long long*)i_xy,
         (float*)d_yx, (long long*)i_yx);

@@ -17,10 +17,15 @@ neighbors ``cpp_wrappers/cpp_neighbors``). Semantics preserved:
 Every level can be padded to static bucket sizes, so that outputs compare
 row for row with the JAX package's.
 
-A numpy + scipy copy of ``deformationpyramid_tpu/data/collate.py`` (its
-pure-numpy branch: the port has no ``native`` module), held bit-identical
-to it by ``tests/test_torch_match_collate.py``. Host code, as there;
-:func:`pyramid_to_device` moves a built pyramid onto the device.
+A copy of ``deformationpyramid_tpu/data/collate.py``, held bit-identical
+to it by ``tests/test_torch_match_collate.py`` and
+``tests/test_torch_native_collate.py``. As there, the stacked helpers
+(:func:`batch_grid_subsample`, :func:`batch_radius_search`) run the native
+C++ library (the port's own, ``native/``) by default; the numpy + scipy
+functions stay, and a caller selects them by making :func:`_native` return
+None. Unlike the JAX package, a native library that does not build raises
+instead of falling back. Host code, as there; :func:`pyramid_to_device`
+moves a built pyramid onto the device.
 """
 from __future__ import annotations
 
@@ -60,12 +65,23 @@ def grid_subsample(points: np.ndarray, dl: float,
     return sub, None
 
 
+def _native():
+    """The native library, the stacked helpers' default path (built at first
+    use; a failed build raises); None selects the numpy path."""
+    from .. import native
+    return native
+
+
 def batch_grid_subsample(points: np.ndarray, lengths: np.ndarray, dl: float):
     """Subsample each stacked cloud independently (reference ``:14-52``)."""
+    nat = _native()
     subs, new_lengths = [], []
     i0 = 0
     for n in lengths:
-        s, _ = grid_subsample(points[i0:i0 + n], dl)
+        if nat is not None:
+            s = nat.grid_subsample(points[i0:i0 + n], dl)
+        else:
+            s, _ = grid_subsample(points[i0:i0 + n], dl)
         subs.append(s)
         new_lengths.append(len(s))
         i0 += n
@@ -95,12 +111,17 @@ def radius_search(queries: np.ndarray, supports: np.ndarray, radius: float,
 
 def batch_radius_search(queries, q_lengths, supports, s_lengths, radius, max_k):
     """Per-cloud radius search on stacked arrays with global indices."""
+    nat = _native()
     out = []
     qi = si = 0
     n_total = int(np.sum(s_lengths))
     for qn, sn in zip(q_lengths, s_lengths):
-        idx = radius_search(queries[qi:qi + qn], supports[si:si + sn],
-                            radius, max_k)
+        if nat is not None:
+            idx = nat.radius_neighbors(queries[qi:qi + qn],
+                                       supports[si:si + sn], radius, max_k)
+        else:
+            idx = radius_search(queries[qi:qi + qn], supports[si:si + sn],
+                                radius, max_k)
         shadow = idx >= sn
         idx = idx + si
         idx[shadow] = n_total           # global shadow row

@@ -72,6 +72,12 @@ def rotate_axis_angle(r: Tensor, x: Tensor) -> Tensor:
     return x + s * wxx + (1.0 - c) * (w * wdx - x)
 
 
+def rotate_axis_angle_t(r: Tensor, x: Tensor) -> Tensor:
+    """:func:`rotate_axis_angle` in the JAX package's transposed [3, N]
+    layout (r, x [3, N])."""
+    return rotate_axis_angle(r.T, x.T).T
+
+
 def euler_to_SO3(euler: Tensor, convention: str = "XYZ") -> Tensor:
     """Euler angles [..., 3] -> rotation, R = Rx @ Ry @ Rz for "XYZ"."""
 

@@ -89,9 +89,10 @@ def nerfies_regularization(jacobian: Tensor, eps: float = 1e-6) -> Tensor:
 
 
 def bce_with_zeros_target(p: Tensor, valid: Tensor | None = None) -> Tensor:
-    """torch.nn.BCELoss(p, zeros): -mean(log(1-p)) with the -100 clamp."""
+    """torch.nn.BCELoss(p, zeros): -mean(log(1-p)) with the -100 clamp,
+    over the last axis (a slot's loss with a leading slot axis)."""
     log1mp = torch.clamp_min(torch.log1p(-p), -100.0)
     if valid is None:
-        return -torch.mean(log1mp)
-    return -torch.sum(torch.where(valid, log1mp, 0.0)) \
-        / torch.clamp_min(valid.sum(), 1)
+        return -torch.mean(log1mp, dim=-1)
+    return -torch.sum(torch.where(valid, log1mp, 0.0), dim=-1) \
+        / torch.clamp_min(valid.sum(-1), 1)

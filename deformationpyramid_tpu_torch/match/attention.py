@@ -17,6 +17,15 @@ The two routes differ on padded QUERY rows only: the einsum path masks
 padded source rows where the query row is valid, the streamed path for
 every query row. Both are garbage there that downstream masks.
 
+``compute_dtype='bfloat16'`` (inference, the yaml's ``inference_dtype``)
+runs every matrix product and einsum of the layer as the JAX package's
+``preferred_element_type=f32`` does: bfloat16-rounded operands, float32
+accumulation and a float32 result (:func:`matmul_f32acc`,
+:func:`einsum_f32acc`); softmax, masks, layer norms and residuals stay
+float32, and the streamed route gets float32 q / k / v, as the JAX
+package's TPU flash route does, so C7 serves it unchanged. Any other value
+is float32, as in the JAX package.
+
 Under autograd the streamed route is differentiable, as the JAX package's
 is: C7 then also writes each row's log-sum-exp, and the backward launches
 kernels C8 (dK, dV) and C9 (dQ) of ``csrc/flash_attention_bwd.cu``, which
@@ -52,15 +61,65 @@ class AttentionConfig:
     feature_dim: int = 528
     n_head: int = 4
     pe_type: str = "rotary"
-    # kept for the JAX package's field order; only 'float32' is ported
+    # 'bfloat16': bf16 operands and f32 accumulation in every product
+    # (inference); anything else float32
     compute_dtype: str = "float32"
     attention_impl: str = "xla"        # 'xla' (plain einsum) | 'flash' (C7)
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError("compute_dtype other than float32")
         if self.attention_impl not in ("xla", "flash"):
             raise ValueError(f"attention_impl {self.attention_impl!r}")
+
+
+_BF16_FORMS: dict[torch.device, str] = {}
+
+
+def bf16_matmul_form(device: torch.device) -> str:
+    """How :func:`matmul_f32acc` computes a bf16 product on ``device``:
+    'out_dtype' where this torch has ``torch.mm(a_bf16, b_bf16,
+    out_dtype=torch.float32)`` there (bf16 products accumulated in float32
+    on the card's tensor cores), else 'upcast' (round to bf16, back to
+    float32, a float32 product: the same products, summed in float32).
+    Probed once a device."""
+    device = torch.device(device)
+    if device not in _BF16_FORMS:
+        form = "upcast"
+        if device.type == "cuda":
+            a = torch.ones(16, 16, dtype=torch.bfloat16, device=device)
+            try:
+                out = torch.mm(a, a, out_dtype=torch.float32)
+                if out.dtype == torch.float32 and bool(out[0, 0] == 16):
+                    form = "out_dtype"
+            except (TypeError, RuntimeError, NotImplementedError):
+                pass
+        _BF16_FORMS[device] = form
+    return _BF16_FORMS[device]
+
+
+def _round_bf16(a: Tensor) -> Tensor:
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def matmul_f32acc(a: Tensor, b: Tensor, bf16: bool) -> Tensor:
+    """a @ b in float32; with ``bf16``, from bfloat16-rounded operands with
+    float32 accumulation and a float32 result (JAX's ``jnp.matmul`` of
+    bf16 operands with ``preferred_element_type=float32``)."""
+    if not bf16:
+        return a @ b
+    if (a.dim() == 2 and b.dim() == 2 and a.device.type == "cuda"
+            and not (a.requires_grad or b.requires_grad)
+            and bf16_matmul_form(a.device) == "out_dtype"):
+        return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                        out_dtype=torch.float32)
+    return _round_bf16(a) @ _round_bf16(b)
+
+
+def einsum_f32acc(eq: str, a: Tensor, b: Tensor, bf16: bool) -> Tensor:
+    """``torch.einsum(eq, a, b)`` in float32; with ``bf16`` from
+    bfloat16-rounded operands (as :func:`matmul_f32acc`)."""
+    if bf16:
+        a, b = _round_bf16(a), _round_bf16(b)
+    return torch.einsum(eq, a, b)
 
 
 def _xavier(gen: torch.Generator, shape: tuple[int, ...]) -> Tensor:
@@ -318,14 +377,18 @@ def apply_attention_layer(p: dict, x: Tensor, source: Tensor,
     ``compatibility`` [L, S] multiplies raw attention logits (NeCo).
     """
     h, dim = cfg.n_head, cfg.feature_dim // cfg.n_head
+    bf16 = cfg.compute_dtype == "bfloat16"
+
+    def mm(a, b):
+        return matmul_f32acc(a, b, bf16)
 
     q_in, k_in, v_in = x, source, source
     if cfg.pe_type == "sinusoidal" and x_pe is not None:
         q_in = q_in + x_pe
         k_in = k_in + source_pe
-    qw = q_in @ p["q"]
-    kw = k_in @ p["k"]
-    vw = v_in @ p["v"]
+    qw = mm(q_in, p["q"])
+    kw = mm(k_in, p["k"])
+    vw = mm(v_in, p["v"])
     if cfg.pe_type == "rotary" and x_pe is not None:
         qw = embed_rotary(qw, x_pe[..., 0], x_pe[..., 1])
         kw = embed_rotary(kw, source_pe[..., 0], source_pe[..., 1])
@@ -336,9 +399,11 @@ def apply_attention_layer(p: dict, x: Tensor, source: Tensor,
     vw = vw.reshape(S, h, dim)
 
     if cfg.attention_impl == "flash" and compatibility is None:
+        # float32 q / k / v with either compute_dtype, as the JAX package's
+        # flash route takes them
         o = flash_attention(qw, kw, vw, source_mask, 1.0 / math.sqrt(dim))
     else:
-        a = torch.einsum("lhd,shd->lsh", qw, kw)
+        a = einsum_f32acc("lhd,shd->lsh", qw, kw, bf16)
         if compatibility is not None:
             a = a * compatibility[..., None]
         if source_mask is not None:
@@ -348,11 +413,11 @@ def apply_attention_layer(p: dict, x: Tensor, source: Tensor,
             a = torch.where(drop[..., None], -torch.inf, a)
         a = a / math.sqrt(dim)
         a = torch.softmax(a, dim=1)
-        o = torch.einsum("lsh,shd->lhd", a, vw)
+        o = einsum_f32acc("lsh,shd->lhd", a, vw, bf16)
     o = o.reshape(L, h * dim)
 
-    message = _layer_norm(o @ p["merge"], p["ln1"])
+    message = _layer_norm(mm(o, p["merge"]), p["ln1"])
     message = torch.cat([x, message], dim=-1)
-    message = torch.relu(message @ p["mlp1"]) @ p["mlp2"]
+    message = mm(torch.relu(mm(message, p["mlp1"])), p["mlp2"])
     message = _layer_norm(message, p["ln2"])
     return x + message

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from .attention import matmul_f32acc
 from .position_encoding import embed_pos
 
 Tensor = torch.Tensor
@@ -32,11 +33,9 @@ class MatchingConfig:
     # extracted, like the reference (matching.py:71-88); an int pins a
     # fixed top-k capacity.
     max_matches: int | None = None
-    compute_dtype: str = "float32"     # only 'float32' is ported
-
-    def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError("compute_dtype other than float32")
+    # 'bfloat16': bf16 operands and f32 accumulation in the projections and
+    # the dual-softmax similarity (inference); anything else float32
+    compute_dtype: str = "float32"
 
 
 def init_matching(gen: torch.Generator, cfg: MatchingConfig) -> dict:
@@ -76,9 +75,13 @@ def confidence_matrix(p: dict, src_feats: Tensor, tgt_feats: Tensor,
                       cfg: MatchingConfig, pe_type: str = "rotary") -> Tensor:
     """[S, T] match confidence. NOTE: the reference projects BOTH clouds with
     ``src_proj`` (``matching.py:126-127`` uses self.src_proj twice — tgt_proj
-    is dead weight); reproduced here for checkpoint parity."""
-    src = src_feats @ p["src_proj"]
-    tgt = tgt_feats @ p["src_proj"]
+    is dead weight); reproduced here for checkpoint parity. With
+    ``compute_dtype='bfloat16'`` the projections and the dual-softmax
+    similarity take bf16 operands with float32 accumulation, as in the JAX
+    package (the Sinkhorn similarity stays float32 there too)."""
+    bf16 = cfg.compute_dtype == "bfloat16"
+    src = matmul_f32acc(src_feats, p["src_proj"], bf16)
+    tgt = matmul_f32acc(tgt_feats, p["src_proj"], bf16)
     if src_pe is not None:
         src = embed_pos(pe_type, src, src_pe)
         tgt = embed_pos(pe_type, tgt, tgt_pe)
@@ -88,7 +91,7 @@ def confidence_matrix(p: dict, src_feats: Tensor, tgt_feats: Tensor,
 
     both = src_mask[:, None] & tgt_mask[None, :]
     if cfg.match_type == "dual_softmax":
-        sim = (src @ tgt.T) / cfg.dsmax_temperature
+        sim = matmul_f32acc(src, tgt.T, bf16) / cfg.dsmax_temperature
         sim1 = torch.where(src_mask[:, None], sim, _NEG)
         sim2 = torch.where(tgt_mask[None, :], sim, _NEG)
         conf = torch.softmax(sim1, dim=0) * torch.softmax(sim2, dim=1)

@@ -38,7 +38,7 @@ class TransformerConfig:
         default_factory=MatchingConfig)
     procrustes: ProcrustesConfig = dataclasses.field(
         default_factory=ProcrustesConfig)
-    compute_dtype: str = "float32"  # only 'float32' is ported
+    compute_dtype: str = "float32"  # 'bfloat16' = bf16-operand inference
     attention_impl: str = "xla"     # 'flash' = kernel C7, streamed attention
 
     @property

@@ -192,24 +192,34 @@ def level_params(params: dict[str, Any], level: int) -> dict[str, Any]:
     return tree_map(lambda p: p[level], params)
 
 
-def posenc(x: Tensor, level: int, k0: int) -> Tensor:
-    """Single-frequency sin/cos encoding, freq = 2**(level+1+k0)."""
-    freq = 2.0 ** (level + 1 + k0)
+def posenc(x: Tensor, level: int | Tensor, k0: int) -> Tensor:
+    """Single-frequency sin/cos encoding, freq = 2**(level+1+k0). ``level``
+    may be a tensor of the leading axes of ``x`` [..., N, 3] (one level a
+    slot); the shapes do not depend on it."""
+    if isinstance(level, Tensor):
+        # 2**e exactly, from float32's exponent bits
+        bits = (level.to(torch.int32) + (1 + k0 + 127)) << 23
+        freq = bits.view(torch.float32).view(
+            level.shape + (1,) * (x.dim() - level.dim()))
+    else:
+        freq = 2.0 ** (level + 1 + k0)
     s, c = torch.sin(x * freq), torch.cos(x * freq)
     return torch.stack([s[..., 0], c[..., 0], s[..., 1], c[..., 1],
                         s[..., 2], c[..., 2]], dim=-1)
 
 
 def _head(fea: Tensor, p: dict[str, Tensor]) -> Tensor:
-    return fea @ p["w"] + p["b"]
+    return fea @ p["w"] + p["b"][..., None, :]
 
 
-def level_features(p: dict[str, Any], x: Tensor, level: int,
+def level_features(p: dict[str, Any], x: Tensor, level: int | Tensor,
                    cfg: NDPConfig) -> Tensor:
     """Shared trunk: posenc -> input linear+ReLU -> hidden MLP."""
     fea = torch.relu(_head(posenc(x, level, cfg.k0), p["input"]))
-    for i in range(p["hidden"]["w"].shape[0]):
-        fea = torch.relu(fea @ p["hidden"]["w"][i] + p["hidden"]["b"][i])
+    hidden = p["hidden"]
+    for i in range(hidden["w"].shape[-3]):
+        fea = torch.relu(fea @ hidden["w"][..., i, :, :]
+                         + hidden["b"][..., i, None, :])
     return fea
 
 
@@ -226,12 +236,14 @@ def rotation_from_features(r: Tensor, fmt: str) -> Tensor:
     raise ValueError(fmt)
 
 
-def level_warp(p: dict[str, Any], x: Tensor, level: int,
+def level_warp(p: dict[str, Any], x: Tensor, level: int | Tensor,
                cfg: NDPConfig) -> tuple[Tensor, Tensor | None]:
     """Warp points [N, 3] through one pyramid level.
 
     Returns (warped [N, 3], nonrigidity [N] or None), as
-    ``NDPLayer.forward`` (``nets.py:111-140``).
+    ``NDPLayer.forward`` (``nets.py:111-140``). With a leading slot axis
+    (the streaming solver's): p's leaves [B, ...], x [B, N, 3] and
+    ``level`` a [B] tensor, each slot at its own level.
     """
     fea = level_features(p, x, level, cfg)
     t = cfg.mlp_scale * _head(fea, p["trn"])
@@ -258,7 +270,14 @@ def level_warp(p: dict[str, Any], x: Tensor, level: int,
     nonrigidity = None
     if cfg.nonrigidity_est:
         nr = torch.sigmoid(cfg.mlp_scale * _head(fea, p["nr"]))[..., 0]
-        if level > 0:  # level 0 never gates (reference has no branch there)
+        # level 0 never gates (reference has no branch there)
+        if isinstance(level, Tensor):
+            gate = (level > 0).view(level.shape + (1,) * (nr.dim()
+                                                          - level.dim()))
+            x_ = torch.where(gate[..., None], x + nr[..., None] * (x_ - x),
+                             x_)
+            nonrigidity = torch.where(gate, nr, torch.ones_like(nr))
+        elif level > 0:
             x_ = x + nr[..., None] * (x_ - x)
             nonrigidity = nr
         else:
@@ -304,6 +323,36 @@ def warp_numpy(params, x, cfg: NDPConfig) -> np.ndarray:
         else:
             x = rx + t
     return x
+
+
+# The JAX package's transposed [3, N] layout puts the point axis on the
+# TPU's lanes; on the card it is the same function, so these adapt the
+# layout around the [N, 3] code above.
+
+def posenc_t(xt: Tensor, level: int, k0: int) -> Tensor:
+    """:func:`posenc` on [3, N] points -> [6, N]."""
+    return posenc(xt.T, level, k0).T
+
+
+def _head_t(fea_t: Tensor, p: dict[str, Tensor]) -> Tensor:
+    """[w, N] features x [w, out] head -> [out, N]."""
+    return _head(fea_t.T, p).T
+
+
+def level_features_t(p: dict[str, Any], xt: Tensor, level: int,
+                     cfg: NDPConfig) -> Tensor:
+    """:func:`level_features` on [3, N] points -> [w, N]."""
+    return level_features(p, xt.T, level, cfg).T
+
+
+def level_warp_t(p: dict[str, Any], xt: Tensor, level: int,
+                 cfg: NDPConfig) -> Tensor:
+    """:func:`level_warp` on [3, N] points -> warped [3, N]; as in the JAX
+    package, no nonrigidity head."""
+    if cfg.nonrigidity_est:
+        raise ValueError("level_warp_t: the transposed layout has no "
+                         "nonrigidity head")
+    return level_warp(p, xt.T, level, cfg)[0].T
 
 
 def warp(params: dict[str, Any], x: Tensor, cfg: NDPConfig,

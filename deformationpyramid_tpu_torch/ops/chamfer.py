@@ -25,17 +25,26 @@ from .knn import nn_argmin_dual
 Tensor = torch.Tensor
 
 
+def _gather(y: Tensor, idx: Tensor) -> Tensor:
+    """The rows of y [M, 3] at idx [N]; with a leading slot axis, of each
+    slot's y [B, M, 3] at its idx [B, N]."""
+    if idx.dim() == 1:
+        return y[idx]
+    return y[torch.arange(idx.shape[0], device=idx.device)[:, None], idx]
+
+
 def _gathered_sum(x: Tensor, y: Tensor, idx: Tensor, x_valid: Tensor | None,
                   trunc: float) -> Tensor:
-    """Sum over x of sqrt(||x_i - y[idx_i]||^2), truncated."""
-    sq = torch.sum((x - y[idx]) ** 2, dim=-1)
+    """Sum over x of sqrt(||x_i - y[idx_i]||^2), truncated (a slot's sum
+    with a leading slot axis)."""
+    sq = torch.sum((x - _gather(y, idx)) ** 2, dim=-1)
     keep = sq < trunc
     if x_valid is not None:
         keep = keep & x_valid
     # The double where keeps the sqrt gradient finite on dropped entries;
     # the 1e-16 floor guards d == 0 exactly.
     safe = torch.where(keep, torch.clamp_min(sq, 1e-16), 1.0)
-    return torch.sum(torch.where(keep, torch.sqrt(safe), 0.0))
+    return torch.sum(torch.where(keep, torch.sqrt(safe), 0.0), dim=-1)
 
 
 def _gathered_normal_sum(x: Tensor, y: Tensor, idx: Tensor,
@@ -43,8 +52,8 @@ def _gathered_normal_sum(x: Tensor, y: Tensor, idx: Tensor,
                          x_valid: Tensor | None, trunc: float) -> Tensor:
     """Sum over x of 1 - |cos(n_x, n_y[idx])| on the distance term's
     truncation mask (``loss.py:200-217``)."""
-    nn_normals = y_normals[idx]
-    sq = torch.sum((x - y[idx]) ** 2, dim=-1)
+    nn_normals = _gather(y_normals, idx)
+    sq = torch.sum((x - _gather(y, idx)) ** 2, dim=-1)
     keep = sq < trunc
     if x_valid is not None:
         keep = keep & x_valid
@@ -52,7 +61,7 @@ def _gathered_normal_sum(x: Tensor, y: Tensor, idx: Tensor,
     nx = torch.clamp_min(torch.linalg.vector_norm(x_normals, dim=-1), 1e-6)
     ny = torch.clamp_min(torch.linalg.vector_norm(nn_normals, dim=-1), 1e-6)
     cos = torch.sum(x_normals * nn_normals, dim=-1) / (nx * ny)
-    return torch.sum(torch.where(keep, 1.0 - torch.abs(cos), 0.0))
+    return torch.sum(torch.where(keep, 1.0 - torch.abs(cos), 0.0), dim=-1)
 
 
 def truncated_chamfer(x: Tensor, y: Tensor,
@@ -70,13 +79,15 @@ def truncated_chamfer(x: Tensor, y: Tensor,
     = real point); the means divide by ``x_length``/``y_length`` (default:
     the mask sums, or N/M). With ``return_normals`` also returns the
     two-sided 1 - |cos| normals term, which the reference computes but
-    drops (``loss.py:255-258``).
+    drops (``loss.py:255-258``). With a leading slot axis (x [B, N, 3],
+    y [B, M, 3], masks [B, N] / [B, M]) every slot's distance [B], the
+    argmins of all slots from one launch of C1.
     """
-    n, m = x.shape[0], y.shape[0]
+    n, m = x.shape[-2], y.shape[-2]
     if x_length is None:
-        x_length = x_valid.sum() if x_valid is not None else n
+        x_length = x_valid.sum(-1) if x_valid is not None else n
     if y_length is None:
-        y_length = y_valid.sum() if y_valid is not None else m
+        y_length = y_valid.sum(-1) if y_valid is not None else m
     with torch.no_grad():
         _, idx_x, _, idx_y = nn_argmin_dual(x.detach(), y.detach(),
                                             x_valid, y_valid)

@@ -21,7 +21,7 @@ from .cuda_lib import I, Kernel, P, check_cuda, on_cpu
 
 Tensor = torch.Tensor
 
-NN_DUAL = Kernel("nn_dual", "dp_nn_dual", [P, P, P, P, I, I, P, P, P, P])
+NN_DUAL = Kernel("nn_dual", "dp_nn_dual", [P, P, P, P, I, I, I, P, P, P, P])
 NN_ARGMIN = Kernel("nn_argmin", "dp_nn_argmin", [P, P, P, I, I, P, P])
 
 
@@ -90,41 +90,53 @@ def nn_argmin(x: Tensor, y: Tensor, y_valid: Tensor | None = None
 def nn_argmin_dual_plain(x: Tensor, y: Tensor,
                          x_valid: Tensor | None = None,
                          y_valid: Tensor | None = None):
-    """Plain version of kernel C1: both directions from one [N, M]
-    difference tensor. ``torch.min`` returns the first index of a tie."""
-    d = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
-    dx = d if y_valid is None else torch.where(y_valid[None, :], d, torch.inf)
-    dy = d if x_valid is None else torch.where(x_valid[:, None], d, torch.inf)
-    sq_x, idx_x = torch.min(dx, dim=1)
-    sq_y, idx_y = torch.min(dy, dim=0)
+    """Plain version of kernel C1: both directions from one [..., N, M]
+    difference tensor; leading slot axes ([B, N, 3] / [B, M, 3] with
+    [B, N] / [B, M] masks) are independent pairs, each computed as the
+    one-pair call computes it. ``torch.min`` returns the first index of a
+    tie."""
+    d = ((x[..., :, None, :] - y[..., None, :, :]) ** 2).sum(-1)
+    dx = d if y_valid is None else torch.where(y_valid[..., None, :], d,
+                                               torch.inf)
+    dy = d if x_valid is None else torch.where(x_valid[..., :, None], d,
+                                               torch.inf)
+    sq_x, idx_x = torch.min(dx, dim=-1)
+    sq_y, idx_y = torch.min(dy, dim=-2)
     return sq_x, idx_x, sq_y, idx_y
 
 
 def nn_argmin_dual_cuda(x: Tensor, y: Tensor,
                         x_valid: Tensor | None = None,
                         y_valid: Tensor | None = None):
-    """Kernel C1 (``csrc/nn_dual.cu``) on CUDA tensors."""
-    n, m = x.shape[0], y.shape[0]
-    xv = (torch.ones(n, dtype=torch.bool, device=x.device) if x_valid is None
-          else x_valid.contiguous())
-    yv = (torch.ones(m, dtype=torch.bool, device=y.device) if y_valid is None
-          else y_valid.contiguous())
+    """Kernel C1 (``csrc/nn_dual.cu``) on CUDA tensors: one pair, x [N, 3]
+    and y [M, 3], or B slots, x [B, N, 3] and y [B, M, 3] with masks
+    [B, N] / [B, M], in one launch either way."""
+    lead = x.shape[:-2]
+    if x.dim() not in (2, 3) or y.shape[:-2] != lead:
+        raise ValueError("nn_dual: expected x [N, 3] and y [M, 3], or "
+                         "x [B, N, 3] and y [B, M, 3]")
+    b = lead[0] if lead else 1
+    n, m = x.shape[-2], y.shape[-2]
+    xv = (torch.ones(lead + (n,), dtype=torch.bool, device=x.device)
+          if x_valid is None else x_valid.contiguous())
+    yv = (torch.ones(lead + (m,), dtype=torch.bool, device=y.device)
+          if y_valid is None else y_valid.contiguous())
     x = x.contiguous()
     y = y.contiguous()
     check_cuda("nn_dual", x, y)
     check_cuda("nn_dual", x, xv, yv, dtype=None)
-    if x.shape != (n, 3) or y.shape != (m, 3) or xv.shape != (n,) \
-            or yv.shape != (m,) or xv.dtype != torch.bool \
-            or yv.dtype != torch.bool:
-        raise ValueError("nn_dual: expected f32 x [N,3], y [M,3] and bool "
-                         "masks [N], [M]")
-    sq_x = torch.empty(n, dtype=torch.float32, device=x.device)
-    idx_x = torch.empty(n, dtype=torch.int64, device=x.device)
-    sq_y = torch.empty(m, dtype=torch.float32, device=x.device)
-    idx_y = torch.empty(m, dtype=torch.int64, device=x.device)
+    if x.shape != lead + (n, 3) or y.shape != lead + (m, 3) \
+            or xv.shape != lead + (n,) or yv.shape != lead + (m,) \
+            or xv.dtype != torch.bool or yv.dtype != torch.bool:
+        raise ValueError("nn_dual: expected f32 x [..., N, 3], y [..., M, 3]"
+                         " and bool masks [..., N], [..., M]")
+    sq_x = torch.empty(lead + (n,), dtype=torch.float32, device=x.device)
+    idx_x = torch.empty(lead + (n,), dtype=torch.int64, device=x.device)
+    sq_y = torch.empty(lead + (m,), dtype=torch.float32, device=x.device)
+    idx_y = torch.empty(lead + (m,), dtype=torch.int64, device=x.device)
     NN_DUAL.launch(x.data_ptr(), y.data_ptr(), xv.data_ptr(), yv.data_ptr(),
-                   n, m, sq_x.data_ptr(), idx_x.data_ptr(), sq_y.data_ptr(),
-                   idx_y.data_ptr())
+                   b, n, m, sq_x.data_ptr(), idx_x.data_ptr(),
+                   sq_y.data_ptr(), idx_y.data_ptr())
     return sq_x, idx_x, sq_y, idx_y
 
 
@@ -141,7 +153,10 @@ def nn_argmin_dual(x: Tensor, y: Tensor,
                    variant: str | None = None):
     """Both-direction 1-NN: (sq_x2y [N], idx_x2y [N], sq_y2x [M],
     idx_y2x [M]). Kernel C1 on CUDA tensors, its plain version on CPU
-    tensors. ``x_valid``/``y_valid`` mask padded rows out of the search
+    tensors. With a leading slot axis (x [B, N, 3], y [B, M, 3], masks
+    [B, N] / [B, M]: the vmapped sweep of the JAX package's streaming
+    solver) every output gains it, and C1 answers all B slots in one
+    launch. ``x_valid``/``y_valid`` mask padded rows out of the search
     in the other direction (True = real point). ``variant`` names one of
     the JAX package's sweep kernels (``DUAL_VARIANTS``); each is C1's
     function (v2's [3, M] layout and v3 / v4's packed or matrix-unit

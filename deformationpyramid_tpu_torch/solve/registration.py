@@ -33,8 +33,8 @@ same kernels on [3, N] points); the loss is ``truncated_chamfer`` on C1, or
 with ``use_fused_chamfer`` kernel C12 (``ops/chamfer_fused.py``).
 ``transposed`` without ``use_fused`` is the plain warp: the JAX package's
 ``level_warp_t`` computes the same function in a TPU layout, which the
-port does not keep. Pairs are solved one at a time; the device follows the
-input tensors.
+port keeps only as a layout adapter (``models/pyramid.level_warp_t``).
+Pairs are solved one at a time; the device follows the input tensors.
 """
 from __future__ import annotations
 

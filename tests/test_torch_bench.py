@@ -2,18 +2,30 @@
 harness at a cut size (two levels of width 32, 20 iterations a level, 64
 points: a test of the harness, not a measurement) prints the JSON line on
 stdout and the detail on stderr; the routes come from ``bench.py``'s
-environment variables; ``--streaming`` raises, naming what is missing."""
+environment variables; ``--streaming`` runs the continuous-batching solver
+and prints its line."""
 import dataclasses
 import json
 import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import bench_torch  # noqa: E402
 from deformationpyramid_tpu_torch.models.pyramid import NDPConfig  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread is as fast as many,
+    and parallel test workers do not fight over the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_main_prints_the_bench_line(monkeypatch, capsys):
@@ -54,6 +66,23 @@ def test_routes_follow_the_environment():
     assert cfg.pyramid.width == 128 and cfg.samples == 2000
 
 
-def test_streaming_is_not_ported():
-    with pytest.raises(NotImplementedError, match="solve/streaming.py"):
-        bench_torch.main(["--streaming", "--device", "cpu"])
+def test_streaming_is_not_ported(monkeypatch, capsys):
+    """The name is kept from when ``--streaming`` raised: it now runs
+    ``solve/streaming.py`` (here at a cut size) and prints its line."""
+    cut = dataclasses.replace(
+        bench_torch.CFG, iters=20, samples=64,
+        pyramid=NDPConfig(m=2, k0=-8, depth=2, width=32))
+    monkeypatch.setattr(bench_torch, "CFG", cut)
+    out = bench_torch.main(["--streaming", "--device", "cpu", "--total", "3",
+                            "--slots", "2", "--n", "64", "--k-inner", "8"])
+    captured = capsys.readouterr()
+    line = json.loads(captured.out.strip().splitlines()[-1])
+    assert set(line) == {"metric", "value", "unit", "card"}
+    assert line["metric"] == "ndp_registration_throughput"
+    assert line["unit"] == "pairs/s" and line["value"] > 0
+    assert line["card"] == "cpu"
+    detail = json.loads(captured.err.strip().splitlines()[-1])
+    assert detail["mode"] == "streaming" and detail["pairs"] == 3
+    assert len(detail["epe"]) == 3 and all(
+        e < e0 for e, e0 in zip(detail["epe"], detail["initial_epe"]))
+    assert out["value"] == line["value"]

@@ -70,8 +70,12 @@ and to C1's x -> y half, on pinned inputs to the design it replaced
 (chip_smoke.C14_DIGESTS); C12 on its edge cases (chip_smoke.C12_EDGE_CASES)
 bit-equal to its plain version on the CPU in cgrad, rmin and rarg (the
 sums 1e-5 relative), on pinned inputs to the design it replaced
-(chip_smoke.C12_DIGESTS).
+(chip_smoke.C12_DIGESTS). C1 with a slot axis (the streaming solver's one
+launch for B pairs) at B = 1, 3 and 4, ragged masks and a slot without a
+valid row: each slot bit-equal to the one-pair C1; the streaming solver's
+multi_step enqueues its iterations with no synchronising call.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -147,6 +151,51 @@ def test_nn_dual_edge_cases_bit_equal_to_plain(dev, tag):
     ref = tknn.nn_argmin_dual_plain(*(a.cpu() for a in args))
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("b", [1, 3, 4])
+def test_nn_dual_slots_bit_equal_to_one_pair(dev, b):
+    """C1 with a slot axis (the streaming solver's launch): B slots of
+    1333 x 777 points, ragged masks, slot 1 without a valid database row,
+    the last slot on a grid of 1/32 with exact ties; one launch, and every
+    slot's four outputs bit-equal to the one-pair C1 on that slot (and, on
+    the grid, to the plain version on the CPU)."""
+    rng = np.random.default_rng(b)
+    n, m = 1333, 777
+    x = rng.normal(0.0, 0.3, (b, n, 3)).astype(np.float32)
+    y = rng.normal(0.0, 0.3, (b, m, 3)).astype(np.float32)
+    x[-1], y[-1] = np.round(x[-1] * 32) / 32, np.round(y[-1] * 32) / 32
+    xv, yv = rng.random((b, n)) > 0.2, rng.random((b, m)) > 0.2
+    if b > 1:
+        yv[1] = False
+    x, y, xv, yv = (torch.from_numpy(a).to(dev) for a in (x, y, xv, yv))
+    before = tknn.NN_DUAL.launches
+    got = tknn.nn_argmin_dual(x, y, xv, yv)
+    assert tknn.NN_DUAL.launches == before + 1
+    for s in range(b):
+        one = tknn.nn_argmin_dual(x[s], y[s], xv[s], yv[s])
+        for a, c in zip(got, one):
+            assert torch.equal(a[s], c)
+    ref = tknn.nn_argmin_dual_plain(x[-1].cpu(), y[-1].cpu(), xv[-1].cpu(),
+                                    yv[-1].cpu())
+    for a, c in zip(got, ref):
+        assert torch.equal(a[-1].cpu(), c)
+
+
+@pytest.mark.parametrize("rows,k", [(2900, 528), (64, 132)])
+def test_bf16_out_dtype_product_matches_upcast(dev, rows, k):
+    """bf16 inference's product on the card takes the 'out_dtype' form and
+    agrees with the upcast form (bf16-rounded operands in a float32
+    product) within the float32 summation bound K 2^-22 |a||b|, at the
+    transformer's width (528) and a head's (132)."""
+    got = chip_smoke.bf16_matmul_check(dev, rows, k)
+    assert got["form"] == "out_dtype" and got["ratio"] <= 1.0
+
+
+def test_stream_multi_step_reads_nothing_back(dev):
+    """The streaming solver's multi_step enqueues its iterations (one slot-
+    batched C1 launch each) without a synchronising call."""
+    assert chip_smoke.stream_step_reads_nothing(dev) == 3
 
 
 def test_nn_dual_bits_pinned(dev):

@@ -127,6 +127,27 @@ def test_truncated_chamfer_value_and_grad(trunc, masked):
     assert np.abs(gy.numpy() - np.asarray(rgy)).max() < 1e-5
 
 
+@pytest.mark.parametrize("trunc", [1e9, 0.25])
+def test_truncated_chamfer_slot_axis_matches_jax_per_slot(trunc):
+    """truncated_chamfer with a leading slot axis (the streaming solver's:
+    every slot's distance [B] from one dual sweep) against JAX's one-pair
+    chamfer on each slot: values and gradients to the one-pair test's
+    tolerances."""
+    clouds = [_clouds(s, n=120, m=100) for s in (11, 12, 13)]
+    x, y, xv, yv = (np.stack(a) for a in zip(*clouds))
+    tx = _t(x).requires_grad_(True)
+    ty = _t(y).requires_grad_(True)
+    val = tch.truncated_chamfer(tx, ty, _t(xv), _t(yv), trunc=trunc)
+    assert val.shape == (3,)
+    gx, gy = torch.autograd.grad(val.sum(), (tx, ty))
+    ref = _jax_chamfer(trunc, True)
+    for b in range(3):
+        rval, (rgx, rgy) = ref(*map(jnp.asarray, (x[b], y[b], xv[b], yv[b])))
+        assert abs(float(val[b].detach()) - float(rval)) < 1e-6
+        assert np.abs(gx[b].numpy() - np.asarray(rgx)).max() < 1e-5
+        assert np.abs(gy[b].numpy() - np.asarray(rgy)).max() < 1e-5
+
+
 def test_truncated_chamfer_normals_term():
     x, y, xv, yv = _clouds(3)
     rng = np.random.default_rng(5)

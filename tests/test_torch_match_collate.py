@@ -37,7 +37,10 @@ SMALL = dict(first_subsampling_dl=0.05, first_feats_dim=32,
 
 @pytest.fixture(autouse=True)
 def _numpy_collate(monkeypatch):
+    # the numpy paths on both sides (the native ones:
+    # tests/test_torch_native_collate.py)
     monkeypatch.setattr(jcol, "_native", lambda: None)
+    monkeypatch.setattr(tcol, "_native", lambda: None)
 
 
 @pytest.mark.parametrize("args", [(15, 3, "center", 1.0),

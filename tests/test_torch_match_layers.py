@@ -224,8 +224,9 @@ def test_flash_attention_backward_raises_and_config_checks():
     assert torch.autograd.grad(out.sum(), q)[0].shape == q.shape
     with pytest.raises(ValueError):
         tatt.AttentionConfig(attention_impl="pallas")
-    with pytest.raises(NotImplementedError):
-        tatt.AttentionConfig(compute_dtype="bfloat16")
+    # bfloat16 inference is ported (tests/test_torch_bf16_inference.py)
+    assert tatt.AttentionConfig(compute_dtype="bfloat16").compute_dtype \
+        == "bfloat16"
     with pytest.raises(ValueError):
         tatt.flash_attention_cuda(torch.zeros(4, 2, 8), torch.zeros(4, 2, 8),
                                   torch.zeros(4, 2, 8), None, 1.0)

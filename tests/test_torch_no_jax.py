@@ -12,6 +12,7 @@ SCRIPT = """
 import sys
 import numpy as np
 import torch
+torch.set_num_threads(1)    # small tensors; parallel test workers
 import deformationpyramid_tpu_torch as dp
 from deformationpyramid_tpu_torch.data.synthetic import make_pair
 from deformationpyramid_tpu_torch.solve import loop, registration
@@ -20,7 +21,8 @@ from deformationpyramid_tpu_torch.ops import chamfer_fused, fused_level
 import bench_torch
 import runpy
 for script in ("parity_torch_vs_ledger", "suite_parity_torch",
-               "check_torch_optin_kernels", "check_torch_nn_argmin"):
+               "check_torch_optin_kernels", "check_torch_nn_argmin",
+               "profile_torch_streaming"):
     runpy.run_path(f"scripts/{script}.py", run_name="not_main")
 from deformationpyramid_tpu_torch.metrics import flow, matching
 from deformationpyramid_tpu_torch.data import (
@@ -238,6 +240,31 @@ sd = {"in_proj.weight": np.ones((nd, 6), np.float32),
       "in_proj.bias": np.zeros(nd, np.float32)}
 ported, rep = port_torch.port_neco(sd, params["neco"])
 assert "in_proj.weight" in rep["used"] and rep["missing"]
+# continuous batching through bench_torch.py --streaming, the native
+# collate library, bf16 matcher inference and the [3, N] route
+bench_torch.CFG = dp.SolverConfig(pyramid=dp.NDPConfig(m=2, width=16),
+                                  iters=5, samples=40)
+line = bench_torch.main(["--streaming", "--device", "cpu", "--total", "2",
+                         "--slots", "2", "--n", "48", "--k-inner", "4"])
+assert line["value"] > 0
+from deformationpyramid_tpu_torch import native
+from deformationpyramid_tpu_torch.solve import streaming
+assert collate._native() is native
+assert native.grid_subsample(src, 0.1).shape[1] == 3
+assert native.radius_neighbors(src, tgt, 0.1, 8).shape == (len(src), 8)
+bf = lcfg.matcher.transformer.__class__(
+    feature_dim=24, n_head=4, vol=vol, matching=mc, compute_dtype="bfloat16")
+bf_out = landmark.landmark_inference(
+    params, collate.pyramid_to_device(pyr, "cpu"), pyr.src_lengths[2],
+    pyr.tgt_lengths[2], landmark.LandmarkConfig(
+        matcher=pipeline.MatcherConfig(kpfcn=kp, matching=mc, transformer=bf),
+        neco=lcfg.neco), s_cap=64, t_cap=64)
+assert torch.isfinite(bf_out["conf_matrix_pred"]).all()
+cfg = dp.SolverConfig(pyramid=dp.NDPConfig(m=2, width=16), iters=5,
+                      samples=80, transposed=True)
+warped, _ = dp.register_pair(0, torch.from_numpy(src), torch.from_numpy(tgt),
+                             cfg)
+assert torch.isfinite(warped).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("jaxlib") or m == "deformationpyramid_tpu"
              or m.startswith("deformationpyramid_tpu."))

@@ -100,6 +100,71 @@ def test_level_warp_and_warp(motion, rot):
     _close(tw, jw)
 
 
+@pytest.mark.parametrize("motion,rot", [
+    ("SE3", "axis_angle"), ("Sim3", "axis_angle"), ("sflow", "axis_angle"),
+    ("SE3", "euler"), ("Sim3", "quaternion"), ("SE3", "6D")])
+def test_transposed_layout_matches_jax(motion, rot):
+    """The [3, N] functions (the JAX package's TPU layout) against JAX's,
+    and against the port's own [N, 3] warp (the same function)."""
+    kw = dict(m=3, k0=-4, depth=3, width=32, motion=motion,
+              rotation_format=rot)
+    jcfg, tcfg, params = _np_params(kw, seed=4)
+    tparams = tpyr.params_from_numpy(params)
+    rng = np.random.default_rng(5)
+    xt = (rng.standard_normal((3, 150)) * 0.5).astype(np.float32)
+
+    def f(p, xt):
+        return [(jpyr.posenc_t(xt, lvl, jcfg.k0),
+                 jpyr.level_features_t(jpyr.level_params(p, lvl), xt, lvl,
+                                       jcfg),
+                 jpyr.level_warp_t(jpyr.level_params(p, lvl), xt, lvl, jcfg))
+                for lvl in range(jcfg.m)]
+
+    ref = jax.jit(f)(params, jnp.asarray(xt))
+    for lvl, (jpe, jfea, jw) in enumerate(ref):
+        lp = tpyr.level_params(tparams, lvl)
+        _close(tpyr.posenc_t(_t(xt), lvl, tcfg.k0), jpe)
+        _close(tpyr.level_features_t(lp, _t(xt), lvl, tcfg), jfea)
+        tw = tpyr.level_warp_t(lp, _t(xt), lvl, tcfg)
+        _close(tw, jw)
+        _close(tw.T, tpyr.level_warp(lp, _t(xt.T), lvl, tcfg)[0].detach())
+    r = (rng.standard_normal((3, 64)) * 0.5).astype(np.float32)
+    r[:, 0] = 0.0  # the 1e-12 floor
+    _close(trot.rotate_axis_angle_t(_t(r), _t(xt[:, :64])),
+           jrot.rotate_axis_angle_t(jnp.asarray(r), jnp.asarray(xt[:, :64])))
+    with pytest.raises(ValueError):
+        tpyr.level_warp_t(tpyr.level_params(tparams, 0), _t(xt), 0,
+                          tpyr.NDPConfig(**kw, nonrigidity_est=True))
+
+
+@pytest.mark.parametrize("motion,rot,nonrigid", [
+    ("SE3", "axis_angle", True), ("Sim3", "quaternion", False),
+    ("sflow", "axis_angle", True)])
+def test_level_warp_slot_axis_matches_jax_per_slot(motion, rot, nonrigid):
+    """level_warp with a leading slot axis (the streaming solver's form:
+    each slot its own level's parameters and a [B] level tensor, level 0
+    ungated) against JAX's level_warp on each slot alone."""
+    kw = dict(m=4, k0=-4, depth=3, width=32, motion=motion,
+              rotation_format=rot, nonrigidity_est=nonrigid)
+    jcfg, tcfg, params = _np_params(kw, seed=7)
+    tparams = tpyr.params_from_numpy(params)
+    rng = np.random.default_rng(8)
+    levels = [0, 3, 1, 2]
+    x = (rng.standard_normal((4, 90, 3)) * 0.5).astype(np.float32)
+    lvl = torch.tensor(levels, dtype=torch.int32)
+    slots = tpyr.tree_map(lambda a: a[lvl.long()], tparams)
+    tw, tnr = tpyr.level_warp(slots, _t(x), lvl, tcfg)
+    assert tw.shape == (4, 90, 3)
+    for b, level in enumerate(levels):
+        jw, jnr = jpyr.level_warp(jpyr.level_params(params, level),
+                                  jnp.asarray(x[b]), level, jcfg)
+        _close(tw[b], jw)
+        if nonrigid:
+            _close(tnr[b], jnr)
+        else:
+            assert tnr is None
+
+
 def test_nonrigidity_gate():
     kw = dict(m=3, k0=-4, depth=2, width=16, nonrigidity_est=True)
     jcfg, tcfg, params = _np_params(kw, seed=3)

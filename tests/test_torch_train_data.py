@@ -210,9 +210,10 @@ def _batches_equal(bj: dict, bt: dict):
 
 
 def test_batch_streams_equal_the_jax_clis(suites, monkeypatch):
-    # the JAX package's numpy collate (its optional native library orders
-    # equidistant neighbours otherwise; the port has the numpy path only)
+    # the numpy collate on both sides (the native libraries order
+    # equidistant neighbours otherwise)
     monkeypatch.setattr(jcol, "_native", lambda: None)
+    monkeypatch.setattr(tcol, "_native", lambda: None)
     jcfg, tcfg = landmark_cfgs(32)
     dj = jfd.FourDMatchDataset(str(suites["jax"]), "train", augment=False)
     dt = tfd.FourDMatchDataset(str(suites["torch"]), "train", augment=False)

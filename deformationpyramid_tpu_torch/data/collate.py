@@ -36,6 +36,7 @@ import torch
 from scipy.spatial import cKDTree
 
 from ..match.kpconv import KPConvConfig
+from ..utils import timers
 
 
 def grid_subsample(points: np.ndarray, dl: float,
@@ -324,9 +325,10 @@ def pyramid_to_device(pyr: PairPyramid,
             t = t.long()
         return t.to(device)
 
-    return {"points": [put(p) for p in pyr.points],
-            "valids": [put(v) for v in pyr.valids],
-            "neighbors": [put(x) for x in pyr.neighbors],
-            "pools": [put(x) for x in pyr.pools],
-            "upsamples": [put(x) for x in pyr.upsamples],
-            "features": put(pyr.features)}
+    with timers.span("dp::collate.to_device"):
+        return {"points": [put(p) for p in pyr.points],
+                "valids": [put(v) for v in pyr.valids],
+                "neighbors": [put(x) for x in pyr.neighbors],
+                "pools": [put(x) for x in pyr.pools],
+                "upsamples": [put(x) for x in pyr.upsamples],
+                "features": put(pyr.features)}

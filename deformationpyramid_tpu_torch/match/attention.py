@@ -40,6 +40,7 @@ import math
 import torch
 
 from ..ops.cuda_lib import F, I, Kernel, P, check_cuda, on_cpu
+from ..utils import timers
 from .position_encoding import embed_rotary
 
 Tensor = torch.Tensor
@@ -354,9 +355,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
     """softmax(q k^T * sm_scale) v over the valid source prefix, streamed:
     kernel C7 on CUDA tensors, its plain version on CPU tensors."""
     tensors = [t for t in (q, k, v, src_len_or_mask) if t is not None]
-    if on_cpu(*tensors):
-        return flash_attention_plain(q, k, v, src_len_or_mask, sm_scale)
-    return _FlashAttention.apply(q, k, v, src_len_or_mask, sm_scale)
+    with timers.span("dp::attention"):
+        if on_cpu(*tensors):
+            return flash_attention_plain(q, k, v, src_len_or_mask, sm_scale)
+        return _FlashAttention.apply(q, k, v, src_len_or_mask, sm_scale)
 
 
 def _layer_norm(x: Tensor, p: dict, eps: float = 1e-5) -> Tensor:

@@ -19,6 +19,7 @@ from typing import Any
 import torch
 
 from ..models.pyramid import tree_map
+from ..utils import timers
 from .outlier_rejection import NeCoConfig, apply_neco, init_neco
 from .pipeline import MatcherConfig, apply_matcher, init_matcher
 
@@ -71,12 +72,13 @@ def neco_filter(params: dict, data: dict[str, Any],
     """NeCo half: per-match confidence + threshold filter into the padded
     (ldmk_s, ldmk_t, ldmk_valid) landmark set (reference
     ``landmark_estimator.py:63-72``)."""
-    confidence = apply_neco(params["neco"], data["vec_6d"],
-                            data["vec_6d_mask"], cfg.neco)
-    keep = data["vec_6d_mask"]
-    if cfg.reject_outliers:
-        keep = keep & (confidence > cfg.inlier_thr)
-    vec6d = torch.where(keep[:, None], data["vec_6d"], 0.0)
+    with timers.span("dp::landmark.neco"):
+        confidence = apply_neco(params["neco"], data["vec_6d"],
+                                data["vec_6d_mask"], cfg.neco)
+        keep = data["vec_6d_mask"]
+        if cfg.reject_outliers:
+            keep = keep & (confidence > cfg.inlier_thr)
+        vec6d = torch.where(keep[:, None], data["vec_6d"], 0.0)
     return dict(data,
                 neco_confidence=confidence,
                 ldmk_s=vec6d[:, :3],
@@ -97,6 +99,8 @@ def landmark_inference(params: dict, pyramid: dict,
     transformer/matching/procrustes work (the [S, T] objects are the
     matcher's cost).
     """
-    data = matcher_inference(params, pyramid, src_len_coarse,
-                             tgt_len_coarse, cfg, s_cap=s_cap, t_cap=t_cap)
-    return neco_filter(params, data, cfg)
+    with timers.span("dp::landmark"):
+        data = matcher_inference(params, pyramid, src_len_coarse,
+                                 tgt_len_coarse, cfg, s_cap=s_cap,
+                                 t_cap=t_cap)
+        return neco_filter(params, data, cfg)

@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 
+from ..utils import timers
 from .backbone import KPFCN_ARCHITECTURE, apply_kpfcn_coarse, init_kpfcn
 from .kpconv import KPConvConfig, gather_rows
 from .matching import (
@@ -103,16 +104,17 @@ def apply_matcher(params: dict, pyramid: dict, src_len_coarse: Tensor | int,
         src_mask, tgt_mask, cfg.transformer,
         gt_rot=gt_rot, gt_trn=gt_trn, gen=gen)
 
-    conf = confidence_matrix(params["matching"], src_feats, tgt_feats,
-                             src_pe, tgt_pe, src_mask, tgt_mask,
-                             cfg.matching, cfg.transformer.pe_type)
-    if cfg.max_matches:
-        match_idx, match_conf, match_valid = extract_matches(
-            conf, cfg.matching.confidence_threshold, cfg.max_matches)
-    else:
-        # uncapped: one potential match per src row, reference semantics
-        match_idx, match_conf, match_valid = extract_matches_all(
-            conf, cfg.matching.confidence_threshold)
+    with timers.span("dp::landmark.matching"):
+        conf = confidence_matrix(params["matching"], src_feats, tgt_feats,
+                                 src_pe, tgt_pe, src_mask, tgt_mask,
+                                 cfg.matching, cfg.transformer.pe_type)
+        if cfg.max_matches:
+            match_idx, match_conf, match_valid = extract_matches(
+                conf, cfg.matching.confidence_threshold, cfg.max_matches)
+        else:
+            # uncapped: one potential match per src row, reference semantics
+            match_idx, match_conf, match_valid = extract_matches_all(
+                conf, cfg.matching.confidence_threshold)
 
     R, t, _, _, condition, ok = soft_procrustes(
         conf, s_pcd, t_pcd, src_mask, tgt_mask, cfg.procrustes)

@@ -57,6 +57,7 @@ import torch
 
 from ..losses import bce_with_zeros_target
 from ..models import baselines, pyramid
+from ..utils import timers
 from . import cuda_lib
 from .cuda_lib import F, I, Kernel, P, check_cuda, on_cpu
 from .knn import nn_argmin_dual
@@ -512,10 +513,22 @@ class EarlyStop:
     def run(self, step) -> None:
         """Call ``step`` up to ``iters`` times; read the flag on the host
         every SYNC_EVERY calls and leave once the loop is finished."""
-        for i in range(self.cfg.iters):
+        issued = 0
+        for issued in range(1, self.cfg.iters + 1):
             step()
-            if (i + 1) % SYNC_EVERY == 0 and self.finished():
+            if issued % SYNC_EVERY == 0 and self.finished():
                 break
+        self.count_noops(issued)
+
+    def count_noops(self, issued: int) -> None:
+        """While the profiler records, add the calls of the loop's step
+        that applied nothing (those after the stop, until the host read
+        the flag; in the sweep-reuse loop a stale association's too) to
+        the counter ``early_stop.noops``: ``issued`` less ``it``. The read
+        of ``it`` is a host read, made once the loop has left, where the
+        read of the flag has as a rule drained the device already."""
+        if timers.recording():
+            timers.count("early_stop.noops", issued - int(self.it))
 
     def stats(self) -> dict[str, Tensor]:
         return {"iters": self.it, "loss": self.loss}
@@ -711,7 +724,9 @@ def _reuse_loop(stop: EarlyStop, exact, warp, update, x: Tensor, y: Tensor,
                 update(warped, nr, cidx, rarg, stale)
             count += 1
             if count % SYNC_EVERY == 0 and stop.finished():
+                stop.count_noops(count)
                 return
+    stop.count_noops(count)
 
 
 def ldmk_iteration_plain(p: Tensor, m: Tensor, v: Tensor, x: Tensor,

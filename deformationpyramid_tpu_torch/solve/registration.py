@@ -39,7 +39,7 @@ Pairs are solved one at a time; the device follows the input tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -53,6 +53,7 @@ from ..ops.fused_iteration import (run_fused_level, run_fused_level_ldmk,
                                    supports_fused_iteration_ldmk)
 from ..ops.fused_level import (fused_level_warp, fused_level_warp_t,
                                supports_fused)
+from ..utils import timers
 from .loop import LoopConfig, run_adam_loop
 
 Tensor = torch.Tensor
@@ -203,18 +204,26 @@ def _random_subset(gen: torch.Generator, pts: Tensor, valid: Tensor, k: int
 def optimize_pyramid(params: dict, pts0: Tensor, pts_valid: Tensor,
                      t_sample: Tensor, t_valid: Tensor, cfg: SolverConfig,
                      n_ldmk: int = 0, tgt_ldmk: Tensor | None = None,
-                     ldmk_valid: Tensor | None = None
+                     ldmk_valid: Tensor | None = None,
+                     on_level: Callable | None = None
                      ) -> tuple[dict, dict[str, Tensor]]:
     """Level-by-level Adam on pre-centred, pre-sampled points, starting from
     the stacked initial ``params``. Returns (final stacked params, stats
     {"iters": [m], "loss": [m]}). Reference: the level loop of
-    ``optimize_deformation_pyramid`` (``registration.py:166-249``)."""
+    ``optimize_deformation_pyramid`` (``registration.py:166-249``).
+
+    ``on_level``, where given, is called after each level as
+    ``on_level(lvl, lvl_params_in, pts_in, (params_out, pts_out, stats))``
+    with the level's own tensors; nothing is copied for it."""
     pts = pts0
     per_level, iters, losses = [], [], []
     for lvl in range(cfg.pyramid.m):
-        new_p, pts, stats = _solve_level(level_params(params, lvl), lvl, pts,
-                                         pts_valid, t_sample, t_valid, cfg,
-                                         n_ldmk, tgt_ldmk, ldmk_valid)
+        lvl_params = level_params(params, lvl)
+        out = _solve_level(lvl_params, lvl, pts, pts_valid, t_sample,
+                           t_valid, cfg, n_ldmk, tgt_ldmk, ldmk_valid)
+        if on_level is not None:
+            on_level(lvl, lvl_params, pts, out)
+        new_p, pts, stats = out
         per_level.append(new_p)
         iters.append(stats["iters"])
         losses.append(stats["loss"])
@@ -239,7 +248,8 @@ def register_pair(key: int | torch.Generator, src: Tensor, tgt: Tensor,
                   src_ldmk: Tensor | None = None,
                   tgt_ldmk: Tensor | None = None,
                   ldmk_valid: Tensor | None = None,
-                  params: dict | None = None
+                  params: dict | None = None,
+                  on_level: Callable | None = None
                   ) -> tuple[Tensor, dict[str, Tensor]]:
     """Register one (padded) pair; returns (warped full source cloud,
     stats). ``key`` seeds the initial weights and the two random subsets
@@ -247,47 +257,51 @@ def register_pair(key: int | torch.Generator, src: Tensor, tgt: Tensor,
     given ``params`` (stacked, as ``init_pyramid_params`` makes them), the
     solve starts from those instead and ``key`` seeds the subsets alone.
     With ``src_ldmk``/``tgt_ldmk`` [L, 3] (and ``ldmk_valid`` [L], padded
-    rows False) the solve is landmark-guided (LNDP)."""
-    gen = _as_generator(key)
-    pcfg = cfg.pyramid
-    n_src, n_tgt = src.shape[0], tgt.shape[0]
-    if src_valid is None:
-        src_valid = torch.ones(n_src, dtype=torch.bool, device=src.device)
-    if tgt_valid is None:
-        tgt_valid = torch.ones(n_tgt, dtype=torch.bool, device=tgt.device)
+    rows False) the solve is landmark-guided (LNDP). ``on_level`` is
+    handed to :func:`optimize_pyramid`."""
+    with timers.span("dp::solve"):
+        gen = _as_generator(key)
+        pcfg = cfg.pyramid
+        n_src, n_tgt = src.shape[0], tgt.shape[0]
+        if src_valid is None:
+            src_valid = torch.ones(n_src, dtype=torch.bool,
+                                   device=src.device)
+        if tgt_valid is None:
+            tgt_valid = torch.ones(n_tgt, dtype=torch.bool,
+                                   device=tgt.device)
 
-    if params is None:
-        params = init_pyramid_params(gen, pcfg, device=src.device)
-    src_mean = _masked_mean(src, src_valid)
-    tgt_mean = _masked_mean(tgt, tgt_valid)
-    src_c = src - src_mean
-    tgt_c = tgt - tgt_mean
-    s_sample, s_valid = _random_subset(gen, src_c, src_valid,
-                                       min(cfg.samples, n_src))
-    t_sample, t_valid = _random_subset(gen, tgt_c, tgt_valid,
-                                       min(cfg.samples, n_tgt))
+        if params is None:
+            params = init_pyramid_params(gen, pcfg, device=src.device)
+        src_mean = _masked_mean(src, src_valid)
+        tgt_mean = _masked_mean(tgt, tgt_valid)
+        src_c = src - src_mean
+        tgt_c = tgt - tgt_mean
+        s_sample, s_valid = _random_subset(gen, src_c, src_valid,
+                                           min(cfg.samples, n_src))
+        t_sample, t_valid = _random_subset(gen, tgt_c, tgt_valid,
+                                           min(cfg.samples, n_tgt))
 
-    n_ldmk, tgt_ldmk_c = 0, None
-    pts0, pts_valid = s_sample, s_valid
-    if src_ldmk is not None:
-        n_ldmk = src_ldmk.shape[0]
-        if ldmk_valid is None:
-            ldmk_valid = torch.ones(n_ldmk, dtype=torch.bool,
-                                    device=src.device)
-        src_ldmk_c = src_ldmk - src_mean
-        tgt_ldmk_c = tgt_ldmk - tgt_mean
-        if cfg.w_cd > 0:
-            pts0 = torch.cat([src_ldmk_c, s_sample])
-            pts_valid = torch.cat([ldmk_valid, s_valid])
-        else:
-            pts0, pts_valid = src_ldmk_c, ldmk_valid
+        n_ldmk, tgt_ldmk_c = 0, None
+        pts0, pts_valid = s_sample, s_valid
+        if src_ldmk is not None:
+            n_ldmk = src_ldmk.shape[0]
+            if ldmk_valid is None:
+                ldmk_valid = torch.ones(n_ldmk, dtype=torch.bool,
+                                        device=src.device)
+            src_ldmk_c = src_ldmk - src_mean
+            tgt_ldmk_c = tgt_ldmk - tgt_mean
+            if cfg.w_cd > 0:
+                pts0 = torch.cat([src_ldmk_c, s_sample])
+                pts_valid = torch.cat([ldmk_valid, s_valid])
+            else:
+                pts0, pts_valid = src_ldmk_c, ldmk_valid
 
-    final_params, stats = optimize_pyramid(params, pts0, pts_valid,
-                                           t_sample, t_valid, cfg, n_ldmk,
-                                           tgt_ldmk_c, ldmk_valid)
-    with torch.no_grad():
-        warped_full, _ = warp(final_params, src_c, pcfg)
-    return warped_full + tgt_mean, stats
+        final_params, stats = optimize_pyramid(
+            params, pts0, pts_valid, t_sample, t_valid, cfg, n_ldmk,
+            tgt_ldmk_c, ldmk_valid, on_level)
+        with torch.no_grad():
+            warped_full, _ = warp(final_params, src_c, pcfg)
+        return warped_full + tgt_mean, stats
 
 
 def make_register_fn(cfg: SolverConfig, landmarks: bool = False):

@@ -33,6 +33,7 @@ from ..match.losses import MatchLossConfig, match_motion_loss, neco_loss
 from ..match.outlier_rejection import apply_neco
 from ..match.pipeline import apply_matcher
 from ..models.pyramid import tree_leaves, tree_map
+from ..utils import timers
 from ..utils.checkpoint import save_pytree
 from ..utils.logging import AverageMeter
 
@@ -278,15 +279,16 @@ def make_matcher_train_step(lcfg: LandmarkConfig, opt: Optimizer,
             return match_motion_loss(data, match_gt, match_gt_valid,
                                      coarse_flow, gt_rot, gt_trn, loss_cfg)
 
-        (loss, info), grads = value_and_grad(loss_fn, matcher_params)
-        with torch.no_grad():
-            ok = valid_gradient(grads)
-            grads = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
-            updates, new_opt_state = opt.update(grads, opt_state,
-                                                matcher_params)
-            new_params = tree_map(torch.add, matcher_params, updates)
-            return (_keep(ok, new_params, matcher_params),
-                    _keep(ok, new_opt_state, opt_state), loss, info, ok)
+        with timers.span("dp::train.step"):
+            (loss, info), grads = value_and_grad(loss_fn, matcher_params)
+            with torch.no_grad(), timers.span("dp::train.update"):
+                ok = valid_gradient(grads)
+                grads = tree_map(lambda g: torch.where(ok, g, 0.0), grads)
+                updates, new_opt_state = opt.update(grads, opt_state,
+                                                    matcher_params)
+                new_params = tree_map(torch.add, matcher_params, updates)
+                return (_keep(ok, new_params, matcher_params),
+                        _keep(ok, new_opt_state, opt_state), loss, info, ok)
 
     return step
 

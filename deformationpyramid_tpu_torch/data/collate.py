@@ -30,6 +30,7 @@ moves a built pyramid onto the device.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -311,24 +312,127 @@ def calibrate_neighborhood_limits(clouds: list[tuple[np.ndarray, np.ndarray]],
     return limits
 
 
+# Every array of a staged pyramid starts on this boundary (bytes), the one
+# the device's allocator keeps: a view of any dtype, and its int64 widening,
+# stays aligned.
+_ALIGN = 256
+_FIELDS = ("points", "valids", "neighbors", "pools", "upsamples")
+
+
+def _pack_plan(arrays: list[np.ndarray]) -> tuple[list[int], int, int]:
+    """Byte offsets of ``arrays`` in one staging buffer: the int32 index
+    tables first, in one run that widens to int64 in one launch, then the
+    rest, each array aligned to ``_ALIGN``. Returns (offsets, the int32
+    run's length, the buffer's length)."""
+    order = sorted(range(len(arrays)),
+                   key=lambda i: arrays[i].dtype != np.int32)
+    offsets, off, wide = [0] * len(arrays), 0, 0
+    for i in order:
+        offsets[i] = off
+        off += -(-arrays[i].nbytes // _ALIGN) * _ALIGN
+        if arrays[i].dtype == np.int32:
+            wide = off
+    return offsets, wide, off
+
+
+def _pack(host: np.ndarray, arrays: list[np.ndarray],
+          offsets: list[int]) -> None:
+    """Copy each array, as it is, into its place in the byte buffer
+    ``host``."""
+    for a, off in zip(arrays, offsets):
+        np.copyto(host[off:off + a.nbytes].view(a.dtype).reshape(a.shape), a)
+
+
+def _unpack(raw: torch.Tensor, arrays: list[np.ndarray], offsets: list[int],
+            wide: int) -> list[torch.Tensor]:
+    """The arrays back out of the byte buffer ``raw`` (on the target
+    device): the int32 run widened to int64 by one ``.long()``, the rest
+    copied once out of ``raw``, each array a view of one of the two. Neither
+    shares memory with ``raw``, so no output holds the staging buffer or the
+    int32 run alive."""
+    ints = raw[:wide].view(torch.int32).long()
+    rest = raw[wide:].clone()
+    out = []
+    for a, off in zip(arrays, offsets):
+        if a.dtype == np.int32:
+            t = ints[off // 4:off // 4 + a.size]
+        else:
+            dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+            t = rest[off - wide:off - wide + a.nbytes].view(dtype)
+        out.append(t.view(a.shape))
+    return out
+
+
+class _PinnedStaging:
+    """Two page-locked host buffers of one size, used in turn, from which a
+    pyramid is copied to the card in one non-blocking copy. Before a buffer
+    is written again the host waits on the event recorded after its last
+    copy (a pair apart, so it has long finished). When a pyramid does not
+    fit, both buffers are replaced at the next power of two, so that one
+    upload of the largest pyramid readies both (``collate.stage_misses``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._buffers: list[torch.Tensor] = []
+        self._copied: list[torch.cuda.Event | None] = [None, None]
+        self._turn = 0
+
+    def upload(self, arrays: list[np.ndarray], offsets: list[int],
+               size: int, device: torch.device) -> torch.Tensor:
+        """A fresh device byte buffer of ``size`` holding the packed
+        arrays; its copy is queued on the device's current stream."""
+        with self._lock:
+            missed = not self._buffers or self._buffers[0].numel() < size
+            if missed:
+                for copied in self._copied:
+                    if copied is not None:
+                        copied.synchronize()
+                self._buffers = [
+                    torch.empty(1 << max(size - 1, 1).bit_length(),
+                                dtype=torch.uint8, pin_memory=True)
+                    for _ in range(2)]
+            turn, self._turn = self._turn, 1 - self._turn
+            if self._copied[turn] is not None:
+                self._copied[turn].synchronize()
+            buf = self._buffers[turn]
+            _pack(buf.numpy(), arrays, offsets)
+            raw = torch.empty(size, dtype=torch.uint8, device=device)
+            raw.copy_(buf[:size], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(raw.device))
+            self._copied[turn] = done
+        timers.count("collate.staged")
+        if missed:
+            timers.count("collate.stage_misses")
+        return raw
+
+
+_STAGING = _PinnedStaging()
+
+
 def pyramid_to_device(pyr: PairPyramid,
                       device: torch.device | str | None = None) -> dict:
     """The dict of tensors that ``match.backbone.apply_kpfcn_coarse`` takes:
     points, valids, neighbors, pools, upsamples (lists per level) and
     features, on ``device`` (the GPU unless the caller names another). The
-    index tables become int64, the type PyTorch's gathers take."""
+    index tables become int64, the type PyTorch's gathers take.
+
+    The arrays are packed, as they are, into one byte buffer and moved in
+    one copy; the int32 tables are widened on the target. For a CUDA target
+    the buffer is one of two reused page-locked buffers (``_STAGING``) and
+    the copy does not block the host; otherwise it is a fresh host buffer.
+    No returned tensor shares memory with the staging buffer."""
     device = torch.device("cuda" if device is None else device)
-
-    def put(a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if t.dtype == torch.int32:
-            t = t.long()
-        return t.to(device)
-
+    arrays = [a for f in _FIELDS for a in getattr(pyr, f)] + [pyr.features]
     with timers.span("dp::collate.to_device"):
-        return {"points": [put(p) for p in pyr.points],
-                "valids": [put(v) for v in pyr.valids],
-                "neighbors": [put(x) for x in pyr.neighbors],
-                "pools": [put(x) for x in pyr.pools],
-                "upsamples": [put(x) for x in pyr.upsamples],
-                "features": put(pyr.features)}
+        offsets, wide, size = _pack_plan(arrays)
+        if device.type == "cuda":
+            raw = _STAGING.upload(arrays, offsets, size, device)
+        else:
+            raw = torch.empty(size, dtype=torch.uint8)
+            _pack(raw.numpy(), arrays, offsets)
+            raw = raw.to(device)
+        tensors = iter(_unpack(raw, arrays, offsets, wide))
+        out = {f: [next(tensors) for _ in getattr(pyr, f)] for f in _FIELDS}
+        out["features"] = next(tensors)
+        return out

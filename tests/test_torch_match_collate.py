@@ -29,6 +29,8 @@ from deformationpyramid_tpu_torch.match.backbone import (
 from deformationpyramid_tpu_torch.match.kpconv import (
     KPConvConfig as TKPConvConfig)
 from deformationpyramid_tpu_torch.utils import config as tconfig
+from deformationpyramid_tpu_torch.utils import timers
+from tests.test_torch_cuda_collate import assert_same, per_array
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(first_subsampling_dl=0.05, first_feats_dim=32,
@@ -107,6 +109,56 @@ def test_pyramid_to_device_keeps_values():
     assert all(t.dtype == torch.int64 for t in dev["neighbors"])
     assert dev["valids"][0].dtype == torch.bool
     assert np.array_equal(pyr.features, dev["features"].numpy())
+
+
+def _staging_pyramid(n, seed, pad, arch=TARCH):
+    src, tgt, _ = make_pair(n=n, seed=seed, deform=0.05)
+    cfg = TKPConvConfig(**SMALL)
+    limits = tcol.calibrate_neighborhood_limits([(src, tgt)], cfg, arch)
+    return tcol.build_pair_pyramid(src, tgt, cfg, arch, limits, pad_to=pad)
+
+
+STAGED = {"small": (300, 1, None), "mid": (700, 3, "pow2"),
+          "large": (1500, 5, "pow2"), "large-unpadded": (1500, 5, None),
+          # one level, no pooling: the pools and upsamples are empty
+          "no-pools": (500, 2, None, TARCH[:2])}
+
+
+@pytest.mark.parametrize("case,then", [("small", "large"),
+                                       ("mid", "small"),
+                                       ("large", "mid"),
+                                       ("large-unpadded", "no-pools"),
+                                       ("no-pools", "large")])
+def test_pyramid_to_device_staged_layout(case, then):
+    """One byte buffer, the int32 tables widened in one ``.long()``: every
+    output equals the conversion array by array in dtype, shape and bits;
+    a first call's tensors keep their values after a call of another
+    size; the CPU target stages nothing, so the staging counters move
+    neither outside the profiler nor while it records."""
+    pyr, other = (_staging_pyramid(*STAGED[c]) for c in (case, then))
+    if case == "no-pools":
+        assert pyr.pools == [] and pyr.upsamples == []
+    counted = ("collate.staged", "collate.stage_misses")
+    before = {k: timers.counters().get(k, 0) for k in counted}
+    first = tcol.pyramid_to_device(pyr, "cpu")
+    want = per_array(pyr, "cpu")
+    assert_same(first, want)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert timers.recording()
+        second = tcol.pyramid_to_device(other, "cpu")
+    assert_same(second, per_array(other, "cpu"))
+    assert_same(first, want)
+    assert {k: timers.counters().get(k, 0) for k in counted} == before
+
+
+def test_pack_plan_aligns_and_puts_int32_first():
+    arrays = [np.zeros((5, 3), np.float32), np.zeros((7, 4), np.int32),
+              np.zeros(9, bool), np.zeros((0, 4), np.int32),
+              np.zeros((3, 2), np.int32)]
+    offsets, wide, size = tcol._pack_plan(arrays)
+    assert offsets == [512, 0, 768, 256, 256] and wide == 512
+    assert size == 1024 and all(o % tcol._ALIGN == 0 for o in offsets)
 
 
 @pytest.mark.parametrize("name", ["LNDP.yaml", "NDP.yaml",

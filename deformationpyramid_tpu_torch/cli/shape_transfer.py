@@ -16,13 +16,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
-from ..data.ply import load_ply, save_ply, sample_points_uniformly
+from ..data.ply import PlyMesh, load_ply, save_ply, sample_points_uniformly
 from ..models.pyramid import NDPConfig, init_pyramid_params, warp
 from ..solve.registration import SolverConfig, optimize_pyramid
+from ..utils import timers
 
 # reference shape_transfer.py:27-49 hardcoded config
 DEMO_CFG = SolverConfig(
@@ -35,7 +37,8 @@ DEMO_CFG = SolverConfig(
 
 def register_meshes(src_pts, tgt_pts, vertices, cfg: SolverConfig = DEMO_CFG,
                     seed: int = 0, device: torch.device | str = "cuda",
-                    params: dict | None = None):
+                    params: dict | None = None,
+                    on_level: Callable | None = None):
     """Fit the pyramid on sampled surface points, warp arbitrary vertices.
 
     Mirrors the reference flow (``shape_transfer.py:104-168``): mean-centre,
@@ -45,8 +48,11 @@ def register_meshes(src_pts, tgt_pts, vertices, cfg: SolverConfig = DEMO_CFG,
     port's entry points run on the card unless the caller asks for the CPU;
     the fused iteration (kernels C1-C4, Sim3 + euler) is on by default
     there. ``params`` (stacked, as ``init_pyramid_params`` makes them)
-    replace the initial weights drawn from ``seed``. Returns (warped
-    vertices [V, 3], stats {"iters": [m], "loss": [m]}).
+    replace the initial weights drawn from ``seed``. ``on_level`` is
+    handed to :func:`optimize_pyramid`. The level loops and the vertex warp
+    run inside the span ``dp::solve``, the name ``register_pair`` gives the
+    same work. Returns (warped vertices [V, 3], stats {"iters": [m],
+    "loss": [m]}).
     """
     device = torch.device(device)
     if cfg.use_fused_iteration is None:
@@ -59,15 +65,38 @@ def register_meshes(src_pts, tgt_pts, vertices, cfg: SolverConfig = DEMO_CFG,
     if params is None:
         params = init_pyramid_params(torch.Generator().manual_seed(seed),
                                      pcfg, device=device)
-    src_mean = src.mean(0, keepdim=True)
-    tgt_mean = tgt.mean(0, keepdim=True)
-    valid_n = torch.ones(src.shape[0], dtype=torch.bool, device=device)
-    valid_m = torch.ones(tgt.shape[0], dtype=torch.bool, device=device)
-    final, stats = optimize_pyramid(params, src - src_mean, valid_n,
-                                    tgt - tgt_mean, valid_m, cfg)
-    with torch.no_grad():
-        warped, _ = warp(final, verts - src_mean, pcfg)
-    return warped + tgt_mean, stats
+    with timers.span("dp::solve"):
+        src_mean = src.mean(0, keepdim=True)
+        tgt_mean = tgt.mean(0, keepdim=True)
+        valid_n = torch.ones(src.shape[0], dtype=torch.bool, device=device)
+        valid_m = torch.ones(tgt.shape[0], dtype=torch.bool, device=device)
+        final, stats = optimize_pyramid(params, src - src_mean, valid_n,
+                                        tgt - tgt_mean, valid_m, cfg,
+                                        on_level=on_level)
+        with torch.no_grad():
+            warped, _ = warp(final, verts - src_mean, pcfg)
+        return warped + tgt_mean, stats
+
+
+def transfer_meshes(src_mesh: PlyMesh, tgt_mesh: PlyMesh,
+                    cfg: SolverConfig = DEMO_CFG, seed: int = 0,
+                    device: torch.device | str = "cuda",
+                    on_level: Callable | None = None):
+    """One shape transfer, what :func:`main` does between loading and
+    saving: ``cfg.samples`` area-weighted surface samples of each mesh
+    (the source's drawn with ``seed``, the target's with ``seed + 1``;
+    span ``dp::shape_transfer.sample``), :func:`register_meshes` with the
+    initial weights drawn from ``seed``, and the source's warped vertices
+    copied to the host. Returns (warped vertices [V, 3] as a float32
+    numpy array, stats {"iters": [m], "loss": [m]})."""
+    with timers.span("dp::shape_transfer.sample"):
+        src_pts = sample_points_uniformly(src_mesh, cfg.samples, seed=seed)
+        tgt_pts = sample_points_uniformly(tgt_mesh, cfg.samples,
+                                          seed=seed + 1)
+    warped, stats = register_meshes(src_pts, tgt_pts, src_mesh.vertices, cfg,
+                                    seed=seed, device=device,
+                                    on_level=on_level)
+    return warped.cpu().numpy(), stats
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -83,14 +112,10 @@ def main(argv: list[str] | None = None) -> None:
     src_mesh = load_ply(args.s)
     tgt_mesh = load_ply(args.t)
     cfg = dataclasses.replace(DEMO_CFG, samples=args.samples)
-    src_pts = sample_points_uniformly(src_mesh, cfg.samples, seed=0)
-    tgt_pts = sample_points_uniformly(tgt_mesh, cfg.samples, seed=1)
 
     t0 = time.perf_counter()
-    warped_verts, stats = register_meshes(src_pts, tgt_pts,
-                                          src_mesh.vertices, cfg, seed=0,
+    warped_verts, stats = transfer_meshes(src_mesh, tgt_mesh, cfg, seed=0,
                                           device=args.device)
-    warped_verts = warped_verts.cpu().numpy()
     dt = time.perf_counter() - t0
     print(f"registered in {dt:.2f}s; iters/level = "
           f"{stats['iters'].tolist()}")

@@ -192,7 +192,7 @@ def test_default_device_is_cuda(monkeypatch):
     mesh = SimpleNamespace(vertices=np.zeros((4, 3), np.float32),
                            faces=np.zeros((1, 3), np.int32))
 
-    def fake_register(src, tgt, verts, cfg, seed, device):
+    def fake_register(src, tgt, verts, cfg, seed, device, on_level=None):
         seen["device"] = device
         return torch.zeros(4, 3), {"iters": torch.ones(9),
                                    "loss": torch.zeros(9)}

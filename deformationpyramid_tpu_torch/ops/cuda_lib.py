@@ -172,7 +172,10 @@ class Kernel:
 
     ``launches`` rises by one for every launch that the CUDA runtime
     accepted, and nowhere else; a run resets it to 0 to show which
-    kernels its path went through.
+    kernels its path went through. A launch captured into a CUDA graph
+    runs nothing: the code that captures it takes it back out of the
+    count and adds it again at each replay of the graph
+    (``fused_iteration._LevelGraph``).
     """
 
     def __init__(self, name: str, symbol: str, argtypes: list):

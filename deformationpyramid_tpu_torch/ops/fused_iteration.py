@@ -46,12 +46,18 @@ plain torch as the JAX package adds it in XLA, C3 takes its cotangent), at
 depth >= 2. With ``resweep_every`` (``DP_SWEEP_REUSE``) >= 2 the chamfer
 loop reuses the sweep's association (:func:`_reuse_loop`): one exact
 iteration, then cheap ones that re-warp with C2 alone (the JAX package's
-``_warp_only_kernel``) and walk precomputed k-NN tables.
+``_warp_only_kernel``) and walk precomputed k-NN tables. Without it, a
+chamfer-mode level on the card whose shape was seen before replays one
+captured CUDA graph of ``SYNC_EVERY`` iterations between reads of the flag
+(:class:`LevelGraphs`), one host launch where the eager loop makes ~81.
 """
 from __future__ import annotations
 
+import collections
 import math
 import os
+import threading
+import warnings
 
 import torch
 
@@ -468,6 +474,10 @@ class EarlyStop:
     changes nothing: not the params, the moments, ``it``, ``loss`` or the
     caller's aux. That makes reading the flag every ``SYNC_EVERY``
     iterations give the same result as reading it after each one.
+
+    Every state tensor is updated in place and keeps its identity for the
+    object's life (C4 and C5 read them through pointers, and a captured
+    CUDA graph of the loop reads on each replay what the last one wrote).
     """
 
     def __init__(self, cfg, device: torch.device):
@@ -480,6 +490,13 @@ class EarlyStop:
         self.done = torch.zeros((), dtype=torch.bool, device=device)
         self.it = torch.zeros((), **i32)
         self.applied = torch.zeros((), **f32)
+
+    def reset(self) -> None:
+        """Back to the state of a new loop, in place."""
+        self.loss.fill_(math.inf)
+        self.loss_prev.fill_(1e6)
+        for t in (self.counter, self.done, self.it, self.applied):
+            t.zero_()
 
     def decide(self, loss: Tensor, extra_halt: Tensor | None = None
                ) -> tuple[Tensor, Tensor]:
@@ -495,30 +512,32 @@ class EarlyStop:
         small = loss < cfg.loss_eps
         plateau = torch.abs(self.loss_prev - loss) \
             < self.loss_prev * cfg.break_threshold_ratio
-        self.counter = self.counter + (plateau & run).to(torch.int32)
-        self.done = torch.where(
-            run, small | (self.counter >= cfg.max_break_count), self.done)
+        self.counter.add_((plateau & run).to(torch.int32))
+        torch.where(run, small | (self.counter >= cfg.max_break_count),
+                    self.done, out=self.done)
         return halt, halt | self.done
 
     def advance(self, loss: Tensor, halt: Tensor, hold: Tensor) -> None:
-        self.loss_prev = torch.where(hold, self.loss_prev, loss)
-        self.it = self.it + (~halt).to(torch.int32)
-        self.applied = self.applied + (~hold).to(torch.float32)
-        self.loss = torch.where(halt, self.loss, loss)
+        torch.where(hold, self.loss_prev, loss, out=self.loss_prev)
+        self.it.add_((~halt).to(torch.int32))
+        self.applied.add_((~hold).to(torch.float32))
+        torch.where(halt, self.loss, loss, out=self.loss)
 
     def finished(self) -> bool:
         """The host read of the stop flag (a device synchronisation)."""
         return bool(self.done | (self.it >= self.cfg.iters))
 
-    def run(self, step) -> None:
+    def run(self, step) -> int:
         """Call ``step`` up to ``iters`` times; read the flag on the host
-        every SYNC_EVERY calls and leave once the loop is finished."""
+        every SYNC_EVERY calls and leave once the loop is finished.
+        Returns the calls issued."""
         issued = 0
         for issued in range(1, self.cfg.iters + 1):
             step()
             if issued % SYNC_EVERY == 0 and self.finished():
                 break
         self.count_noops(issued)
+        return issued
 
     def count_noops(self, issued: int) -> None:
         """While the profiler records, add the calls of the loop's step
@@ -567,6 +586,264 @@ def _reuse_env(value, name: str, default: str, cast):
     return cast(os.environ.get(name, default)) if value is None else value
 
 
+GRAPH_CACHE_SIZE = 32   # level shapes a LevelGraphs keeps (seen, or a graph)
+_FAILED = object()      # LevelGraphs' mark of a key whose capture failed
+
+
+def level_graph_key(device: torch.device, n: int, m: int, level: int,
+                    pcfg: pyramid.NDPConfig, lcfg, trunc: float,
+                    n_ldmk: int, w_cd: float, w_eff: float) -> tuple:
+    """What a captured block of a chamfer-mode level bakes in: the device,
+    the source and target rows, the level (C2 / C3 take its frequency and
+    its gate as launch arguments), the pyramid, the loop's settings, the
+    truncation, the landmark rows and the two weights."""
+    return (device, n, m, level, pcfg,
+            (lcfg.iters, lcfg.lr, lcfg.loss_eps, lcfg.break_threshold_ratio,
+             lcfg.max_break_count),
+            float(trunc), n_ldmk, float(w_cd), float(w_eff))
+
+
+class LevelGraphs:
+    """Which chamfer-mode level loops replay a captured CUDA graph.
+
+    A key (:func:`level_graph_key`) seen for the first time runs the eager
+    loop and is remembered: a shape seen once never pays for a capture,
+    and the eager loop has built the kernels, set their shared memory and
+    settled the allocator before a capture. The key's second sight
+    captures a block of ``SYNC_EVERY`` iterations (:class:`_LevelGraph`),
+    and every later sight replays it. A key whose capture failed stays
+    eager. At most ``size`` keys are kept, the least recently used dropped
+    first, its graph and buffers with it. The graphs share one memory
+    pool: one level's replays never overlap another's, and no tensor a
+    graph allocates outlives its capture. ``lock`` is held while a graph's
+    buffers are in use; a second thread runs the eager loop.
+    """
+
+    EAGER, CAPTURE, REPLAY = "eager", "capture", "replay"
+
+    def __init__(self, size: int = GRAPH_CACHE_SIZE):
+        self.size = size
+        self.lock = threading.Lock()
+        self._keys: collections.OrderedDict = collections.OrderedDict()
+        self._pool = None
+
+    def plan(self, key) -> tuple[str, "_LevelGraph | None"]:
+        """What a level of ``key`` runs, and marks the key the most
+        recently used: (EAGER, None) at its first sight or after a failed
+        capture, (CAPTURE, None) at its second, (REPLAY, graph) after."""
+        if key not in self._keys:
+            self._keys[key] = None
+            if len(self._keys) > self.size:
+                self._keys.popitem(last=False)
+            return self.EAGER, None
+        self._keys.move_to_end(key)
+        got = self._keys[key]
+        if got is None:
+            return self.CAPTURE, None
+        if got is _FAILED:
+            return self.EAGER, None
+        return self.REPLAY, got
+
+    def store(self, key, graph: "_LevelGraph | None") -> None:
+        """The captured graph of ``key``; None where its capture failed."""
+        self._keys[key] = _FAILED if graph is None else graph
+
+    def pool(self):
+        """The graphs' memory pool (one id serves every device)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+
+_GRAPHS = LevelGraphs()
+
+
+class _LevelGraph:
+    """A level shape's captured block of ``SYNC_EVERY`` exact iterations
+    and the tensors it reads and writes: the loop's (:func:`_level_tensors`,
+    aux among them) and the early-stop state. Capture records and runs
+    nothing, so the first replay starts from the state as loaded, and a
+    kernel's ``launches`` counts the block's launches (``launches``) at
+    each replay, not at the capture."""
+
+    def __init__(self, tensors: dict[str, Tensor], stop: EarlyStop, step,
+                 pool):
+        self.tensors, self.stop = tensors, stop
+        before = [k.launches for k in cuda_lib.KERNELS]
+        try:
+            self.graph = _record(step, pool)
+        finally:
+            self.launches = [(k, k.launches - n) for k, n in
+                             zip(cuda_lib.KERNELS, before) if k.launches != n]
+            for k, n in self.launches:
+                k.launches -= n
+
+    def load(self, fresh: dict[str, Tensor]) -> None:
+        """A new level's tensors into the graph's, and a new loop."""
+        for k, t in fresh.items():
+            self.tensors[k].copy_(t)
+        self.stop.reset()
+
+    def run(self) -> int:
+        """Replay until the host reads the loop finished, at most
+        ceil(iters / SYNC_EVERY) times: a block's iterations past the stop
+        or the cap are no-ops. Returns the replays."""
+        replays = 0
+        for replays in range(1, -(-self.stop.cfg.iters // SYNC_EVERY) + 1):
+            self.graph.replay()
+            for k, n in self.launches:
+                k.launches += n
+            if self.stop.finished():
+                break
+        return replays
+
+
+def _record(step, pool) -> torch.cuda.CUDAGraph:
+    """``SYNC_EVERY`` calls of ``step`` captured as one CUDA graph, its
+    temporaries in the memory pool ``pool``; a failed capture raises
+    ``RuntimeError``."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode="thread_local"):
+        for _ in range(SYNC_EVERY):
+            step()
+    return graph
+
+
+def _level_tensors(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
+                   t_sample: Tensor, t_valid: Tensor, n_ldmk: int,
+                   tgt_ldmk: Tensor | None, ldmk_valid: Tensor | None,
+                   pcfg: pyramid.NDPConfig) -> dict[str, Tensor]:
+    """The tensors a chamfer-mode level loop starts from: the flat params
+    ``p`` and Adam's moments, the points, their masks and counts, the
+    landmark term's (``n_ldmk > 0``), zeros for the nonrigidity cotangent
+    (with the head), and ``aux``, the warped points handed on."""
+    p = pyramid.ravel(lvl_params).to(torch.float32).contiguous().clone()
+    x = pts.to(torch.float32).contiguous()
+    n = x.shape[0]
+    rows = torch.arange(n, device=x.device)
+    row_valid = pts_valid.to(torch.bool)
+    xv = (row_valid & (rows >= n_ldmk)).contiguous()
+    yv = t_valid.to(torch.bool).contiguous()
+    t = dict(p=p, m=torch.zeros_like(p), v=torch.zeros_like(p), x=x,
+             y=t_sample.to(torch.float32).contiguous(), row_valid=row_valid,
+             xv=xv, yv=yv,
+             x_len=torch.clamp_min(xv.sum(), 1).to(torch.float32),
+             y_len=torch.clamp_min(yv.sum(), 1).to(torch.float32),
+             aux=x.clone())
+    if n_ldmk > 0:
+        lmask = torch.zeros(n, dtype=torch.float32, device=x.device)
+        lmask[:n_ldmk] = ldmk_valid.to(torch.float32)
+        ltgt = torch.zeros_like(x)
+        ltgt[:n_ldmk] = tgt_ldmk.to(torch.float32)
+        t.update(lmask=lmask, lcount=torch.clamp_min(lmask.sum(), 1.0),
+                 ltgt=ltgt)
+    if pcfg.nonrigidity_est:
+        t["zeros_nr"] = torch.zeros(n, dtype=torch.float32, device=x.device)
+    return t
+
+
+def _level_step(t: dict[str, Tensor], stop: EarlyStop, level: int,
+                pcfg: pyramid.NDPConfig, lcfg, trunc: float, n_ldmk: int,
+                w_cd: float, w_eff: float):
+    """The chamfer-mode iteration on the tensors ``t`` and ``stop``, every
+    result written in place: (warp, update, exact), the warp (C2), the
+    back half (glue, early stop, C3, C4) and one exact iteration."""
+    p, m, v, x, y, aux = (t[k] for k in ("p", "m", "v", "x", "y", "aux"))
+
+    def warp():
+        if pcfg.nonrigidity_est:
+            return level_warp_fwd_nr(p, x, level, pcfg)
+        return level_warp_fwd(p, x, level, pcfg), None
+
+    def update(warped, nr, cidx, rarg, extra_halt=None):
+        loss, g = _chamfer_glue(warped, cidx, rarg, y, t["xv"], t["yv"],
+                                t["x_len"], t["y_len"], trunc)
+        if n_ldmk > 0:
+            diff = (warped - t["ltgt"]) * t["lmask"][:, None]
+            loss = torch.sum(diff * diff) / t["lcount"] + w_cd * loss
+            g = (2.0 / t["lcount"]) * diff + w_cd * g
+        g_nr = t.get("zeros_nr")
+        if w_eff > 0:
+            # the BCE of nr against zeros over all valid rows and its exact
+            # gradient, in plain torch as the JAX package computes it in XLA
+            # (reference registration.py:216-220)
+            reg, vjp = torch.func.vjp(
+                lambda q: bce_with_zeros_target(q, t["row_valid"]), nr)
+            loss = loss + w_eff * reg
+            (g_nr,) = vjp(torch.tensor(w_eff, device=nr.device))
+        halt, hold = stop.decide(loss, extra_halt)
+        partials = level_warp_bwd(p, x, g, level, pcfg, g_nr)
+        adam_step(p, m, v, partials, stop.applied,
+                  hold.to(torch.float32), lcfg.lr)
+        stop.advance(loss, halt, hold)
+        torch.where(halt, aux, warped, out=aux)
+
+    def exact():
+        warped, nr = warp()
+        _, cidx, _, rarg = nn_argmin_dual(warped, y, t["xv"], t["yv"])
+        update(warped, nr, cidx, rarg)
+        return warped, cidx, rarg
+
+    return warp, update, exact
+
+
+def _graph_level(t: dict[str, Tensor], shapes, args: tuple):
+    """The level loop as replays of its shape's captured block, where
+    ``_GRAPHS`` plans one: (params, aux, stats), each a clone, so that
+    nothing handed out shares memory with the graph's tensors (the next
+    level's input is this one's aux, and callers keep what levels return).
+    ``args`` are :func:`_level_step`'s after ``t`` and the stop. None where
+    the eager loop runs instead."""
+    graphs = _GRAPHS
+    if not graphs.lock.acquire(blocking=False):
+        return None
+    try:
+        x = t["x"]
+        key = level_graph_key(x.device, x.shape[0], t["y"].shape[0], *args)
+        plan, graph = graphs.plan(key)
+        if plan == graphs.EAGER:
+            return None
+        if plan == graphs.CAPTURE:
+            graph = _capture_level(t, graphs.pool(), args)
+            graphs.store(key, graph)
+            if graph is None:
+                return None
+        else:
+            graph.load(t)
+        replays = graph.run()
+        timers.count("fused_level.blocks", replays)
+        timers.count("fused_level.graph_replays", replays)
+        graph.stop.count_noops(replays * SYNC_EVERY)
+        out = graph.tensors
+        return (pyramid.unravel(out["p"].clone(), shapes), out["aux"].clone(),
+                {k: s.clone() for k, s in graph.stop.stats().items()})
+    finally:
+        graphs.lock.release()
+
+
+def _capture_level(t: dict[str, Tensor], pool, args: tuple):
+    """Capture a block of ``SYNC_EVERY`` exact iterations on copies of
+    ``t`` (which stays as it was): the graph, or None where the capture
+    failed and the level is to run eagerly. Copies, because ``t``'s
+    points, masks and target may be the caller's own tensors (``.to`` and
+    ``.contiguous`` hand back their input where nothing changes), and each
+    later level of the key copies its inputs into the graph's."""
+    static = {k: s.clone() for k, s in t.items()}
+    _, _, lcfg, *_ = args
+    stop = EarlyStop(lcfg, t["x"].device)
+    exact = _level_step(static, stop, *args)[2]
+    try:
+        graph = _LevelGraph(static, stop, exact, pool)
+    except RuntimeError as err:
+        warnings.warn(f"run_fused_level: the capture of a level's block "
+                      f"failed, the level runs eagerly: {err}")
+        timers.count("fused_level.graph_failures")
+        return None
+    timers.count("fused_level.graph_captures")
+    return graph
+
+
 def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
                     t_sample: Tensor, t_valid: Tensor, level: int,
                     pcfg: pyramid.NDPConfig, lcfg, trunc: float = 1e9,
@@ -596,9 +873,20 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
     = 8, glue, C3, C4), which hold (no step, no iteration counted) once
     the warp has moved more than ``resweep_drift`` (``DP_SWEEP_REUSE_DRIFT``
     = 1.0) times the target's median nearest-neighbour spacing since the
-    exact sweep (JAX ``run_fused_level`` / ``_reuse_loop``). Returns
-    (updated level params dict, warped pts [N, 3] of the last evaluation,
-    stats {iters, loss}).
+    exact sweep (JAX ``run_fused_level`` / ``_reuse_loop``).
+
+    On CUDA tensors, without sweep reuse and without the BCE term, a shape
+    seen before (:class:`LevelGraphs`) runs as replays of one captured CUDA
+    graph of ``SYNC_EVERY`` iterations, the host reading the stop flag
+    after each: the same kernels with the same arguments in the same
+    order, so the same result as the eager loop, bit for bit, with one
+    host launch a block. Counters (while the profiler records):
+    ``fused_level.blocks`` (blocks of up to ``SYNC_EVERY`` calls issued by
+    the loop, either way), ``fused_level.graph_replays``,
+    ``fused_level.graph_captures`` and ``fused_level.graph_failures``.
+
+    Returns (updated level params dict, warped pts [N, 3] of the last
+    evaluation, stats {iters, loss}).
     """
     if n_ldmk == 0:
         covered = supports_fused_iteration(pcfg, w_reg)
@@ -612,79 +900,30 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
     resweep_drift = _reuse_env(resweep_drift, "DP_SWEEP_REUSE_DRIFT", "1.0",
                                float)
     shapes = pyramid.level_shapes(pcfg)
-    p = pyramid.ravel(lvl_params).to(torch.float32).contiguous().clone()
-    m = torch.zeros_like(p)
-    v = torch.zeros_like(p)
-    x = pts.to(torch.float32).contiguous()
-    y = t_sample.to(torch.float32).contiguous()
-    n = x.shape[0]
-    rows = torch.arange(n, device=x.device)
-    row_valid = pts_valid.to(torch.bool)
-    xv = (row_valid & (rows >= n_ldmk)).contiguous()
-    yv = t_valid.to(torch.bool).contiguous()
-    x_len = torch.clamp_min(xv.sum(), 1).to(torch.float32)
-    y_len = torch.clamp_min(yv.sum(), 1).to(torch.float32)
-    if n_ldmk > 0:
-        lmask = torch.zeros(n, dtype=torch.float32, device=x.device)
-        lmask[:n_ldmk] = ldmk_valid.to(torch.float32)
-        lcount = torch.clamp_min(lmask.sum(), 1.0)
-        ltgt = torch.zeros_like(x)
-        ltgt[:n_ldmk] = tgt_ldmk.to(torch.float32)
-    nonrigid = bool(pcfg.nonrigidity_est)
+    t = _level_tensors(lvl_params, pts, pts_valid, t_sample, t_valid, n_ldmk,
+                       tgt_ldmk, ldmk_valid, pcfg)
     # the regulariser's weight, gated at level 0 (where nr is all ones)
-    w_eff = float(w_reg) if nonrigid and level > 0 else 0.0
-    zeros_nr = torch.zeros(n, dtype=torch.float32, device=x.device) \
-        if nonrigid else None
-    stop = EarlyStop(lcfg, x.device)
-    aux = x.clone()
-
-    def warp():
-        if nonrigid:
-            return level_warp_fwd_nr(p, x, level, pcfg)
-        return level_warp_fwd(p, x, level, pcfg), None
-
-    def update(warped, nr, cidx, rarg, extra_halt=None):
-        """The iteration's back half: glue, early stop, C3, C4."""
-        nonlocal aux
-        loss, g = _chamfer_glue(warped, cidx, rarg, y, xv, yv, x_len, y_len,
-                                trunc)
-        if n_ldmk > 0:
-            diff = (warped - ltgt) * lmask[:, None]
-            loss = torch.sum(diff * diff) / lcount + w_cd * loss
-            g = (2.0 / lcount) * diff + w_cd * g
-        g_nr = zeros_nr
-        if w_eff > 0:
-            # the BCE of nr against zeros over all valid rows and its exact
-            # gradient, in plain torch as the JAX package computes it in XLA
-            # (reference registration.py:216-220)
-            reg, vjp = torch.func.vjp(
-                lambda q: bce_with_zeros_target(q, row_valid), nr)
-            loss = loss + w_eff * reg
-            (g_nr,) = vjp(torch.tensor(w_eff, device=nr.device))
-        halt, hold = stop.decide(loss, extra_halt)
-        partials = level_warp_bwd(p, x, g, level, pcfg, g_nr)
-        adam_step(p, m, v, partials, stop.applied,
-                  hold.to(torch.float32), lcfg.lr)
-        stop.advance(loss, halt, hold)
-        aux = torch.where(halt, aux, warped)
-
-    def exact():
-        warped, nr = warp()
-        _, cidx, _, rarg = nn_argmin_dual(warped, y, xv, yv)
-        update(warped, nr, cidx, rarg)
-        return warped, cidx, rarg
-
+    w_eff = float(w_reg) if pcfg.nonrigidity_est and level > 0 else 0.0
+    args = (level, pcfg, lcfg, trunc, n_ldmk, w_cd, w_eff)
+    if resweep_every < 2 and w_eff == 0 and t["x"].is_cuda:
+        out = _graph_level(t, shapes, args)
+        if out is not None:
+            return out
+    stop = EarlyStop(lcfg, t["x"].device)
+    warp, update, exact = _level_step(t, stop, *args)
     if resweep_every >= 2:
-        _reuse_loop(stop, exact, warp, update, x, y, xv, yv, resweep_every,
-                    resweep_c, resweep_drift)
+        issued = _reuse_loop(stop, exact, warp, update, t["x"], t["y"],
+                             t["xv"], t["yv"], resweep_every, resweep_c,
+                             resweep_drift)
     else:
-        stop.run(exact)
-    return pyramid.unravel(p, shapes), aux, stop.stats()
+        issued = stop.run(exact)
+    timers.count("fused_level.blocks", -(-issued // SYNC_EVERY))
+    return pyramid.unravel(t["p"], shapes), t["aux"], stop.stats()
 
 
 def _reuse_loop(stop: EarlyStop, exact, warp, update, x: Tensor, y: Tensor,
                 xv: Tensor, yv: Tensor, every: int, c: int,
-                drift_factor: float) -> None:
+                drift_factor: float) -> int:
     """The sweep-reuse schedule of :func:`run_fused_level` (JAX
     ``_reuse_loop``): super-iterations of one exact iteration and
     ``every`` - 1 cheap ones, a static schedule.
@@ -698,7 +937,8 @@ def _reuse_loop(stop: EarlyStop, exact, warp, update, x: Tensor, y: Tensor,
     can cost iterations, never a step in a wrong direction. The host reads
     the stop flag every SYNC_EVERY iterations, exact and cheap alike; once
     the loop is finished every further iteration is a no-op, so leaving
-    at any read gives the result of the JAX loop.
+    at any read gives the result of the JAX loop. Returns the iterations
+    issued.
     """
     big_y = torch.where(yv, 0.0, _BIG)
     big_x = torch.where(xv, 0.0, _BIG)
@@ -725,8 +965,9 @@ def _reuse_loop(stop: EarlyStop, exact, warp, update, x: Tensor, y: Tensor,
             count += 1
             if count % SYNC_EVERY == 0 and stop.finished():
                 stop.count_noops(count)
-                return
+                return count
     stop.count_noops(count)
+    return count
 
 
 def ldmk_iteration_plain(p: Tensor, m: Tensor, v: Tensor, x: Tensor,

@@ -204,7 +204,8 @@ def test_transfer_spans_and_noops_under_the_profiler():
     and then ``dp::solve``, one each and not nested; the fused iteration's
     loops (their plain twins here) count the calls they issued after each
     level's stop as ``early_stop.noops``; the answer is bit-equal with the
-    profiler off."""
+    profiler off; the loops count their blocks of up to SYNC_EVERY calls
+    as ``fused_level.blocks``."""
     src, tgt = _sheet()
     cfg = treg.SolverConfig(pyramid=tpyr.NDPConfig(**PYR),
                             **dict(SOLVE, iters=4 * SYNC_EVERY),
@@ -222,6 +223,7 @@ def test_transfer_spans_and_noops_under_the_profiler():
     iters = stats["iters"].numpy()
     issued = np.minimum(-(-iters // SYNC_EVERY) * SYNC_EVERY, cfg.iters)
     assert (iters < cfg.iters).any()
-    assert timers.counters() == {"early_stop.noops": int((issued - iters)
-                                                         .sum())}
+    assert timers.counters() == {
+        "early_stop.noops": int((issued - iters).sum()),
+        "fused_level.blocks": int((-(-issued // SYNC_EVERY)).sum())}
     assert np.array_equal(off, on)

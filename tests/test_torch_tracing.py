@@ -140,7 +140,8 @@ def test_sweep_reuse_counts_its_held_calls():
     """The sweep-reuse loop with a ~0 drift bound holds every cheap call,
     so a super-iteration of 4 calls applies one: the loop counts the 3
     held ones and, after the stop, the calls until the next read of the
-    flag; outputs bit-equal with the profiler on and off."""
+    flag, and its blocks of up to SYNC_EVERY calls; outputs bit-equal with
+    the profiler on and off."""
     gen = torch.Generator().manual_seed(3)
     pts, tgt = torch.randn(96, 3, generator=gen), torch.randn(
         120, 3, generator=gen)
@@ -162,7 +163,9 @@ def test_sweep_reuse_counts_its_held_calls():
     # the exact call of the last applied iteration, then the next read
     last = 4 * (it - 1) + 1
     issued = min(-(-last // SYNC_EVERY) * SYNC_EVERY, 4 * lcfg.iters)
-    assert timers.counters() == {"early_stop.noops": issued - it}
+    assert timers.counters() == {"early_stop.noops": issued - it,
+                                 "fused_level.blocks":
+                                 -(-issued // SYNC_EVERY)}
     assert issued - it >= 3 * (it - 1)
     assert torch.equal(off[1], on[1]) and off[2]["iters"] == it
     assert all(torch.equal(a, b) for a, b in

@@ -19,7 +19,6 @@ routes come from the same environment variables as ``bench.py``'s:
   BENCH_FUSED_CD    use_fused_chamfer: the one-call chamfer (C12)
   BENCH_TRANSPOSED  transposed: with BENCH_FUSED_WARP, the same kernels on
                     [3, N] points; alone, the plain warp
-  DP_SWEEP_REUSE    sweep reuse in the fused iteration (default 0)
 
 Baseline, as ``bench.py``: the reference's sequential loop at ~1.5 s a pair
 on a desktop GPU, so vs_baseline is against 1 / 1.5 = 0.67 pairs/s.
@@ -74,8 +73,6 @@ def make_cfg(env=os.environ) -> SolverConfig:
         transposed=(bool(int(env["BENCH_TRANSPOSED"]))
                     if "BENCH_TRANSPOSED" in env else None),
         use_fused_iteration=_flag(env, "BENCH_FUSED_ITER", "1"),
-        sweep_reuse=(int(env["DP_SWEEP_REUSE"])
-                     if "DP_SWEEP_REUSE" in env else None),
     )
 
 
@@ -134,8 +131,8 @@ def main(argv: list[str] | None = None) -> dict:
     total_iters = rep_iters[order[len(samples) // 2]]
     ms_per_iter = args.total / pairs_per_sec * 1e3 / max(total_iters, 1)
     routes = {k: getattr(CFG, k) for k in (
-        "use_fused_iteration", "use_fused", "use_fused_chamfer", "transposed",
-        "sweep_reuse")}
+        "use_fused_iteration", "use_fused", "use_fused_chamfer",
+        "transposed")}
     detail = {
         "ms_per_iteration": round(ms_per_iter, 4),
         "lockstep_iters": total_iters,

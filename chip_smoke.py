@@ -170,9 +170,8 @@ non-zero and never prints the closing ``{"ok": true, ...}`` line:
 12. optin   the solver's opt-in routes at the bench configuration on one
             bench pair, each with its own launch counts: the unfused loop
             (control), use_fused (C2, C3, C13 under autograd),
-            use_fused_chamfer (C12 once an iteration), both, use_fused +
-            transposed, and the fused iteration with sweep reuse 4 (C1 on
-            the exact iterations only); EPE >= 10x below the initial flow,
+            use_fused_chamfer (C12 once an iteration), both, and use_fused
+            + transposed; EPE >= 10x below the initial flow,
             iterations in [1, cap], ms/iter and pairs/s of each; then
             cli/eval_nolearned.py with config/NDP.yaml at w_reg 0.2 on two
             fabricated 4DMatch-F pairs: fused (C2 / C3 with the nonrigidity
@@ -3301,8 +3300,6 @@ OPTIN_ROUTES = (
     ("use_fused + use_fused_chamfer", dict(use_fused=True,
                                            use_fused_chamfer=True)),
     ("use_fused + transposed", dict(use_fused=True, transposed=True)),
-    ("fused iteration, sweep reuse 4", dict(use_fused_iteration=True,
-                                            sweep_reuse=4)),
 )
 
 
@@ -3346,29 +3343,20 @@ def optin_phase(dp, dev, kernels):
                   f"optin {tag}: {la[name]} launches of {name} for {iters} "
                   f"iterations")
 
-        fused_warp = opts.get("use_fused", False)
-        if "sweep_reuse" in opts:
-            check(0 < la["nn_dual"] < la["level_warp_fwd"]
-                  and la["level_warp_fwd"] == la["level_warp_bwd"]
-                  == la["adam_step"] and la["chamfer_fused"] == 0,
-                  f"optin {tag}: launches {la}")
-            # one exact sweep a super-iteration of 4
-            check(la["nn_dual"] <= iters + extra, f"optin {tag}: {la}")
+        check(la["ldmk_iteration"] == 0, f"optin {tag}: {la}")
+        if opts.get("use_fused_chamfer"):
+            within("chamfer_fused")
+            check(la["nn_dual"] == 0, f"optin {tag}: C1 launched {la}")
         else:
-            check(la["ldmk_iteration"] == 0, f"optin {tag}: {la}")
-            if opts.get("use_fused_chamfer"):
-                within("chamfer_fused")
-                check(la["nn_dual"] == 0, f"optin {tag}: C1 launched {la}")
-            else:
-                within("nn_dual")
-                check(la["chamfer_fused"] == 0, f"optin {tag}: {la}")
-            if fused_warp:
-                within("level_warp_fwd")
-                check(la["level_warp_bwd"] == la["sum_partials"]
-                      == la["level_warp_fwd"], f"optin {tag}: C3 {la}")
-            else:
-                check(la["level_warp_fwd"] == la["level_warp_bwd"]
-                      == la["sum_partials"] == 0, f"optin {tag}: {la}")
+            within("nn_dual")
+            check(la["chamfer_fused"] == 0, f"optin {tag}: {la}")
+        if opts.get("use_fused", False):
+            within("level_warp_fwd")
+            check(la["level_warp_bwd"] == la["sum_partials"]
+                  == la["level_warp_fwd"], f"optin {tag}: C3 {la}")
+        else:
+            check(la["level_warp_fwd"] == la["level_warp_bwd"]
+                  == la["sum_partials"] == 0, f"optin {tag}: {la}")
         out[tag] = dict(epe=epe, initial=init, iterations=it, seconds=dt,
                         ms_per_iter=dt * 1e3 / iters, pairs_per_s=1.0 / dt,
                         launches={k: v for k, v in la.items() if v})

@@ -93,9 +93,7 @@ def _fused_iter_default(cfg: AttrDict, device: torch.device) -> bool | None:
     ``DP_FUSED_ITER`` > on when the device is CUDA. The per-configuration
     gate (``supports_fused_iteration``) still decides per solve: ``w_reg >
     0`` runs the kernels with the nonrigidity head (``nonrigidity_est``
-    follows ``w_reg``), depth < 2 the unfused loop. ``DP_SWEEP_REUSE``,
-    ``DP_SWEEP_REUSE_C`` and ``DP_SWEEP_REUSE_DRIFT`` reach the fused
-    level loop from the environment, as in the JAX package."""
+    follows ``w_reg``), depth < 2 the unfused loop."""
     explicit = _fused_iter_explicit(cfg)
     if explicit is not None:
         return explicit

@@ -43,19 +43,16 @@ after every iteration. The level kernels cover every ``motion_type`` and
 euler, quaternion, 6D) and the nonrigidity head (``w_reg > 0``: C2 writes
 the head's output beside the warped points, the glue adds the BCE term in
 plain torch as the JAX package adds it in XLA, C3 takes its cotangent), at
-depth >= 2. With ``resweep_every`` (``DP_SWEEP_REUSE``) >= 2 the chamfer
-loop reuses the sweep's association (:func:`_reuse_loop`): one exact
-iteration, then cheap ones that re-warp with C2 alone (the JAX package's
-``_warp_only_kernel``) and walk precomputed k-NN tables. Without it, a
-chamfer-mode level on the card whose shape was seen before replays one
-captured CUDA graph of ``SYNC_EVERY`` iterations between reads of the flag
-(:class:`LevelGraphs`), one host launch where the eager loop makes ~81.
+depth >= 2. One iteration is one function (:func:`_level_step`), and a
+chamfer-mode level runs it one of two ways: on the card, for a shape seen
+before, as replays of one captured CUDA graph of ``SYNC_EVERY`` iterations
+between reads of the flag (:class:`LevelGraphs`), one host launch where the
+eager loop makes ~81; otherwise in the eager loop (:meth:`EarlyStop.run`).
 """
 from __future__ import annotations
 
 import collections
 import math
-import os
 import threading
 import warnings
 
@@ -498,16 +495,11 @@ class EarlyStop:
         for t in (self.counter, self.done, self.it, self.applied):
             t.zero_()
 
-    def decide(self, loss: Tensor, extra_halt: Tensor | None = None
-               ) -> tuple[Tensor, Tensor]:
+    def decide(self, loss: Tensor) -> tuple[Tensor, Tensor]:
         """Book-keep this iteration's loss; returns (halt, hold): halt = the
-        iteration is a no-op, hold = no optimizer step. ``extra_halt`` (a
-        0-d bool tensor) makes the iteration a no-op too: the sweep-reuse
-        loop's stale association."""
+        iteration is a no-op, hold = no optimizer step."""
         cfg = self.cfg
         halt = self.done | (self.it >= cfg.iters)
-        if extra_halt is not None:
-            halt = halt | extra_halt
         run = ~halt
         small = loss < cfg.loss_eps
         plateau = torch.abs(self.loss_prev - loss) \
@@ -542,48 +534,15 @@ class EarlyStop:
     def count_noops(self, issued: int) -> None:
         """While the profiler records, add the calls of the loop's step
         that applied nothing (those after the stop, until the host read
-        the flag; in the sweep-reuse loop a stale association's too) to
-        the counter ``early_stop.noops``: ``issued`` less ``it``. The read
-        of ``it`` is a host read, made once the loop has left, where the
-        read of the flag has as a rule drained the device already."""
+        the flag) to the counter ``early_stop.noops``: ``issued`` less
+        ``it``. The read of ``it`` is a host read, made once the loop has
+        left, where the read of the flag has as a rule drained the device
+        already."""
         if timers.recording():
             timers.count("early_stop.noops", issued - int(self.it))
 
     def stats(self) -> dict[str, Tensor]:
         return {"iters": self.it, "loss": self.loss}
-
-
-_BIG = 3.0e38           # the +BIG of an invalid row in the k-NN tables
-
-
-def _knn_table(pts: Tensor, big: Tensor, c: int) -> tuple[Tensor, Tensor]:
-    """[P, c] indices of each row's c nearest rows (itself at column 0) and
-    each row's squared distance to its nearest other row, as the JAX
-    package's ``_knn_table``: the [P, P] product form in float32
-    (``torch.matmul``; the port leaves TF32 off, ``chip_smoke.py`` checks)
-    and ``torch.topk``; ``big`` carries +BIG at invalid rows, so that they
-    are never candidates. Built once a level; not a kernel in the JAX
-    package either (XLA)."""
-    sq = torch.sum(pts * pts, dim=-1)
-    d = sq[:, None] + sq[None, :] - 2.0 * (pts @ pts.T)
-    d = torch.clamp_min(d, 0.0) + big[None, :]
-    neg, idx = torch.topk(-d, min(c, pts.shape[0]), dim=1)
-    nn_other = -neg[:, 1] if neg.shape[1] > 1 else torch.zeros_like(neg[:, 0])
-    return idx, nn_other
-
-
-def _walk(w: Tensor, q: Tensor, knn: Tensor, big: Tensor,
-          cur: Tensor) -> Tensor:
-    """One hop of the association walk: for each row of ``q`` the nearest
-    of the k-NN candidates (in ``w``'s index space) of its current nearest
-    row ``cur``; ``big`` keeps invalid candidates out."""
-    cand = knn[cur]                                        # [Q, c]
-    d = torch.sum((q[:, None, :] - w[cand]) ** 2, dim=-1) + big[cand]
-    return torch.gather(cand, 1, torch.argmin(d, dim=1, keepdim=True))[:, 0]
-
-
-def _reuse_env(value, name: str, default: str, cast):
-    return cast(os.environ.get(name, default)) if value is None else value
 
 
 GRAPH_CACHE_SIZE = 32   # level shapes a LevelGraphs keeps (seen, or a graph)
@@ -746,17 +705,20 @@ def _level_tensors(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
 def _level_step(t: dict[str, Tensor], stop: EarlyStop, level: int,
                 pcfg: pyramid.NDPConfig, lcfg, trunc: float, n_ldmk: int,
                 w_cd: float, w_eff: float):
-    """The chamfer-mode iteration on the tensors ``t`` and ``stop``, every
-    result written in place: (warp, update, exact), the warp (C2), the
-    back half (glue, early stop, C3, C4) and one exact iteration."""
+    """One exact chamfer-mode iteration on the tensors ``t`` and ``stop``,
+    every result written in place: the warp (C2, with the head's output
+    where it has one), the sweep (C1), the glue with C6 and the landmark
+    term, the BCE term where ``w_eff > 0``, the early stop, C3, C4 and the
+    hand-off of the warped points to ``aux``. The eager loop calls it, and
+    a captured block records it."""
     p, m, v, x, y, aux = (t[k] for k in ("p", "m", "v", "x", "y", "aux"))
 
-    def warp():
+    def step():
         if pcfg.nonrigidity_est:
-            return level_warp_fwd_nr(p, x, level, pcfg)
-        return level_warp_fwd(p, x, level, pcfg), None
-
-    def update(warped, nr, cidx, rarg, extra_halt=None):
+            warped, nr = level_warp_fwd_nr(p, x, level, pcfg)
+        else:
+            warped, nr = level_warp_fwd(p, x, level, pcfg), None
+        _, cidx, _, rarg = nn_argmin_dual(warped, y, t["xv"], t["yv"])
         loss, g = _chamfer_glue(warped, cidx, rarg, y, t["xv"], t["yv"],
                                 t["x_len"], t["y_len"], trunc)
         if n_ldmk > 0:
@@ -772,20 +734,14 @@ def _level_step(t: dict[str, Tensor], stop: EarlyStop, level: int,
                 lambda q: bce_with_zeros_target(q, t["row_valid"]), nr)
             loss = loss + w_eff * reg
             (g_nr,) = vjp(torch.tensor(w_eff, device=nr.device))
-        halt, hold = stop.decide(loss, extra_halt)
+        halt, hold = stop.decide(loss)
         partials = level_warp_bwd(p, x, g, level, pcfg, g_nr)
         adam_step(p, m, v, partials, stop.applied,
                   hold.to(torch.float32), lcfg.lr)
         stop.advance(loss, halt, hold)
         torch.where(halt, aux, warped, out=aux)
 
-    def exact():
-        warped, nr = warp()
-        _, cidx, _, rarg = nn_argmin_dual(warped, y, t["xv"], t["yv"])
-        update(warped, nr, cidx, rarg)
-        return warped, cidx, rarg
-
-    return warp, update, exact
+    return step
 
 
 def _graph_level(t: dict[str, Tensor], shapes, args: tuple):
@@ -832,9 +788,9 @@ def _capture_level(t: dict[str, Tensor], pool, args: tuple):
     static = {k: s.clone() for k, s in t.items()}
     _, _, lcfg, *_ = args
     stop = EarlyStop(lcfg, t["x"].device)
-    exact = _level_step(static, stop, *args)[2]
+    step = _level_step(static, stop, *args)
     try:
-        graph = _LevelGraph(static, stop, exact, pool)
+        graph = _LevelGraph(static, stop, step, pool)
     except RuntimeError as err:
         warnings.warn(f"run_fused_level: the capture of a level's block "
                       f"failed, the level runs eagerly: {err}")
@@ -849,9 +805,7 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
                     pcfg: pyramid.NDPConfig, lcfg, trunc: float = 1e9,
                     n_ldmk: int = 0, tgt_ldmk: Tensor | None = None,
                     ldmk_valid: Tensor | None = None, w_cd: float = 1.0,
-                    w_reg: float = 0.0, resweep_every: int | None = None,
-                    resweep_c: int | None = None,
-                    resweep_drift: float | None = None):
+                    w_reg: float = 0.0):
     """Adam-optimize one pyramid level with the fused iteration.
 
     Drop-in for the unfused level loop (``solve/loop.run_adam_loop`` with
@@ -866,21 +820,14 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
     of the nonrigidity against zeros at level > 0, whose gradient C3 takes
     as the nonrigidity's cotangent.
 
-    ``resweep_every`` = T >= 2 (default: the ``DP_SWEEP_REUSE`` environment
-    variable, 0) reuses the sweep's association: each super-iteration is
-    one exact iteration (C2, C1, glue, C3, C4) and T - 1 cheap ones (C2, a
-    one-hop walk on k-NN tables of ``resweep_c`` rows, ``DP_SWEEP_REUSE_C``
-    = 8, glue, C3, C4), which hold (no step, no iteration counted) once
-    the warp has moved more than ``resweep_drift`` (``DP_SWEEP_REUSE_DRIFT``
-    = 1.0) times the target's median nearest-neighbour spacing since the
-    exact sweep (JAX ``run_fused_level`` / ``_reuse_loop``).
-
-    On CUDA tensors, without sweep reuse and without the BCE term, a shape
+    A level runs one of two ways, both calling the one iteration of
+    :func:`_level_step`. On CUDA tensors, without the BCE term, a shape
     seen before (:class:`LevelGraphs`) runs as replays of one captured CUDA
     graph of ``SYNC_EVERY`` iterations, the host reading the stop flag
     after each: the same kernels with the same arguments in the same
     order, so the same result as the eager loop, bit for bit, with one
-    host launch a block. Counters (while the profiler records):
+    host launch a block. Every other level runs the eager loop
+    (:meth:`EarlyStop.run`). Counters (while the profiler records):
     ``fused_level.blocks`` (blocks of up to ``SYNC_EVERY`` calls issued by
     the loop, either way), ``fused_level.graph_replays``,
     ``fused_level.graph_captures`` and ``fused_level.graph_failures``.
@@ -895,79 +842,20 @@ def run_fused_level(lvl_params: dict, pts: Tensor, pts_valid: Tensor,
     if not covered:
         raise ValueError("run_fused_level: configuration not covered by the "
                          "kernels; use the unfused loop")
-    resweep_every = _reuse_env(resweep_every, "DP_SWEEP_REUSE", "0", int)
-    resweep_c = _reuse_env(resweep_c, "DP_SWEEP_REUSE_C", "8", int)
-    resweep_drift = _reuse_env(resweep_drift, "DP_SWEEP_REUSE_DRIFT", "1.0",
-                               float)
     shapes = pyramid.level_shapes(pcfg)
     t = _level_tensors(lvl_params, pts, pts_valid, t_sample, t_valid, n_ldmk,
                        tgt_ldmk, ldmk_valid, pcfg)
     # the regulariser's weight, gated at level 0 (where nr is all ones)
     w_eff = float(w_reg) if pcfg.nonrigidity_est and level > 0 else 0.0
     args = (level, pcfg, lcfg, trunc, n_ldmk, w_cd, w_eff)
-    if resweep_every < 2 and w_eff == 0 and t["x"].is_cuda:
+    if w_eff == 0 and t["x"].is_cuda:
         out = _graph_level(t, shapes, args)
         if out is not None:
             return out
     stop = EarlyStop(lcfg, t["x"].device)
-    warp, update, exact = _level_step(t, stop, *args)
-    if resweep_every >= 2:
-        issued = _reuse_loop(stop, exact, warp, update, t["x"], t["y"],
-                             t["xv"], t["yv"], resweep_every, resweep_c,
-                             resweep_drift)
-    else:
-        issued = stop.run(exact)
+    issued = stop.run(_level_step(t, stop, *args))
     timers.count("fused_level.blocks", -(-issued // SYNC_EVERY))
     return pyramid.unravel(t["p"], shapes), t["aux"], stop.stats()
-
-
-def _reuse_loop(stop: EarlyStop, exact, warp, update, x: Tensor, y: Tensor,
-                xv: Tensor, yv: Tensor, every: int, c: int,
-                drift_factor: float) -> int:
-    """The sweep-reuse schedule of :func:`run_fused_level` (JAX
-    ``_reuse_loop``): super-iterations of one exact iteration and
-    ``every`` - 1 cheap ones, a static schedule.
-
-    The k-NN tables are built once a level: the target's in target space
-    (a fixed cloud, so exact for good), the source's in source space (a
-    smooth warp keeps neighbourhoods). Column 0 of a row is the row itself,
-    so a walk never loses its current candidate. A cheap iteration that
-    finds the warp moved more than the drift bound since the exact sweep
-    holds, and so do the rest of its super-iteration: a stale association
-    can cost iterations, never a step in a wrong direction. The host reads
-    the stop flag every SYNC_EVERY iterations, exact and cheap alike; once
-    the loop is finished every further iteration is a no-op, so leaving
-    at any read gives the result of the JAX loop. Returns the iterations
-    issued.
-    """
-    big_y = torch.where(yv, 0.0, _BIG)
-    big_x = torch.where(xv, 0.0, _BIG)
-    knn_y, nn_y = _knn_table(y, big_y, c)
-    knn_x, _ = _knn_table(x, big_x, c)
-    d1 = torch.sqrt(torch.clamp_min(torch.where(yv, nn_y, math.inf), 0.0))
-    mid = (torch.clamp_min(yv.sum(), 1) - 1) // 2
-    med = torch.sort(d1).values.gather(0, mid.reshape(1))[0]
-    bound = drift_factor * med if drift_factor > 0 else \
-        torch.tensor(math.inf, device=y.device)
-    count = 0
-    for _ in range(stop.cfg.iters):
-        wref, cidx, rarg = exact()
-        stale = torch.zeros((), dtype=torch.bool, device=y.device)
-        for sub in range(every):
-            if sub > 0:
-                warped, nr = warp()
-                cidx = _walk(y, warped, knn_y, big_y, cidx)
-                rarg = _walk(warped, y, knn_x, big_x, rarg)
-                drift = torch.max(torch.where(xv[:, None],
-                                              torch.abs(warped - wref), 0.0))
-                stale = stale | (drift > bound)
-                update(warped, nr, cidx, rarg, stale)
-            count += 1
-            if count % SYNC_EVERY == 0 and stop.finished():
-                stop.count_noops(count)
-                return count
-    stop.count_noops(count)
-    return count
 
 
 def ldmk_iteration_plain(p: Tensor, m: Tensor, v: Tensor, x: Tensor,

@@ -18,9 +18,9 @@ With ``use_fused_iteration`` set and a configuration the kernels cover,
 each level runs:
 
   =====================================  ==================================
-  chamfer mode (``w_reg > 0`` with the   ``run_fused_level`` (C2, C1, C3, C4;
-  nonrigidity head too), or landmarks    ``sweep_reuse`` >= 2: C2 alone on
-  + w_cd > 0                             the cheap iterations)
+  chamfer mode (``w_reg > 0`` with the   ``run_fused_level`` (C2, C1, C3, C4
+  nonrigidity head too), or landmarks    every iteration: a captured graph
+  + w_cd > 0                             or the eager loop)
   landmarks, w_cd == 0, use_fused_ldmk   ``run_fused_level_ldmk`` (C5)
   otherwise                              the unfused loop
   =====================================  ==================================
@@ -93,10 +93,6 @@ class SolverConfig:
     # of use_fused_iteration; None/False = the unfused loop, as in the JAX
     # package's default.
     use_fused_ldmk: bool | None = None
-    # Sweep reuse in the fused iteration: T >= 2 runs one exact sweep per
-    # T iterations (run_fused_level); None = the DP_SWEEP_REUSE
-    # environment variable (default 0, an exact sweep every iteration).
-    sweep_reuse: int | None = None
 
     def loop_config(self) -> LoopConfig:
         return LoopConfig(iters=self.iters, lr=self.lr,
@@ -129,16 +125,14 @@ def _solve_level(lvl_params: dict, lvl: int, pts: Tensor, pts_valid: Tensor,
         if supports_fused_iteration(pcfg, cfg.w_reg, n_ldmk):
             return run_fused_level(lvl_params, pts, pts_valid, t_sample,
                                    t_valid, lvl, pcfg, lcfg,
-                                   trunc=cfg.trunc_chamfer, w_reg=cfg.w_reg,
-                                   resweep_every=cfg.sweep_reuse)
+                                   trunc=cfg.trunc_chamfer, w_reg=cfg.w_reg)
         if supports_fused_iteration_ldmk(pcfg, cfg.w_reg, n_ldmk):
             if cfg.w_cd > 0:
                 return run_fused_level(lvl_params, pts, pts_valid, t_sample,
                                        t_valid, lvl, pcfg, lcfg,
                                        trunc=cfg.trunc_cd, n_ldmk=n_ldmk,
                                        tgt_ldmk=tgt_ldmk,
-                                       ldmk_valid=ldmk_valid, w_cd=cfg.w_cd,
-                                       resweep_every=cfg.sweep_reuse)
+                                       ldmk_valid=ldmk_valid, w_cd=cfg.w_cd)
             if cfg.use_fused_ldmk:
                 return run_fused_level_ldmk(lvl_params, pts, ldmk_valid,
                                             tgt_ldmk, lvl, pcfg, lcfg)

@@ -10,12 +10,10 @@ does, with the port's bit-identical copy of ``write_4dmatch_suite``, and
 checks that the first four 4DMatch-F pairs have 26968 / 1392 / 29750 / 3158
 source points. Then it runs ``cli/eval_nolearned.py --config
 config/NDP.yaml`` over both splits once per mode (``fast``: the fixed-shape
-fast path; ``nofast``: ``--no-fast``; ``reuse4``: the fast path with
-``DP_SWEEP_REUSE=4``), prints each sweep's pairs/s, and compares each
-ledger with the JAX package's TPU ledger of the same split
-(``scripts/parity_torch_vs_ledger.py``): ``snapshot/onchip_r5/`` for
-``fast`` and ``nofast``, ``snapshot/onchip_r4/ndp_suite_reuse/`` for
-``reuse4`` (4DMatch-F only). Two modes are also compared with each other.
+fast path; ``nofast``: ``--no-fast``), prints each sweep's pairs/s, and
+compares each ledger with the JAX package's TPU ledger of the same split
+in ``snapshot/onchip_r5/`` (``scripts/parity_torch_vs_ledger.py``). The
+two modes are also compared with each other.
 Last, ``--profile-pairs`` pairs of 4DMatch-F run again through the fast
 path under ``torch.profiler``: the device-busy share of the window, the
 launches an iteration and the top kernels.
@@ -42,12 +40,10 @@ FIRST_SIZES = [26968, 1392, 29750, 3158]
 JAX_LEDGERS = {
     ("fast", "4DMatch-F"): "snapshot/onchip_r5/ndp_suite_rep/4DMatch-F.pairs.jsonl",
     ("fast", "4DLoMatch-F"): "snapshot/onchip_r5/lo_suite_rep/4DLoMatch-F.pairs.jsonl",
-    ("reuse4", "4DMatch-F"): "snapshot/onchip_r4/ndp_suite_reuse/4DMatch-F.pairs.jsonl",
 }
 JAX_LEDGERS[("nofast", "4DMatch-F")] = JAX_LEDGERS[("fast", "4DMatch-F")]
 JAX_LEDGERS[("nofast", "4DLoMatch-F")] = JAX_LEDGERS[("fast", "4DLoMatch-F")]
-MODE_ARGS = {"fast": ([], {}), "nofast": (["--no-fast"], {}),
-             "reuse4": ([], {"DP_SWEEP_REUSE": "4"})}
+MODE_ARGS = {"fast": [], "nofast": ["--no-fast"]}
 
 
 def _ledger_tool():
@@ -68,15 +64,13 @@ def fabricate(root: str) -> list[int]:
 
 
 def sweep(mode: str, out: Path) -> dict:
-    """One CLI run over both splits in a process of its own (the sweep
-    reuse setting is read from the environment)."""
-    extra, env = MODE_ARGS[mode]
+    """One CLI run over both splits in a process of its own."""
+    extra = MODE_ARGS[mode]
     log_dir = out / mode
     cmd = [sys.executable, "-m", "deformationpyramid_tpu_torch.cli.eval_nolearned",
            "--config", "config/NDP.yaml", "--log-dir", str(log_dir), *extra]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, env={**os.environ, **env},
-                          capture_output=True, text=True)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True)
     wall = time.perf_counter() - t0
     (out / f"{mode}.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:

@@ -54,16 +54,21 @@ def test_main_prints_the_bench_line(monkeypatch, capsys):
 def test_routes_follow_the_environment():
     cfg = bench_torch.make_cfg({})
     assert cfg.use_fused_iteration and not cfg.use_fused
-    assert cfg.transposed is None and cfg.sweep_reuse is None
+    assert cfg.transposed is None
     cfg = bench_torch.make_cfg({"BENCH_FUSED_ITER": "0",
                                 "BENCH_FUSED_WARP": "1",
                                 "BENCH_FUSED_CD": "1",
-                                "BENCH_TRANSPOSED": "1",
-                                "DP_SWEEP_REUSE": "4"})
+                                "BENCH_TRANSPOSED": "1"})
     assert not cfg.use_fused_iteration
     assert cfg.use_fused and cfg.use_fused_chamfer and cfg.transposed
-    assert cfg.sweep_reuse == 4
     assert cfg.pyramid.width == 128 and cfg.samples == 2000
+
+
+def test_bench_cfg_ignores_sweep_reuse():
+    """``DP_SWEEP_REUSE`` chooses no route: the bench's config is the same
+    with it and without it."""
+    assert bench_torch.make_cfg({"DP_SWEEP_REUSE": "4"}) \
+        == bench_torch.make_cfg({})
 
 
 def test_streaming_is_not_ported(monkeypatch, capsys):

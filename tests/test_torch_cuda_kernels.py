@@ -966,8 +966,7 @@ def test_fused_level_warp_launches_c2_c3_c13(dev, transposed):
 
 
 @pytest.mark.parametrize("opts", [dict(use_fused=True, use_fused_chamfer=True),
-                                  dict(use_fused_iteration=True,
-                                       sweep_reuse=4),
+                                  dict(use_fused_iteration=True),
                                   dict(use_fused_iteration=True, w_reg=0.2)])
 def test_optin_routes_match_cpu(dev, opts):
     """A small solve through each opt-in route on the card against the same

@@ -12,8 +12,7 @@ yaml's further options: sflow, SE3 + quaternion, SE3 + 6D, Sim3 +
 quaternion (level loops of those at the JAX tests' own horizons and
 tolerances, tests/test_fused_iteration.py:289-297), and the nonrigidity
 head (``w_reg > 0``) at levels 0 and 1: the warped points 1e-5 and the
-nonrigidity 1e-6, one Adam step 1e-5. The sweep-reuse k-NN table: equal
-indices, distances 1e-5.
+nonrigidity 1e-6, one Adam step 1e-5.
 Tolerances: warped points 1e-5, indices equal up to near-ties < 3e-4
 relative, glue value 1e-6 and gradient 1e-5, one Adam step 1e-5 (with
 ``done`` bit-exact), a 25-iteration level loop equal iteration count, loss
@@ -375,23 +374,6 @@ def test_kernel2_nonrigid_matches_bwd_adam_call(level):
         assert (got - ref[k]).abs().max() < 1e-5, k
     nr_m = tpyr.unravel(m, tpyr.level_shapes(tcfg))["nr"]
     assert (level > 0) == bool(nr_m["w"].any() or nr_m["b"].any())
-
-
-def test_knn_table_matches_jax():
-    """The sweep-reuse k-NN table against JAX ``_knn_table``: the same
-    indices (no ties in these points), itself at column 0, the
-    nearest-other distance within 1e-5; invalid rows are no candidates."""
-    rng = np.random.default_rng(3)
-    pts = rng.standard_normal((40, 3)).astype(np.float32)
-    valid = np.arange(40) < 36
-    jidx, jnn = jfi._knn_table(jnp.asarray(pts),
-                               jnp.where(jnp.asarray(valid), 0.0, jfi._BIG), 6)
-    idx, nn = tfi._knn_table(_t(pts), torch.where(_t(valid), 0.0, tfi._BIG),
-                             6)
-    assert np.array_equal(idx.numpy(), np.asarray(jidx))
-    assert (idx[:36, 0] == torch.arange(36)).all()
-    assert not (idx >= 36).any()
-    assert np.abs(nn.numpy()[:36] - np.asarray(jnn)[:36]).max() < 1e-5
 
 
 def test_adam_step_bias_correction_by_applied_steps():

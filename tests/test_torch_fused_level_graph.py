@@ -8,8 +8,10 @@ capture, later replay, a failed capture eager, the LRU bound); the graph
 path's plumbing with a fake graph whose replay calls the captured step
 (bit-equal to the eager loop, nothing handed out aliasing the graph's
 tensors, the counters, each kernel's launches counted at each replay and
-not at the capture); and ``run_fused_level`` on CPU tensors against a
-frozen copy of the loop as it was before the graph, bit for bit.
+not at the capture); ``run_fused_level`` on CPU tensors against a
+frozen copy of the loop as it was before the graph, bit for bit;
+``_level_step``'s one iteration called by hand against the loop, bit for
+bit; and the loop reading no route from the environment.
 
 Marked ``cuda`` (each skips without a card; the decision is taken in a
 fixture): eager against capture and replay bit for bit on the card, at
@@ -23,6 +25,7 @@ card run
 ``python -m pytest --noconftest tests/test_torch_fused_level_graph.py -m
 cuda -q``.
 """
+import os
 import types
 
 import pytest
@@ -45,11 +48,9 @@ class _Rebinding(tfi.EarlyStop):
     """The early stop's book-keeping as it was before it updated in place:
     every result a new tensor bound to the attribute."""
 
-    def decide(self, loss, extra_halt=None):
+    def decide(self, loss):
         cfg = self.cfg
         halt = self.done | (self.it >= cfg.iters)
-        if extra_halt is not None:
-            halt = halt | extra_halt
         run = ~halt
         small = loss < cfg.loss_eps
         plateau = torch.abs(self.loss_prev - loss) \
@@ -85,19 +86,18 @@ def _plateau(n):
     return [1.0] + [1.0 - 1e-5 * k for k in range(1, n)]
 
 
-@pytest.mark.parametrize("losses,extra,cfg", [
+@pytest.mark.parametrize("losses,cfg", [
     # a plateau: the counter reaches max_break_count
-    (_plateau(12), None, LoopConfig(iters=50, max_break_count=4)),
+    (_plateau(12), LoopConfig(iters=50, max_break_count=4)),
     # a loss under loss_eps stops at once
-    ([0.5, 0.25, 5e-5, 0.1, 0.1], None, LoopConfig(iters=50)),
+    ([0.5, 0.25, 5e-5, 0.1, 0.1], LoopConfig(iters=50)),
     # the cap: no iteration applies past iters
-    ([1.0 / (k + 1) for k in range(9)], None, LoopConfig(iters=5)),
-    # the sweep-reuse loop's stale association halts some iterations
-    ([1.0, 0.9, 0.8, 0.8, 0.7, 0.6, 0.6],
-     [False, True, False, False, True, False, False],
+    ([1.0 / (k + 1) for k in range(9)], LoopConfig(iters=5)),
+    # plateaus apart from each other add up to max_break_count
+    ([1.0, 0.9, 0.8, 0.8, 0.7, 0.6, 0.6, 0.5],
      LoopConfig(iters=50, max_break_count=2)),
 ])
-def test_early_stop_in_place_matches_rebinding(losses, extra, cfg):
+def test_early_stop_in_place_matches_rebinding(losses, cfg):
     """``decide`` / ``advance`` give the values of the rebinding version
     at every step, and each state tensor keeps its identity and storage
     across calls (C4 and C5 read them through pointers, a graph's replay
@@ -107,9 +107,8 @@ def test_early_stop_in_place_matches_rebinding(losses, extra, cfg):
     ids = [(id(getattr(new, k)), getattr(new, k).data_ptr()) for k in STATE]
     for k, value in enumerate(losses):
         loss = torch.tensor(value, dtype=torch.float32)
-        stale = None if extra is None else torch.tensor(extra[k])
-        got = new.decide(loss, stale)
-        want = old.decide(loss, stale)
+        got = new.decide(loss)
+        want = old.decide(loss)
         assert [bool(t) for t in got] == [bool(t) for t in want]
         new.advance(loss, *got)
         old.advance(loss, *want)
@@ -416,8 +415,8 @@ def test_busy_cache_runs_eagerly(fake_graphs):
 def _frozen_level(lvl_params, pts, pts_valid, t_sample, t_valid, level, pcfg,
                   lcfg, trunc=1e9, n_ldmk=0, tgt_ldmk=None, ldmk_valid=None,
                   w_cd=1.0, w_reg=0.0):
-    """``run_fused_level`` without sweep reuse as it stood before the level
-    graph: every state a new tensor each iteration."""
+    """``run_fused_level`` as it stood before the level graph: every state
+    a new tensor each iteration."""
     from deformationpyramid_tpu_torch.losses import bce_with_zeros_target
 
     shapes = tpyr.level_shapes(pcfg)
@@ -505,6 +504,52 @@ def test_run_fused_level_on_cpu_unchanged(monkeypatch, mode):
     assert not graphs._keys
     if mode == "capped":
         assert int(got[2]["iters"]) == 20
+
+
+@pytest.mark.parametrize("k", [1, 8, 13])
+def test_level_step_matches_the_loop(k):
+    """``_level_step``'s one function, called k times by hand on a level's
+    tensors, gives the params, aux, iterations and loss of
+    ``run_fused_level`` capped at k iterations, bit for bit: the one
+    iteration that the eager loop calls and a captured block records."""
+    params, pts, pv, tgt, tv, _ = _level()
+    lcfg = LoopConfig(iters=k)
+    want = tfi.run_fused_level(params, pts, pv, tgt, tv, LEVEL, CFG, lcfg)
+    t = tfi._level_tensors(params, pts, pv, tgt, tv, 0, None, None, CFG)
+    stop = tfi.EarlyStop(lcfg, torch.device("cpu"))
+    step = tfi._level_step(t, stop, LEVEL, CFG, lcfg, 1e9, 0, 1.0, 0.0)
+    for _ in range(k):
+        step()
+    got = (tpyr.unravel(t["p"], tpyr.level_shapes(CFG)), t["aux"],
+           stop.stats())
+    assert _equal(got, want)
+    assert int(stop.it) == k
+
+
+def test_run_fused_level_reads_no_environment(monkeypatch):
+    """The level loop takes no route from the environment: the module
+    holds no handle on it, and with every read of ``os.environ`` raising,
+    a level's outputs and counters are bit-equal to a run beside it."""
+    assert not {"os", "environ", "getenv"} & set(vars(tfi))
+    monkeypatch.setattr(timers, "recording", lambda: True)
+    inputs, lcfg = _level(), LoopConfig(iters=30)
+    timers.reset_counters()
+    plain, plain_counts = _eager_run(inputs, lcfg), _counts()
+
+    class _NoEnviron(dict):
+        def _read(self, *a, **k):
+            raise AssertionError("the level loop read the environment")
+        __getitem__ = get = __contains__ = __iter__ = keys = items = _read
+
+    timers.reset_counters()
+    with monkeypatch.context() as m:
+        m.setattr(os, "environ", _NoEnviron())
+        sealed = _eager_run(inputs, lcfg)
+    sealed_counts = _counts()
+    timers.reset_counters()
+    assert _equal(sealed, plain)
+    assert sealed_counts == plain_counts
+    assert plain_counts["fused_level.blocks"] > 0
 
 
 # --- on the card -------------------------------------------------------------

@@ -48,10 +48,9 @@ for fused in (False, True):
     warped, stats = dp.register_pair(0, torch.from_numpy(src),
                                      torch.from_numpy(tgt), cfg)
     assert torch.isfinite(warped).all()
-# the opt-in routes, the nonrigidity head and sweep reuse
+# the opt-in routes and the nonrigidity head
 for opts in (dict(use_fused=True, use_fused_chamfer=True),
-             dict(use_fused=True, transposed=True),
-             dict(use_fused_iteration=True, sweep_reuse=4)):
+             dict(use_fused=True, transposed=True)):
     cfg = dp.SolverConfig(pyramid=dp.NDPConfig(m=2, width=16), iters=5,
                           samples=80, **opts)
     warped, _ = dp.register_pair(0, torch.from_numpy(src),

@@ -136,42 +136,6 @@ def test_solve_span_and_launch_counter():
     assert timers.counters() == {"early_stop.noops": per_level.sum()}
 
 
-def test_sweep_reuse_counts_its_held_calls():
-    """The sweep-reuse loop with a ~0 drift bound holds every cheap call,
-    so a super-iteration of 4 calls applies one: the loop counts the 3
-    held ones and, after the stop, the calls until the next read of the
-    flag, and its blocks of up to SYNC_EVERY calls; outputs bit-equal with
-    the profiler on and off."""
-    gen = torch.Generator().manual_seed(3)
-    pts, tgt = torch.randn(96, 3, generator=gen), torch.randn(
-        120, 3, generator=gen)
-    pv = torch.ones(96, dtype=torch.bool)
-    tv = torch.ones(120, dtype=torch.bool)
-    lvl = tpyr.level_params(tpyr.init_pyramid_params(gen, SOLVE.pyramid), 1)
-    lcfg = LoopConfig(iters=25, lr=0.01, max_break_count=15,
-                      break_threshold_ratio=0.001)
-
-    def level():
-        return tfi.run_fused_level(lvl, pts, pv, tgt, tv, 1, SOLVE.pyramid,
-                                   lcfg, resweep_every=4,
-                                   resweep_drift=1e-12)
-
-    off = level()
-    with _profiled([]):
-        on = level()
-    it = int(on[2]["iters"])
-    # the exact call of the last applied iteration, then the next read
-    last = 4 * (it - 1) + 1
-    issued = min(-(-last // SYNC_EVERY) * SYNC_EVERY, 4 * lcfg.iters)
-    assert timers.counters() == {"early_stop.noops": issued - it,
-                                 "fused_level.blocks":
-                                 -(-issued // SYNC_EVERY)}
-    assert issued - it >= 3 * (it - 1)
-    assert torch.equal(off[1], on[1]) and off[2]["iters"] == it
-    assert all(torch.equal(a, b) for a, b in
-               zip(tree_leaves(off[0]), tree_leaves(on[0])))
-
-
 def test_outputs_bit_equal_with_the_profiler_on_and_off():
     off_w, off_s = _solve()
     with _profiled([]):
